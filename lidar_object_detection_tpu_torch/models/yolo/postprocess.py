@@ -1,0 +1,253 @@
+"""YOLO decode, NMS and mask assembly on tensors.
+
+Counterpart of ``lidar_object_detection_tpu/models/yolo/postprocess.py``
+for the serving path: letterbox preprocessing, DFL box decoding, the static
+top-k candidate gather, greedy NMS, un-letterboxing, and the native-
+resolution mask assembly of ultralytics' ``process_mask_native``
+(sigmoid(coef @ protos) -> strip the letterbox padding at proto resolution
+-> bilinear resize -> crop to the box -> threshold), emitted as one packed
+32-bit word per pixel.
+
+Ported: the probability-space, absolute-threshold assembly with the
+guarded-shrink floor (the committed checkpoints' serving point).  The JAX
+module's logit-space, relative-threshold and bf16 ``fast`` mask modes, and
+its Pallas NMS option, are not.
+
+The decode runs over a batch: (B, ...) tensors where the JAX package
+vmapped a per-frame function.  Mask assembly runs per frame through
+:func:`_finish_masks`, which takes kernels K3/K2 on CUDA tensors (the
+stack-free design, ``postprocess.py:400-424`` of the JAX package) and
+their plain twins on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from lidar_object_detection_tpu_torch.models.yolo.model import (
+    REG_MAX, STRIDES)
+from lidar_object_detection_tpu_torch.ops import mask_assembly
+from lidar_object_detection_tpu_torch.ops.nms import nms
+from lidar_object_detection_tpu_torch.ops.resize import resize_hw
+
+
+@dataclasses.dataclass(frozen=True)
+class LetterboxSpec:
+    """Static letterbox geometry (ultralytics ``LetterBox``, ``auto=True``,
+    stride 32): scale the long side to ``imgsz``, pad the short side to the
+    next stride multiple, split the padding with round(x -/+ 0.1)."""
+
+    src_h: int
+    src_w: int
+    dst_h: int
+    dst_w: int
+    scaled_h: int
+    scaled_w: int
+    top: int
+    left: int
+    ratio: float
+
+    @staticmethod
+    def build(src_h: int, src_w: int, imgsz: int = 640,
+              stride: int = 32) -> "LetterboxSpec":
+        r = min(imgsz / src_h, imgsz / src_w)
+        new_w, new_h = round(src_w * r), round(src_h * r)
+        dw = (-new_w) % stride
+        dh = (-new_h) % stride
+        top = int(round(dh / 2 - 0.1))
+        left = int(round(dw / 2 - 0.1))
+        return LetterboxSpec(
+            src_h=src_h, src_w=src_w, dst_h=new_h + dh, dst_w=new_w + dw,
+            scaled_h=new_h, scaled_w=new_w, top=top, left=left, ratio=r)
+
+
+def letterbox_image(image: torch.Tensor, spec: LetterboxSpec,
+                    pad_value: float = 114 / 255) -> torch.Tensor:
+    """(..., H0, W0, 3) float in [0, 1] -> (..., dst_h, dst_w, 3)."""
+    resized = resize_hw(image, spec.scaled_h, spec.scaled_w)
+    out = torch.full((*image.shape[:-3], spec.dst_h, spec.dst_w, 3),
+                     pad_value, dtype=image.dtype, device=image.device)
+    out[..., spec.top:spec.top + spec.scaled_h,
+        spec.left:spec.left + spec.scaled_w, :] = resized
+    return out
+
+
+def _anchors(level_shapes, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor centres (cell + 0.5) and strides, flattened over levels."""
+    points, strides = [], []
+    for (h, w), s in zip(level_shapes, STRIDES):
+        ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5
+        xs = torch.arange(w, dtype=torch.float32, device=device) + 0.5
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        points.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+        strides.append(torch.full((h * w,), float(s), device=device))
+    return torch.cat(points, 0), torch.cat(strides, 0)
+
+
+def decode_boxes(box_logits: torch.Tensor, level_shapes) -> torch.Tensor:
+    """DFL decode of (..., N, 4 * REG_MAX) logits -> (..., N, 4) xyxy in
+    letterbox pixels."""
+    shape = box_logits.shape[:-1]
+    dist = box_logits.reshape(*shape, 4, REG_MAX).to(torch.float32)
+    dist = dist.softmax(dim=-1) @ torch.arange(
+        REG_MAX, dtype=torch.float32, device=box_logits.device)   # ltrb
+    points, strides = _anchors(level_shapes, box_logits.device)
+    lt, rb = dist[..., :2], dist[..., 2:]
+    x1y1 = (points - lt) * strides[:, None]
+    x2y2 = (points + rb) * strides[:, None]
+    return torch.cat([x1y1, x2y2], -1)
+
+
+def unletterbox_boxes(boxes: torch.Tensor, spec: LetterboxSpec):
+    """Letterbox pixels -> source-image pixels, clipped (scale_boxes)."""
+    shift = torch.tensor([spec.left, spec.top, spec.left, spec.top],
+                         dtype=boxes.dtype, device=boxes.device)
+    limit = torch.tensor([spec.src_w, spec.src_h, spec.src_w, spec.src_h],
+                         dtype=boxes.dtype, device=boxes.device)
+    out = (boxes - shift) / spec.ratio
+    return torch.minimum(torch.clamp(out, min=0.0), limit)
+
+
+@dataclasses.dataclass(frozen=True)
+class PostprocessParams:
+    spec: LetterboxSpec
+    conf_threshold: float = 0.25
+    iou_threshold: float = 0.7
+    class_id: int = 2            # car (V1:57)
+    max_candidates: int = 256
+    max_detections: int = 32
+    # binarization cut of the interpolated probability (ultralytics: 0.5)
+    mask_threshold: float = 0.5
+    # guarded shrink: a detection whose primary cut keeps fewer than
+    # mask_min_pixels pixels serves this lower cut instead; None = off
+    mask_threshold_floor: Optional[float] = None
+    mask_min_pixels: int = 0
+
+    def __post_init__(self):
+        if self.mask_threshold_floor is not None:
+            if not self.mask_threshold_floor < self.mask_threshold:
+                raise ValueError(
+                    f"mask_threshold_floor ({self.mask_threshold_floor}) "
+                    f"must sit below mask_threshold ({self.mask_threshold})")
+            if self.mask_min_pixels < 1:
+                raise ValueError("mask_threshold_floor needs "
+                                 "mask_min_pixels >= 1")
+
+
+def _flatten_levels(levels: List[torch.Tensor]) -> torch.Tensor:
+    """[(B, h, w, C), ...] -> (B, sum h*w, C)."""
+    return torch.cat([x.reshape(x.shape[0], -1, x.shape[-1])
+                      for x in levels], 1)
+
+
+def postprocess_batch(outputs, params: PostprocessParams,
+                      masks: bool = True) -> Dict[str, torch.Tensor]:
+    """Decode a batch of raw network outputs.
+
+    Args:
+      outputs: ``Yolo11`` outputs, each level (B, h, w, C).
+      params: decode parameters.
+      masks: assemble ``mask_bits``; with False, return the kept
+        detections' mask coefficients ``coef`` (B, D, nm) instead -- all
+        that the TTA merge reads, so it runs no single-view assembly.
+
+    Returns boxes (B, D, 4) xyxy in source pixels, scores (B, D),
+    det_valid (B, D), confidence-sorted as at V1:69-72, and ``mask_bits``
+    (B, H0, W0) int32 or ``coef``.
+    """
+    p = params
+    spec = p.spec
+    level_shapes = tuple(tuple(b.shape[1:3]) for b in outputs["box"])
+    box_flat = _flatten_levels(outputs["box"])
+    cls_flat = _flatten_levels(outputs["cls"])
+    scores = torch.sigmoid(cls_flat[..., p.class_id].to(torch.float32))
+    k = min(p.max_candidates, scores.shape[1])
+    # a stable descending sort: equal scores keep the lower index first,
+    # as lax.top_k does
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    top_idx = order[:, :k]
+    top_scores = torch.gather(scores, 1, top_idx)
+    cand_valid = top_scores > p.conf_threshold
+
+    boxes_all = decode_boxes(box_flat, level_shapes)
+    boxes_lb = torch.gather(boxes_all, 1, top_idx[..., None].expand(-1, -1, 4))
+    keep_idx, keep_valid = nms(boxes_lb, top_scores, cand_valid,
+                               p.iou_threshold, p.max_detections)
+    det_boxes_lb = torch.gather(boxes_lb, 1,
+                                keep_idx[..., None].expand(-1, -1, 4))
+    det_scores = torch.where(keep_valid, torch.gather(top_scores, 1,
+                                                      keep_idx), 0.0)
+    det_boxes = unletterbox_boxes(det_boxes_lb, spec)
+    det_boxes = torch.where(keep_valid[..., None], det_boxes, 0.0)
+    out = {"boxes": det_boxes, "scores": det_scores, "det_valid": keep_valid}
+
+    coef_flat = _flatten_levels(outputs["coef"])
+    nm = coef_flat.shape[-1]
+    cand_coef = torch.gather(coef_flat, 1,
+                             top_idx[..., None].expand(-1, -1, nm))
+    det_coef = torch.gather(cand_coef, 1,
+                            keep_idx[..., None].expand(-1, -1, nm))
+    if not masks:
+        out["coef"] = det_coef
+        return out
+    out["mask_bits"] = torch.stack([
+        _finish_masks(cropped_prob_table(outputs["proto"][b], det_coef[b],
+                                         spec),
+                      det_boxes[b], keep_valid[b], p)
+        for b in range(det_boxes.shape[0])])
+    return out
+
+
+def postprocess_single(outputs, params: PostprocessParams,
+                       masks: bool = True) -> Dict[str, torch.Tensor]:
+    """One image's outputs (each level (h, w, C), no batch axis) ->
+    boxes (D, 4), scores, det_valid and ``mask_bits`` (H0, W0), or
+    ``coef`` with ``masks=False``."""
+    batched = {k: [x[None] for x in v] if isinstance(v, list) else v[None]
+               for k, v in outputs.items()}
+    return {k: v[0] for k, v in postprocess_batch(batched, params,
+                                                  masks).items()}
+
+
+def _proto_crop_bounds(mh: int, mw: int, spec: LetterboxSpec):
+    """(top, bottom, left, right) of the image content inside the (mh, mw)
+    proto grid: scale_masks' letterbox removal at proto resolution."""
+    gain = min(mh / spec.src_h, mw / spec.src_w)
+    pad_w = (mw - spec.src_w * gain) / 2
+    pad_h = (mh - spec.src_h * gain) / 2
+    top = int(round(pad_h - 0.1))
+    left = int(round(pad_w - 0.1))
+    bottom = mh - int(round(pad_h + 0.1))
+    right = mw - int(round(pad_w + 0.1))
+    return top, bottom, left, right
+
+
+def cropped_prob_table(protos: torch.Tensor, coef: torch.Tensor,
+                       spec: LetterboxSpec) -> torch.Tensor:
+    """(D, mh_c, mw_c) float32 sigmoid table at proto resolution with the
+    letterbox padding stripped, from protos (mh, mw, nm) and coef (D, nm).
+    Bilinear upsampling is linear, so TTA averages these small tables."""
+    mh, mw, _ = protos.shape
+    probs = torch.sigmoid(torch.einsum(
+        "dn,hwn->dhw", coef.to(torch.float32), protos.to(torch.float32)))
+    top, bottom, left, right = _proto_crop_bounds(mh, mw, spec)
+    return probs[:, top:bottom, left:right]
+
+
+def _finish_masks(table: torch.Tensor, boxes: torch.Tensor,
+                  det_valid: torch.Tensor,
+                  params: PostprocessParams) -> torch.Tensor:
+    """Upsample + threshold + box-crop + bit-pack a cropped table into
+    (H0, W0) int32 words, guarded when the params carry a floor: K3 (for
+    the guard) and K2 on a CUDA tensor, their twins on a CPU tensor."""
+    p = params
+    h, w = p.spec.src_h, p.spec.src_w
+    if p.mask_threshold_floor is None:
+        return mask_assembly.assemble_masks(table, boxes, det_valid, h, w,
+                                            p.mask_threshold)
+    return mask_assembly.assemble_masks_guarded(
+        table, boxes, det_valid, h, w, p.mask_threshold,
+        p.mask_threshold_floor, p.mask_min_pixels)

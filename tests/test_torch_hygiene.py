@@ -1,0 +1,80 @@
+"""Import hygiene of the PyTorch port and of ``chip_smoke.py``.
+
+Neither may import JAX, Flax, ``msgpack``, PIL or anything of the JAX
+package: the card's machine serves without them.  Each check runs in a
+fresh interpreter.  Module names are matched exactly (or as a parent
+package), since the port's own name starts with the JAX package's.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL",
+             "lidar_object_detection_tpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, sys
+before = set(sys.modules)
+for name in {modules!r}:
+    importlib.import_module(name)
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def _loaded_after(modules):
+    """Modules that importing ``modules`` loads into a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE.format(modules=list(modules))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _forbidden(loaded):
+    return sorted(m for m in loaded
+                  if any(m == f or m.startswith(f + ".") for f in FORBIDDEN))
+
+
+def _port_modules():
+    root = os.path.join(REPO, "lidar_object_detection_tpu_torch")
+    names = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO)
+                name = rel[:-3].replace(os.sep, ".")
+                names.append(name[:-len(".__init__")]
+                             if name.endswith(".__init__") else name)
+    return sorted(names)
+
+
+def test_port_imports_nothing_of_jax():
+    modules = _port_modules()
+    assert "lidar_object_detection_tpu_torch.ops.mask_assembly" in modules
+    loaded = _loaded_after(modules)
+    assert "torch" in loaded
+    assert _forbidden(loaded) == []
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py's imports -- its top level and those inside its
+    functions -- read from its source and imported, without running it."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    modules = {"chip_smoke"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            modules.add(node.module)
+    assert any(m.startswith("lidar_object_detection_tpu_torch")
+               for m in modules)
+    assert _forbidden(modules) == []
+    assert _forbidden(_loaded_after(sorted(modules))) == []
