@@ -8,19 +8,31 @@ Runs from the root of a checkout, on a machine with one CUDA card:
 1. prints the PyTorch version and the card's name and power limit, and
    fails when CUDA is not available;
 2. builds the CUDA kernels of ``lidar_object_detection_tpu_torch`` from the
-   checkout's sources (``nvcc`` -> one ctypes-loaded library);
+   checkout's sources (one ``nvcc`` per source, all started together, then
+   a link into one ctypes-loaded library);
 3. holds each kernel against its plain PyTorch twin on the card at the
-   serving path's shapes, and times both with CUDA events;
+   serving path's shapes, and times both with CUDA events: K1 (inside
+   counts), K2/K3 (mask assembly), and K5 (NMS) on synthetic hard cases
+   (NaN, infinite and invalid scores, ties, IoUs an ulp around the
+   threshold) and on the decode's real candidates;
 4. drives the main path through the port's entry points: the committed
    YOLO11n-seg checkpoint at its sidecar serving point (hflip TTA, guarded
    masks, BatchNorm folded, bf16) over 4 frames of 376 x 1408 (two real
    camera frames and their mirrors), then ``fuse_batch`` over synthetic
    131072-point scans with 384 box slots, then ``frame_statistics``.  The
    kernels' launch counters are zeroed just before and read just after,
-   and every kernel must have run.  The same network outputs are then
-   decoded on the CPU by the twins, and the fusion is rerun with the plain
-   inside-count, as references;
-5. prints one JSON line of the kernels (times, bounds, launches, errors),
+   and every kernel must have run (K5 once per view).  The same network
+   outputs are then decoded on the CPU by the twins, and the fusion is
+   rerun with the plain inside-count, as references;
+5. writes the same frames and scans as a KITTI-360 directory tree (the
+   committed PNG files as they are, their mirrors as adaptively filtered
+   PNGs, ``.bin``, box JSON, calibration; one frame without boxes, which
+   the loader must skip) and runs the ``csv_eval`` entry, the erosion
+   study and the CLI from it, with the YOLO detector as the CLI serves it
+   (float32, unfolded weights).  Every kernel must launch in the csv_eval
+   run; its detections and master CSV must equal those of the same run
+   with the twin NMS.  The loader's part of the run is timed on its own;
+6. prints one JSON line of the kernels (times, bounds, launches, errors),
    the card's name and power limit, and last the ``{"ok": true, ...}``
    line.
 
@@ -33,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -64,67 +77,6 @@ CAM_TO_VELO = np.linalg.inv(VELO_TO_RECT).astype(np.float32)
 
 P, G, D = 131072, 384, 32
 H0, W0 = 376, 1408
-
-
-def read_png_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 of an 8-bit RGB, non-interlaced PNG, with zlib and
-    numpy only."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    width, height, depth, color, _, _, interlace = header
-    if depth != 8 or color != 2 or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit RGB, non-interlaced PNG")
-    bpp, stride = 3, 3 * width
-    raw = zlib.decompress(b"".join(idat))
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.int64)
-    for y in range(height):
-        start = y * (stride + 1)
-        line = np.frombuffer(raw, np.uint8, stride, start + 1).astype(np.int64)
-        kind = raw[start]
-        if kind == 0:
-            cur = line
-        elif kind == 1:      # Sub: a running sum along each channel
-            cur = line.reshape(width, bpp).cumsum(axis=0).reshape(-1) % 256
-        elif kind == 2:      # Up
-            cur = (line + prev) % 256
-        else:                # Average, Paeth: sequential along the row
-            cur = _unfilter_row(kind, line.tolist(), prev.tolist(), bpp)
-        out[y] = cur
-        prev = np.asarray(cur, np.int64)
-    return out.reshape(height, width, 3)
-
-
-def _unfilter_row(kind, line, prev, bpp):
-    cur = [0] * len(line)
-    for i, x in enumerate(line):
-        a = cur[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        if kind == 3:
-            cur[i] = (x + ((a + b) >> 1)) & 0xFF
-        elif kind == 4:
-            c = prev[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            cur[i] = (x + pred) & 0xFF
-        else:
-            raise ValueError(f"unknown PNG filter {kind}")
-    return np.asarray(cur, np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +157,136 @@ def make_scene(rng, det_boxes, det_valid, num_points=P, num_boxes=G,
     point_valid[:len(pts_cam)] = True
     return points, point_valid, corners, box_valid
 
+
+def png_filter_rows(image):
+    """Filter the rows of (H, W, 3) uint8 as libpng's default encoder does:
+    each row takes whichever of the five filters gives the least sum of
+    absolute signed bytes.  Returns the (H, 1 + 3 W) filtered rows."""
+    h, w, _ = image.shape
+    x = image.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 0xFF
+    cost = np.minimum(cand, 256 - cand).sum(axis=2)      # (5, H)
+    kinds = cost.argmin(axis=0)
+    rows = cand[kinds, np.arange(h)].astype(np.uint8)
+    return np.concatenate([kinds[:, None].astype(np.uint8), rows], 1)
+
+
+def write_png_rgb(path, image):
+    """Write (H, W, 3) uint8 as an 8-bit RGB PNG with zlib only, the rows
+    filtered adaptively (``png_filter_rows``)."""
+    h, w, _ = image.shape
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(
+                    png_filter_rows(image).tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
+                        height=H0):
+    """A KITTI-360 directory tree (sequence 0, camera 0) under ``root``.
+
+    ``frames`` holds ``(frame_id, image, points, corners)``: a (H, W, 3)
+    uint8 image (written by ``write_png_rgb``), the path of a PNG file
+    (copied as it is), or None (no PNG); (N, 4) float32 velodyne points, and
+    (G, 8, 3) cam0 corners or None (no box JSON).  The calibration holds
+    ``intrinsics``, the KITTI axis swap (CAM_TO_VELO) and an identity
+    cam0 pose.
+    """
+    seq = "2013_05_28_drive_0000_sync"
+    calib = os.path.join(root, "calibration")
+    velo = os.path.join(root, "data_3d_raw", seq, "velodyne_points", "data")
+    cam = os.path.join(root, "data_2d_raw", seq, "image_00", "data_rect")
+    boxes = os.path.join(root, "bboxes_3D_cam0")
+    for d in (calib, velo, cam, boxes):
+        os.makedirs(d, exist_ok=True)
+    fmt = lambda a: " ".join(repr(float(x)) for x in np.ravel(a))
+    p_rect = np.concatenate([intrinsics, np.zeros((3, 1))], 1)
+    with open(os.path.join(calib, "perspective.txt"), "w") as f:
+        f.write(f"P_rect_00: {fmt(p_rect)}\nR_rect_00: {fmt(np.eye(3))}\n"
+                f"S_rect_00: {float(width)} {float(height)}\n")
+    with open(os.path.join(calib, "calib_cam_to_velo.txt"), "w") as f:
+        f.write(fmt(CAM_TO_VELO[:3]) + "\n")
+    with open(os.path.join(calib, "calib_cam_to_pose.txt"), "w") as f:
+        f.write(f"image_00: {fmt(np.eye(4)[:3])}\n")
+    for frame_id, image, points, corners in frames:
+        points.astype(np.float32).tofile(
+            os.path.join(velo, "%010d.bin" % frame_id))
+        png = os.path.join(cam, "%010d.png" % frame_id)
+        if isinstance(image, str):
+            shutil.copyfile(image, png)
+        elif image is not None:
+            write_png_rgb(png, image)
+        if corners is not None:
+            with open(os.path.join(boxes, f"BBoxes_{frame_id}.json"),
+                      "w") as f:
+                json.dump([{"index": g, "corners_cam0": c.tolist()}
+                           for g, c in enumerate(corners)], f)
+
+
+def nms_case(rng, batch, n, iou_threshold=0.7):
+    """Random NMS candidates (boxes (B, N, 4), scores (B, N), valid (B, N),
+    float32 numpy) with the hard cases in every frame: NaN and +-inf
+    scores, invalid candidates, tied scores, and pairs whose float32 IoU
+    sits exactly at the threshold and one ulp to either side of it."""
+    xy = rng.uniform(0, 600, (batch, n, 2))
+    wh = rng.uniform(8, 120, (batch, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    # clusters: copies of a few boxes with small shifts overlap heavily
+    for b in range(batch):
+        src = rng.integers(0, n, n // 4)
+        dst = rng.integers(0, n, n // 4)
+        boxes[b, dst] = boxes[b, src] + rng.normal(0, 3, (n // 4, 4))
+    scores = rng.uniform(0, 0.99, (batch, n)).astype(np.float32)
+    valid = rng.random((batch, n)) > 0.15
+    thr = np.float32(iou_threshold)
+    # boxes (0, 0, 100, H) and (0, 0, 100, h), h < H: in the operation
+    # order of geom.boxes.iou_2d_matrix, inter = 100 h and
+    # union = (100 H + 100 h) - inter, each rounded to float32
+    big = np.float32(np.linspace(80, 120, 4001))[:, None]
+    small = (big * thr + np.arange(-8, 9, dtype=np.float32)
+             * np.spacing(big * thr)).astype(np.float32)
+    hundred = np.float32(100)
+    inter = hundred * small
+    union = (hundred * big + hundred * small) - inter
+    iou = inter / union
+    picks = []
+    for t in (np.nextafter(thr, np.float32(0)), thr,
+              np.nextafter(thr, np.float32(1))):
+        i, j = np.argwhere(iou == t)[0]
+        picks.append((big[i, 0], small[i, j]))
+    if n < 12:
+        raise ValueError(f"nms_case needs n >= 12, got {n}")
+    for b in range(batch):
+        base = 5 * b % (n - 11)
+        for j, (hi, lo) in enumerate(picks):
+            off = np.float32(700 + 150 * j)
+            boxes[b, base + 2 * j] = (off, 0, off + 100, hi)
+            boxes[b, base + 2 * j + 1] = (off, 0, off + 100, lo)
+            scores[b, base + 2 * j] = 0.999
+            scores[b, base + 2 * j + 1] = 0.998
+            valid[b, base + 2 * j:base + 2 * j + 2] = True
+        others = np.setdiff1d(np.arange(n), np.arange(base, base + 6))
+        special = rng.choice(others, 6, replace=False)
+        scores[b, special[0]] = np.nan
+        scores[b, special[1]] = np.inf
+        scores[b, special[2]] = -np.inf
+        scores[b, special[3:]] = scores[b, special[3]]   # a tie
+    return boxes, scores, valid
 
 # ---------------------------------------------------------------------------
 # timing
@@ -411,19 +493,92 @@ def check_mask_kernels(torch, dev, rng):
     ]
 
 
+def check_nms(torch, dev, rng, detector, images):
+    """K5 against its twin: synthetic hard cases at B = 8, and the real
+    candidates of the main path's decode (both views); timed on one view's
+    candidates, the shape the main path launches it at."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        nms_candidates)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import nms as nms_lib
+
+    p = detector.params
+    thr, m = p.iou_threshold, p.max_detections
+    boxes, scores, valid = (torch.from_numpy(a).to(dev)
+                            for a in nms_case(rng, 8, 256, thr))
+    outputs = detector.forward(images)
+    _, real_boxes, real_scores, real_valid = nms_candidates(outputs, p)
+    b = len(images)
+    cases = {"synthetic": (boxes, scores, valid),
+             "decode": (real_boxes.contiguous(), real_scores.contiguous(),
+                        real_valid.contiguous())}
+    kept, mismatches, max_err = {}, 0, 0
+    for name, (bx, sc, va) in cases.items():
+        idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, m)
+        ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, m)
+        torch.cuda.synchronize()
+        bad = int((idx != ref_idx).sum() + (keep != ref_keep).sum())
+        if bad:
+            raise AssertionError(f"K5 differs from its twin on the {name} "
+                                 f"case in {bad} slots")
+        mismatches += bad
+        # the largest difference of a picked index or a keep flag
+        max_err = max(max_err, int((idx - ref_idx).abs().max()),
+                      int((keep != ref_keep).any()))
+        kept[name] = int(keep.sum())
+    if kept["decode"] == 0 or kept["synthetic"] < 8:
+        raise AssertionError(f"K5 check is degenerate: kept {kept}")
+
+    # one view's candidates, as the main path launches K5 (once per view)
+    bx, sc, va = (t[:b].contiguous() for t in cases["decode"])
+    n = bx.shape[1]
+    lib = kernel_lib.library()
+    out_idx = torch.empty((b, m), dtype=torch.int64, device=dev)
+    out_keep = torch.empty((b, m), dtype=torch.bool, device=dev)
+
+    def launch():
+        kernel_lib.check(lib.nms_launch(
+            bx.data_ptr(), sc.data_ptr(), va.data_ptr(), b, n, m, thr,
+            out_idx.data_ptr(), out_keep.data_ptr(),
+            kernel_lib.stream_handle(dev)), "nms_launch")
+
+    ms = time_gpu(launch)
+    plain_ms = time_gpu(lambda: nms_lib.nms_plain(bx, sc, va, thr, m),
+                        reps=10, head_start=False)
+    # Greedy NMS needs the IoU of each pick with the n candidates, not the
+    # full (n, n) matrix: 11 operations per (pick, candidate) pair (2 min,
+    # 2 max, 4 add or subtract, 1 multiply, 1 divide, 1 compare with the
+    # threshold), 3 per box for its area, and n compares per argmax step;
+    # a frame makes one step per pick and one more that finds none left
+    picks = nms_lib.nms_plain(bx, sc, va, thr, m)[1].sum(dim=1).tolist()
+    n_ops = sum(k * n * 11 + min(k + 1, m) * n + 3 * n for k in picks)
+    n_bytes = b * n * (16 + 4 + 1) + b * m * (8 + 1)
+    bound, by = bound_ms(n_bytes, n_ops)
+    print(f"K5 nms: equal to the twin on {len(cases)} cases (kept "
+          f"{kept}); {ms:.4f} ms (twin {plain_ms:.4f}, bound {bound:.3g} "
+          f"by {by}) for {b} frames x {n} candidates, {picks} picks",
+          flush=True)
+    return {"name": "nms", "route": "cuda",
+            "source": "lidar_object_detection_tpu_torch/csrc/nms.cu",
+            "replaces": "lidar_object_detection_tpu/ops/pallas_nms.py:74",
+            "max_abs_err": max_err, "mismatches": mismatches, "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
-def main_path(torch, dev, rng, smi):
-    from lidar_object_detection_tpu_torch.config import (
-        FusionConfig, FusionParams)
-    from lidar_object_detection_tpu_torch.eval.statistics import (
-        frame_statistics, summarize)
-    from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
+def load_serving(torch, dev, rng):
+    """The committed n checkpoint at its serving point (bf16, BatchNorm
+    folded), the 4 frames (two real ones and their mirrors), and one
+    synthetic scene per frame with boxes placed behind a first detection's
+    cars.  Returns (detector, images, scenes)."""
     from lidar_object_detection_tpu_torch.models.yolo.serving import (
         load_serving_checkpoint)
-    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
 
     t0 = time.perf_counter()
     detector, step, resolved = load_serving_checkpoint(
@@ -435,19 +590,29 @@ def main_path(torch, dev, rng, smi):
     images = np.ascontiguousarray(images)
     print(f"checkpoint step {step}, serving point {resolved}, frames "
           f"{images.shape}", flush=True)
-    phase("load checkpoint and frames", t0)
-
-    # scenes from a first detection, so that boxes meet the cars
     first = detector.detect(images)
     scenes = [make_scene(rng, first["boxes"][b].float().cpu().numpy(),
                          first["det_valid"][b].cpu().numpy())
               for b in range(len(images))]
+    phase("load checkpoint, frames and scenes", t0)
+    return detector, images, scenes
+
+
+def main_path(torch, dev, smi, detector, images, scenes):
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, FusionParams, PipelineVersion)
+    from lidar_object_detection_tpu_torch.eval.statistics import (
+        frame_statistics, summarize)
+    from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    t0 = time.perf_counter()
     points, pvalid, corners, bvalid = (
         torch.from_numpy(np.stack([s[i] for s in scenes])).to(dev)
         for i in range(4))
     calib = tuple(torch.from_numpy(m).to(dev)
                   for m in (VELO_TO_RECT, CAM_TO_VELO, INTRINSICS))
-    cfg = FusionConfig(erosion_enabled=True)
+    cfg = FusionConfig.for_version(PipelineVersion.CSV_EVAL)
     params = FusionParams.from_config(cfg)
 
     def run():
@@ -470,6 +635,9 @@ def main_path(torch, dev, rng, smi):
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing}")
+    if launches["nms"] != 2:
+        raise AssertionError(f"K5 launched {launches['nms']} times for one "
+                             f"TTA batch, expected 2 (one per view)")
 
     # the outputs, by the repo's own means
     n_det = det["det_valid"].sum(dim=1).tolist()
@@ -533,6 +701,139 @@ def main_path(torch, dev, rng, smi):
                 calib, params)
     profile_once(torch, run)
     phase("main path", t0)
+    return launches
+
+
+def csv_eval_phase(torch, dev, smi, images, scenes):
+    """The csv_eval entry and the erosion study from a KITTI-360 tree on
+    disk, with the YOLO detector as the CLI serves it (float32, unfolded
+    weights, the sidecar's point).  Returns the csv_eval run's launches."""
+    import copy
+    import tempfile
+
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, PipelineVersion)
+    from lidar_object_detection_tpu_torch.data import Kitti360Dataset
+    from lidar_object_detection_tpu_torch.eval.erosion_study import (
+        run_erosion_study)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines import cli
+    from lidar_object_detection_tpu_torch.pipelines.runner import (
+        FusionPipeline, csv_eval)
+
+    t0 = time.perf_counter()
+    detector, _, _ = load_serving_checkpoint(CKPT, (H0, W0),
+                                             default_scale="x", device=dev)
+    plain = copy.copy(detector)
+    plain.params = dataclasses.replace(detector.params, nms_impl="plain")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti360")
+        # the real frames' PNG files as they are committed (rows filtered
+        # Paeth and Sub, as a camera's encoder writes them); their mirrors
+        # encoded with adaptive filters
+        frames = []
+        for b, (points, pvalid, corners, bvalid) in enumerate(scenes):
+            image = FRAMES[b] if b < len(FRAMES) else images[b]
+            frames.append((100 + b, image, points[pvalid], corners[bvalid]))
+        # a frame without a box JSON, which the loader must skip
+        frames.append((200, FRAMES[0], scenes[0][0][scenes[0][1]], None))
+        write_kitti360_tree(root, frames)
+        ds = Kitti360Dataset(root)
+        records = ds.load_frames()
+        if [r.frame_id for r in records] != [100 + b for b in
+                                              range(len(scenes))]:
+            raise AssertionError(f"the loader kept frames "
+                                 f"{[r.frame_id for r in records]}")
+        phase("write and load the KITTI-360 tree", t0)
+
+        out = os.path.join(tmp, "out")
+        master = os.path.join(out, "master_car_statistics.csv")
+        stamp = "2026-01-01T00:00:00"
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        t1 = time.perf_counter()
+        analysis = csv_eval(root, master, detector=detector, device=dev,
+                            timestamp=stamp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(kernel_lib.LAUNCHES)
+        print(f"csv_eval launches: {launches}", flush=True)
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"csv_eval launched no {missing}")
+        fps = len(records) / wall
+        # the loader's part of that run, timed again on its own: scans and
+        # boxes, the batch, and the PNG decode
+        t1 = time.perf_counter()
+        batch = ds.make_batch(ds.load_frames())
+        t2 = time.perf_counter()
+        loaded = ds.load_images(batch)
+        t3 = time.perf_counter()
+        if not np.array_equal(loaded, images):
+            raise AssertionError("the loader's frames differ from the "
+                                 "committed PNGs and their mirrors")
+        print(f"csv_eval from disk: {fps:.2f} frames/s ({len(records)} "
+              f"frames in {wall:.3f} s, host clock: load, detect, fuse, "
+              f"CSV, analysis) on {smi}; loader {t3 - t1:.3f} s "
+              f"({(t3 - t1) / wall:.3f} of the run: scans and boxes "
+              f"{t2 - t1:.3f} s, PNG decode {t3 - t2:.3f} s); analysis "
+              f"{analysis}", flush=True)
+
+        study_csv = os.path.join(out, "erosion_study.csv")
+        study_xlsx = os.path.join(out, "master_car_statistics.csv.xlsx")
+        study = run_erosion_study(root, detector=detector,
+                                  output_csv=study_csv,
+                                  output_xlsx=study_xlsx, device=dev)
+        print(f"erosion study: {study.summary()}", flush=True)
+
+        # rows: one per valid detection; the same run with the twin NMS
+        cfg = FusionConfig.for_version(PipelineVersion.CSV_EVAL)
+        dets = FusionPipeline(ds, cfg, detector, device=dev).detect(
+            records, batch)
+        dets_plain = FusionPipeline(ds, cfg, plain, device=dev).detect(
+            records, batch)
+        for key in dets:
+            if not torch.equal(dets[key], dets_plain[key]):
+                raise AssertionError(f"csv_eval detections {key}: K5 and "
+                                     f"the twin NMS differ")
+        master_plain = os.path.join(out, "master_plain.csv")
+        csv_eval(root, master_plain, detector=plain, device=dev,
+                 timestamp=stamp)
+        with open(master) as f, open(master_plain) as g:
+            lines, lines_plain = f.read(), g.read()
+        if lines != lines_plain:
+            raise AssertionError("the master CSV differs between K5 and the "
+                                 "twin NMS")
+        # the CLI as a user runs it on the card: the same rows
+        cli_out = os.path.join(tmp, "cli")
+        if cli.main(["run", "--dataset", root, "--version", "csv_eval",
+                     "--detector", "yolo", "--weights", CKPT, "--output",
+                     cli_out]) != 0:
+            raise AssertionError("the CLI run failed")
+        with open(os.path.join(cli_out, "master_car_statistics.csv")) as f:
+            cli_lines = f.read()
+        strip = lambda text: [row.rsplit(",", 1)[0]
+                              for row in text.splitlines()]
+        if strip(cli_lines) != strip(lines):
+            raise AssertionError("the CLI's master CSV differs from "
+                                 "csv_eval's")
+        n_rows = len(lines.splitlines()) - 1
+        n_valid = int(dets["det_valid"].sum())
+        if n_rows != n_valid or analysis["total_detections"] != n_rows:
+            raise AssertionError(f"master CSV has {n_rows} rows for "
+                                 f"{n_valid} valid detections")
+        with open(study_csv) as f:
+            n_study = len(f.read().splitlines()) - 1
+        if n_study != len(study.rows) or not os.path.getsize(study_xlsx):
+            raise AssertionError("erosion-study outputs are incomplete")
+        print(f"master CSV: {n_rows} rows for {n_valid} valid detections, "
+              f"byte-equal with the twin NMS, and the CLI's rows equal; "
+              f"erosion study: {n_study} rows "
+              f"and a {os.path.getsize(study_xlsx)}-byte workbook",
+              flush=True)
+    phase("csv_eval from disk", t0)
     return launches
 
 
@@ -640,13 +941,18 @@ def main() -> int:
           flush=True)
     phase("build", t0)
 
+    detector, images, scenes = load_serving(torch, dev, rng)
     kernels = [check_inside_counts(torch, dev, rng)]
     kernels += check_mask_kernels(torch, dev, rng)
+    kernels.append(check_nms(torch, dev, rng, detector, images))
     phase("kernels against twins", t0)
 
-    launches = main_path(torch, dev, rng, smi)
+    launches = main_path(torch, dev, smi, detector, images, scenes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes)
+    for k in kernels:
+        k["csv_eval_launches"] = csv_launches[k["name"]]
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

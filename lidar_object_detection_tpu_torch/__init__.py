@@ -3,16 +3,22 @@
 The JAX package ``lidar_object_detection_tpu`` is the reference; this
 package mirrors its layout so that each counterpart is easy to find, and
 runs on an NVIDIA H100 (``sm_90a``).  It imports ``torch`` and never JAX,
-Flax, ``msgpack`` or PIL, and nothing of the JAX package.
+Flax, ``msgpack``, PIL or pandas, and nothing of the JAX package.
 
-Layer map (the serving slice ported so far):
+Layer map (the slices ported so far):
+  data/      KITTI-360 calibration and frame loading, padded batches
   geom/      projection and box geometry
   ops/       packed masks, erosion, NMS, and the hand-written CUDA kernels
-             (``inside_counts``, ``mask_assembly``; sources in ``csrc/``)
-  models/    the YOLO11-seg network, its weights, decode, TTA and detector
+             (``inside_counts``, ``mask_assembly``, ``nms``; sources in
+             ``csrc/``)
+  models/    the YOLO11-seg network, its weights, decode, TTA and detector;
+             the stub detector
   fusion/    mask -> point association and the inside-count
-  eval/      per-car statistics
-  utils/     the flax msgpack checkpoint reader
+  eval/      per-car statistics, the master CSV, the erosion study and its
+             workbook
+  pipelines/ the V1-V3 and csv_eval runner, and the CLI
+             (``python -m lidar_object_detection_tpu_torch``)
+  utils/     the flax msgpack checkpoint reader and the PNG decoder
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 On a CPU tensor each kernel wrapper takes its plain PyTorch twin; on a

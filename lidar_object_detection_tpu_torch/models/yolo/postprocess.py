@@ -9,15 +9,17 @@ resolution mask assembly of ultralytics' ``process_mask_native``
 32-bit word per pixel.
 
 Ported: the probability-space, absolute-threshold assembly with the
-guarded-shrink floor (the committed checkpoints' serving point).  The JAX
-module's logit-space, relative-threshold and bf16 ``fast`` mask modes, and
-its Pallas NMS option, are not.
+guarded-shrink floor (the committed checkpoints' serving point), and the
+NMS, which runs kernel K5 (``ops/nms.py``, the counterpart of the JAX
+module's ``nms_impl="pallas"``) on CUDA tensors.  The JAX module's
+logit-space, relative-threshold and bf16 ``fast`` mask modes are not.
 
 The decode runs over a batch: (B, ...) tensors where the JAX package
-vmapped a per-frame function.  Mask assembly runs per frame through
-:func:`_finish_masks`, which takes kernels K3/K2 on CUDA tensors (the
-stack-free design, ``postprocess.py:400-424`` of the JAX package) and
-their plain twins on CPU tensors.
+vmapped a per-frame function, so the NMS is one launch for the batch.
+Mask assembly runs per frame through :func:`_finish_masks`, which takes
+kernels K3/K2 on CUDA tensors (the stack-free design,
+``postprocess.py:400-424`` of the JAX package) and their plain twins on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from lidar_object_detection_tpu_torch.models.yolo.model import (
     REG_MAX, STRIDES)
 from lidar_object_detection_tpu_torch.ops import mask_assembly
-from lidar_object_detection_tpu_torch.ops.nms import nms
+from lidar_object_detection_tpu_torch.ops.nms import nms, nms_plain
 from lidar_object_detection_tpu_torch.ops.resize import resize_hw
 
 
@@ -125,8 +127,15 @@ class PostprocessParams:
     # mask_min_pixels pixels serves this lower cut instead; None = off
     mask_threshold_floor: Optional[float] = None
     mask_min_pixels: int = 0
+    # "auto" = kernel K5 (ops/nms.py) on a CUDA tensor and its PyTorch
+    # twin on a CPU tensor; "plain" = the twin on any device (the kernel's
+    # reference on the card)
+    nms_impl: str = "auto"
 
     def __post_init__(self):
+        if self.nms_impl not in ("auto", "plain"):
+            raise ValueError(f"nms_impl must be 'auto' or 'plain', got "
+                             f"{self.nms_impl!r}")
         if self.mask_threshold_floor is not None:
             if not self.mask_threshold_floor < self.mask_threshold:
                 raise ValueError(
@@ -141,6 +150,27 @@ def _flatten_levels(levels: List[torch.Tensor]) -> torch.Tensor:
     """[(B, h, w, C), ...] -> (B, sum h*w, C)."""
     return torch.cat([x.reshape(x.shape[0], -1, x.shape[-1])
                       for x in levels], 1)
+
+
+def nms_candidates(outputs, params: PostprocessParams):
+    """The NMS's inputs from a batch of raw outputs: the top-k candidates'
+    flat indices (B, K), letterbox boxes (B, K, 4), scores (B, K) and
+    confidence mask (B, K)."""
+    p = params
+    level_shapes = tuple(tuple(b.shape[1:3]) for b in outputs["box"])
+    box_flat = _flatten_levels(outputs["box"])
+    cls_flat = _flatten_levels(outputs["cls"])
+    scores = torch.sigmoid(cls_flat[..., p.class_id].to(torch.float32))
+    k = min(p.max_candidates, scores.shape[1])
+    # a stable descending sort: equal scores keep the lower index first,
+    # as lax.top_k does
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    top_idx = order[:, :k]
+    top_scores = torch.gather(scores, 1, top_idx)
+    cand_valid = top_scores > p.conf_threshold
+    boxes_all = decode_boxes(box_flat, level_shapes)
+    boxes_lb = torch.gather(boxes_all, 1, top_idx[..., None].expand(-1, -1, 4))
+    return top_idx, boxes_lb, top_scores, cand_valid
 
 
 def postprocess_batch(outputs, params: PostprocessParams,
@@ -160,22 +190,10 @@ def postprocess_batch(outputs, params: PostprocessParams,
     """
     p = params
     spec = p.spec
-    level_shapes = tuple(tuple(b.shape[1:3]) for b in outputs["box"])
-    box_flat = _flatten_levels(outputs["box"])
-    cls_flat = _flatten_levels(outputs["cls"])
-    scores = torch.sigmoid(cls_flat[..., p.class_id].to(torch.float32))
-    k = min(p.max_candidates, scores.shape[1])
-    # a stable descending sort: equal scores keep the lower index first,
-    # as lax.top_k does
-    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
-    top_idx = order[:, :k]
-    top_scores = torch.gather(scores, 1, top_idx)
-    cand_valid = top_scores > p.conf_threshold
-
-    boxes_all = decode_boxes(box_flat, level_shapes)
-    boxes_lb = torch.gather(boxes_all, 1, top_idx[..., None].expand(-1, -1, 4))
-    keep_idx, keep_valid = nms(boxes_lb, top_scores, cand_valid,
-                               p.iou_threshold, p.max_detections)
+    top_idx, boxes_lb, top_scores, cand_valid = nms_candidates(outputs, p)
+    nms_fn = nms if p.nms_impl == "auto" else nms_plain
+    keep_idx, keep_valid = nms_fn(boxes_lb, top_scores, cand_valid,
+                                  p.iou_threshold, p.max_detections)
     det_boxes_lb = torch.gather(boxes_lb, 1,
                                 keep_idx[..., None].expand(-1, -1, 4))
     det_scores = torch.where(keep_valid, torch.gather(top_scores, 1,

@@ -26,19 +26,21 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("inside_counts.cu", "mask_assembly.cu")
+SOURCES = ("inside_counts.cu", "mask_assembly.cu", "nms.cu")
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 SIGNATURES = {
     "inside_counts_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "mask_assemble_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _P, _P),
     "mask_count_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _P, _P),
+    "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
 }
 
 _lib = None

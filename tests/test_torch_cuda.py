@@ -1,0 +1,152 @@
+"""The port's CUDA kernels and card paths against their plain twins, on a
+card.  Every test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is False.
+
+This file imports nothing of JAX, Flax or the JAX package, so that it
+collects on the card's machine, which does not promise them:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Tolerance: none.  Kernel and twin agree bit for bit (integer counts,
+packed words, NMS slots), and a run on the card writes the rows a run on
+the CPU writes.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_k1_inside_counts_equals_twin(dev):
+    from lidar_object_detection_tpu_torch.geom.boxes import (
+        transform_corners)
+    from lidar_object_detection_tpu_torch.ops import inside_counts as ic
+
+    rng = np.random.default_rng(0)
+    d = 32
+    dets = np.stack([np.array([x, 150, x + 120, 260], np.float32)
+                     for x in np.linspace(50, 1250, d)])
+    points, pvalid, corners_cam, bvalid = chip_smoke.make_scene(
+        rng, dets, np.ones(d, bool))
+    words = rng.integers(0, 2 ** 32, len(points), dtype=np.uint64)
+    words = (words * pvalid).astype(np.uint32).view(np.int32)
+    args = (torch.from_numpy(points[:, :3]).to(dev).contiguous(),
+            torch.from_numpy(words).to(dev),
+            transform_corners(torch.from_numpy(corners_cam),
+                              torch.from_numpy(chip_smoke.CAM_TO_VELO)
+                              ).to(dev).contiguous(),
+            torch.from_numpy(bvalid).to(dev), d)
+    got = ic.inside_counts_cuda(*args)
+    ref = ic.inside_counts_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+
+
+def test_k2_k3_mask_kernels_equal_twins(dev):
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    rng = np.random.default_rng(1)
+    d, mh, mw, h, w = 32, 42, 160, 376, 1408
+    yy = np.linspace(0, 1, mh)[None, :, None]
+    xx = np.linspace(0, 1, mw)[None, None, :]
+    f = rng.uniform(1, 8, (d, 1, 1))
+    table = (1 / (1 + np.exp(-6 * np.sin(f * 3 * yy + f)
+                             * np.cos(f * 2 * xx)))).astype(np.float32)
+    x1 = rng.uniform(0, w - 100, d)
+    y1 = rng.uniform(0, h - 60, d)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(40, 600, d),
+                      y1 + rng.uniform(30, 300, d)], 1).astype(np.float32)
+    ops = ma.prepare_operands(torch.from_numpy(table).to(dev),
+                              torch.from_numpy(boxes).to(dev),
+                              torch.from_numpy(rng.random(d) > 0.2).to(dev),
+                              h, w, 0.99)
+    assert torch.equal(ma.count_above_cuda(ops), ma.count_above_plain(ops))
+    words = ma.assemble_masks_cuda(ops)
+    assert torch.equal(words, ma.assemble_masks_plain(ops))
+    assert bool((words != 0).any())
+
+
+@pytest.mark.parametrize("batch,n,m", [(8, 256, 32), (3, 1024, 40),
+                                       (2, 20, 32)])
+def test_k5_nms_equals_twin(dev, batch, n, m):
+    from lidar_object_detection_tpu_torch.ops.nms import nms_cuda, nms_plain
+
+    boxes, scores, valid = (torch.from_numpy(a).to(dev)
+                            for a in chip_smoke.nms_case(
+                                np.random.default_rng(n), batch, n, 0.7))
+    idx, keep = nms_cuda(boxes, scores, valid, 0.7, m)
+    ref_idx, ref_keep = nms_plain(boxes, scores, valid, 0.7, m)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, ref_keep)
+    assert torch.equal(idx, ref_idx)
+    assert bool(keep.any(dim=1).all())
+
+
+def test_decode_with_k5_equals_decode_with_twin(dev):
+    """The YOLO decode on the card, its NMS as K5 and as the twin."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        postprocess_batch)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    frame = read_png_rgb(chip_smoke.FRAMES[0])
+    images = np.ascontiguousarray(np.stack([frame, frame[:, ::-1]]))
+    det, _, _ = load_serving_checkpoint(chip_smoke.CKPT, (376, 1408),
+                                        device=dev)
+    outputs = det.forward(images)
+    got = postprocess_batch(outputs, det.params)
+    ref = postprocess_batch(outputs, dataclasses.replace(det.params,
+                                                         nms_impl="plain"))
+    torch.cuda.synchronize()
+    for key in ("boxes", "scores", "det_valid", "mask_bits"):
+        assert torch.equal(got[key], ref[key])
+    assert int(got["det_valid"].sum()) > 0
+
+
+def test_csv_eval_on_card_writes_the_cpu_rows(dev, tmp_path):
+    """The stub detector's csv_eval from a KITTI-360 tree: the card (K1)
+    and the CPU (the twin) write the same master CSV."""
+    from lidar_object_detection_tpu_torch.config import ShapeConfig
+    from lidar_object_detection_tpu_torch.pipelines.runner import csv_eval
+
+    k = np.array([[140.0, 0.0, 160.0], [0.0, 140.0, 48.0], [0, 0, 1.0]])
+    rng = np.random.default_rng(2)
+    frames = []
+    for fid in range(3):
+        x1 = rng.uniform(0, 250, 5)
+        y1 = rng.uniform(10, 50, 5)
+        dets = np.stack([x1, y1, x1 + 60, y1 + 35], 1)
+        points, pvalid, corners, bvalid = chip_smoke.make_scene(
+            rng, dets, np.ones(5, bool), num_points=8192, num_boxes=48,
+            num_valid=40, intrinsics=k)
+        frames.append((fid, np.zeros((96, 320, 3), np.uint8),
+                       points[pvalid], corners[bvalid]))
+    root = str(tmp_path / "kitti360")
+    chip_smoke.write_kitti360_tree(root, frames, k, 320, 96)
+    shapes = ShapeConfig(max_points=8192, max_boxes=48, image_height=96,
+                         image_width=320)
+    paths = {}
+    for name in ("cuda", "cpu"):
+        paths[name] = os.path.join(str(tmp_path), f"{name}.csv")
+        csv_eval(root, paths[name], device=name, timestamp="t",
+                 shapes=shapes)
+    with open(paths["cuda"]) as a, open(paths["cpu"]) as b:
+        card, cpu = a.read(), b.read()
+    assert card == cpu and len(card.splitlines()) > 5

@@ -1,9 +1,11 @@
 """Import hygiene of the PyTorch port and of ``chip_smoke.py``.
 
-Neither may import JAX, Flax, ``msgpack``, PIL or anything of the JAX
-package: the card's machine serves without them.  Each check runs in a
-fresh interpreter.  Module names are matched exactly (or as a parent
-package), since the port's own name starts with the JAX package's.
+Neither may import JAX, Flax, ``msgpack``, PIL, pandas or anything of the
+JAX package: the card's machine serves without them.  The import checks
+run in a fresh interpreter; the source check reads every import statement
+of the port, those inside functions too.  Module names are matched exactly
+(or as a parent package), since the port's own name starts with the JAX
+package's.
 """
 
 import ast
@@ -14,7 +16,7 @@ import sys
 
 import pytest
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL",
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "pandas",
              "lidar_object_detection_tpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,26 +57,59 @@ def _port_modules():
     return sorted(names)
 
 
+def _imported_names(path):
+    """Every module an import statement of ``path`` names."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
 def test_port_imports_nothing_of_jax():
     modules = _port_modules()
-    assert "lidar_object_detection_tpu_torch.ops.mask_assembly" in modules
+    for name in ("ops.mask_assembly", "ops.nms", "utils.png", "data.calib",
+                 "data.kitti360", "models.stub", "eval.erosion_study",
+                 "eval.xlsx", "pipelines.runner", "pipelines.cli",
+                 "__main__"):
+        assert f"lidar_object_detection_tpu_torch.{name}" in modules
     loaded = _loaded_after(modules)
     assert "torch" in loaded
     assert _forbidden(loaded) == []
 
 
+def test_port_sources_name_nothing_of_jax():
+    """No import statement of the port, at top level or inside a function,
+    names a forbidden module."""
+    root = os.path.join(REPO, "lidar_object_detection_tpu_torch")
+    found = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                found[os.path.relpath(path, REPO)] = _forbidden(
+                    _imported_names(path))
+    assert "lidar_object_detection_tpu_torch/pipelines/cli.py" in found
+    assert {k: v for k, v in found.items() if v} == {}
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     """chip_smoke.py's imports -- its top level and those inside its
     functions -- read from its source and imported, without running it."""
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    modules = {"chip_smoke"}
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            modules.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            modules.add(node.module)
+    modules = {"chip_smoke"} | _imported_names(
+        os.path.join(REPO, "chip_smoke.py"))
     assert any(m.startswith("lidar_object_detection_tpu_torch")
                for m in modules)
     assert _forbidden(modules) == []
     assert _forbidden(_loaded_after(sorted(modules))) == []
+
+
+def test_card_tests_import_nothing_of_jax():
+    """The card's test file collects where JAX and Flax are missing."""
+    names = _imported_names(os.path.join(REPO, "tests", "test_torch_cuda.py"))
+    assert "chip_smoke" in names
+    assert _forbidden(names) == []

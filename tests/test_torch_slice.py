@@ -32,6 +32,7 @@ from lidar_object_detection_tpu_torch.eval.statistics import (
 from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
 from lidar_object_detection_tpu_torch.models.yolo.serving import (
     load_serving_checkpoint)
+from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
 
 CKPT = "checkpoints/yolo11n_seg_distill.msgpack"
 H0, W0 = 96, 320
@@ -41,7 +42,7 @@ K = np.array([[140.0, 0.0, 160.0], [0.0, 140.0, 48.0], [0.0, 0.0, 1.0]])
 
 @pytest.fixture(scope="module")
 def both():
-    frame = chip_smoke.read_png_rgb(chip_smoke.FRAMES[0])
+    frame = read_png_rgb(chip_smoke.FRAMES[0])
     images = np.ascontiguousarray(np.stack(
         [frame[180:276, 528:848], frame[180:276, 352:672]]))
     jdet, jstep, jres = jload(CKPT, (H0, W0), imgsz=160)
