@@ -12,24 +12,30 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    a link into one ctypes-loaded library);
 3. holds each kernel against its plain PyTorch twin on the card at the
    serving path's shapes, and times both with CUDA events: K1 (inside
-   counts), K2/K3 (mask assembly), and K5 (NMS) on synthetic hard cases
-   (NaN, infinite and invalid scores, ties, IoUs an ulp around the
-   threshold) and on the decode's real candidates;
+   counts) on the main path's batch of 4 scans, one scan, and edge cases
+   (P not a multiple of a tile, D < 32, no active point, one box, every
+   box invalid, points exactly on box faces, boxes whose edges are not
+   orthogonal); K2/K3 (mask assembly); and
+   K5 (NMS) on synthetic hard cases (NaN, infinite and invalid scores,
+   ties, IoUs an ulp around the threshold, N = 1024, M > N, a frame with
+   nothing alive) and on the decode's real candidates of both views;
 4. drives the main path through the port's entry points: the committed
    YOLO11n-seg checkpoint at its sidecar serving point (hflip TTA, guarded
    masks, BatchNorm folded, bf16) over 4 frames of 376 x 1408 (two real
    camera frames and their mirrors), then ``fuse_batch`` over synthetic
    131072-point scans with 384 box slots, then ``frame_statistics``.  The
    kernels' launch counters are zeroed just before and read just after,
-   and every kernel must have run (K5 once per view).  The same network
-   outputs are then decoded on the CPU by the twins, and the fusion is
-   rerun with the plain inside-count, as references;
+   and every kernel must have run, K1 and K5 once for the batch.  The
+   same network outputs are then decoded on the CPU by the twins, and the
+   fusion is rerun with the plain inside-count, as references;
 5. writes the same frames and scans as a KITTI-360 directory tree (the
    committed PNG files as they are, their mirrors as adaptively filtered
    PNGs, ``.bin``, box JSON, calibration; one frame without boxes, which
    the loader must skip) and runs the ``csv_eval`` entry, the erosion
    study and the CLI from it, with the YOLO detector as the CLI serves it
-   (float32, unfolded weights).  Every kernel must launch in the csv_eval
+   (float32, unfolded weights, its own precision pinned: the script sets
+   no global TF32 switch), after comparing that detector's detections
+   with the served bf16 one's.  Every kernel must launch in the csv_eval
    run; its detections and master CSV must equal those of the same run
    with the twin NMS.  The loader's part of the run is timed on its own;
 6. prints one JSON line of the kernels (times, bounds, launches, errors),
@@ -333,67 +339,193 @@ def phase(name, t0):
 # kernels against their twins
 # ---------------------------------------------------------------------------
 
-def check_inside_counts(torch, dev, rng):
+def random_words(rng, point_valid, share=0.5):
+    """Random 32-bit membership words for ``share`` of the valid points,
+    as int32 (0 elsewhere)."""
+    n = len(point_valid)
+    words = rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+    words = np.where(rng.random(n) < share, words, 0) \
+        * point_valid.astype(np.uint64)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def face_case(rng, num_points=4099):
+    """Points exactly on the faces of axis-aligned boxes whose frames are
+    exact in float32 (edges 2, 4 and 1 m from corners on a 1/8 m grid), so
+    that projections equal 0 and 1, and points one ulp to either side of
+    a face, whose projections round to either side of 0 or 1.
+    Returns velodyne points (P, 3), words (P,), corners (G, 8, 3) and the
+    box mask."""
+    g = 6
+    c0 = np.array([[8 * i, -3, -1] for i in range(g)], np.float32) \
+        + rng.integers(0, 16, (g, 3)).astype(np.float32) / 8
+    edges = np.diag(np.array([2.0, 4.0, 1.0], np.float32))
+    corners = np.zeros((g, 8, 3), np.float32)
+    for i, j in ((1, 0), (3, 1), (4, 2)):
+        corners[:, i] = c0 + edges[j]
+    corners[:, 0] = c0
+    corners[:, 2] = c0 + edges[0] + edges[1]
+    for i in range(4):
+        corners[:, 4 + i] = corners[:, i] + edges[2]
+    box = rng.integers(0, g, num_points)
+    # each coordinate at a face (0 or 1), one ulp outside or inside it, or
+    # strictly inside
+    t = rng.integers(0, 6, (num_points, 3))
+    lo, hi = c0[box], c0[box] + np.diag(edges)[None, :]
+    pts = np.where(t == 0, lo, np.where(t == 1, hi, (lo + hi) / 2))
+    pts = np.where(t == 2, np.nextafter(lo, -np.inf), pts)
+    pts = np.where(t == 3, np.nextafter(hi, np.inf), pts)
+    pts = np.where(t == 4, np.nextafter(lo, np.inf), pts).astype(np.float32)
+    words = rng.integers(1, 2 ** 32, num_points, dtype=np.uint64)
+    return (pts, words.astype(np.uint32).view(np.int32), corners,
+            np.ones(g, bool))
+
+
+def skew_case(rng, skew, num_boxes=24, num_points=6151):
+    """Boxes whose edges are not orthogonal (``skew``: the cosine between
+    the first two edges), with points around the faces of the region the
+    frame's three slabs hold, which reaches past the corners' bounds.
+    Returns velodyne points (P, 3), words (P,), corners (G, 8, 3) and the
+    box mask."""
+    corners = np.zeros((num_boxes, 8, 3), np.float64)
+    duals = []
+    for g in range(num_boxes):
+        c0 = np.array([6.0 * g - 70, rng.uniform(-5, 5), -1.0])
+        yaw = rng.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                        [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        e1 = rot @ np.array([4.2, 0, 0])
+        e2 = rot @ (1.8 * np.array([skew, np.sqrt(1 - skew ** 2), 0]))
+        e3 = np.array([0, 0, 1.5])
+        corners[g, 0] = c0
+        corners[g, 1], corners[g, 3], corners[g, 4] = c0 + e1, c0 + e2, \
+            c0 + e3
+        corners[g, 2] = c0 + e1 + e2
+        corners[g, 5:] = corners[g, [1, 2, 3]] + e3
+        edges = np.stack([e1, e2, e3])
+        axes = edges / (edges ** 2).sum(1, keepdims=True)
+        duals.append((c0, np.linalg.inv(axes)))
+    box = rng.integers(0, num_boxes, num_points)
+    # slab coordinates near 0 and 1, inside and out
+    t = rng.choice([-0.02, -1e-4, 0.0, 1e-4, 0.5, 1 - 1e-4, 1.0, 1.02],
+                   (num_points, 3)) + rng.normal(0, 1e-3, (num_points, 3))
+    pts = np.stack([duals[g][0] + duals[g][1] @ t[i]
+                    for i, g in enumerate(box)])
+    words = rng.integers(1, 2 ** 32, num_points, dtype=np.uint64)
+    return (pts.astype(np.float32), words.astype(np.uint32).view(np.int32),
+            corners.astype(np.float32), np.ones(num_boxes, bool))
+
+
+def check_inside_counts(torch, dev, rng, scenes):
+    """K1 against its twin: the main path's batch of 4 scenes, the single
+    frame PR 5 timed, and edge cases; timed at B = 4 (the main path's one
+    launch per batch) and at B = 1."""
     from lidar_object_detection_tpu_torch.geom.boxes import (
         masked_box_frame, transform_corners)
     from lidar_object_detection_tpu_torch.ops import (
         inside_counts as ic, kernel_lib)
 
+    cam_to_velo = torch.from_numpy(CAM_TO_VELO)
+
+    def batch_of(frames):
+        pts, words, corners, mask = zip(*frames)
+        return (torch.from_numpy(np.stack(pts)).to(dev).contiguous(),
+                torch.from_numpy(np.stack(words)).to(dev),
+                torch.from_numpy(np.stack(corners)).to(dev).contiguous(),
+                torch.from_numpy(np.stack(mask)).to(dev))
+
+    def frame_of(points, pvalid, corners_cam, bvalid, share=0.5):
+        velo = transform_corners(torch.from_numpy(corners_cam), cam_to_velo)
+        return (np.ascontiguousarray(points[:, :3]),
+                random_words(rng, pvalid, share), velo.numpy(), bvalid)
+
+    # the main path's scenes; PR 5's single frame (32 detections in a row)
+    main = batch_of([frame_of(*s) for s in scenes])
     dets = np.stack([np.array([x, 150, x + 120, 260], np.float32)
                      for x in np.linspace(50, 1250, D)])
-    points, pvalid, corners_cam, bvalid = make_scene(
-        rng, dets, np.ones(D, bool))
-    corners = transform_corners(torch.from_numpy(corners_cam),
-                                torch.from_numpy(CAM_TO_VELO)).to(dev)
-    pts = torch.from_numpy(points[:, :3]).to(dev).contiguous()
-    words = rng.integers(0, 2 ** 32, P, dtype=np.uint64)
-    words = np.where(rng.random(P) < 0.5, words, 0) \
-        * pvalid.astype(np.uint64)
-    bits = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
-    box_mask = torch.from_numpy(bvalid).to(dev)
+    one = batch_of([frame_of(*make_scene(rng, dets, np.ones(D, bool)))])
+    # edge cases
+    odd_p = [frame_of(*make_scene(rng, dets, np.ones(D, bool),
+                                  num_points=100003)) for _ in range(2)]
+    face = face_case(rng)
+    skewed = batch_of([skew_case(rng, 0.4), skew_case(rng, 3e-4)])
+    cases = {
+        "main B=4": (main, D),
+        "PR 5 frame B=1": (one, D),
+        "P=100003 B=2": (batch_of(odd_p), D),
+        "D=5": (main, 5),
+        "D=1": (one, 1),
+        "all-zero words": ((main[0], torch.zeros_like(main[1])) + main[2:],
+                           D),
+        "G=1": ((main[0], main[1], main[2][:, :1].contiguous(),
+                 torch.ones_like(main[3][:, :1])), D),
+        "every box invalid": (main[:3] + (torch.zeros_like(main[3]),), D),
+        "points on faces": (batch_of([face]), D),
+        "skewed boxes": (skewed, D),
+    }
+    mismatches, max_err, hits = 0, 0, {}
+    for name, (args, d) in cases.items():
+        counts, totals = ic.inside_counts_cuda(*args, d)
+        ref_counts, ref_totals = ic.inside_counts_plain(*args, d)
+        torch.cuda.synchronize()
+        bad = int((counts != ref_counts).sum() + (totals != ref_totals).sum())
+        if bad:
+            raise AssertionError(f"K1 differs from its twin on the {name} "
+                                 f"case in {bad} entries")
+        max_err = max(max_err, int((counts - ref_counts).abs().max()),
+                      int((totals - ref_totals).abs().max()))
+        hits[name] = int(counts.sum())
+    if hits["main B=4"] == 0 or hits["PR 5 frame B=1"] == 0 \
+            or hits["points on faces"] == 0 or hits["skewed boxes"] == 0:
+        raise AssertionError(f"K1 check is degenerate: hits {hits}")
+    if hits["all-zero words"] or hits["every box invalid"]:
+        raise AssertionError(f"K1 counted points it must not: {hits}")
 
-    counts, totals = ic.inside_counts_cuda(pts, bits, corners, box_mask, D)
-    ref_counts, ref_totals = ic.inside_counts_plain(pts, bits, corners,
-                                                    box_mask, D)
-    torch.cuda.synchronize()
-    diff = int((counts != ref_counts).sum() + (totals != ref_totals).sum())
-    max_err = int(max((counts - ref_counts).abs().max(),
-                      (totals - ref_totals).abs().max()))
-    if diff:
-        raise AssertionError(f"K1 inside counts differ from the twin in "
-                             f"{diff} entries")
-    if int(counts.sum()) == 0:
-        raise AssertionError("K1 check is degenerate: no point in a box")
-
-    axes, offsets = masked_box_frame(corners, box_mask)
-    frame = torch.cat([axes, offsets[..., None]], -1).reshape(G, 12)
-    frame = frame.contiguous()
     lib = kernel_lib.library()
-    c_out = torch.zeros_like(counts)
-    t_out = torch.zeros_like(totals)
     sms = kernel_lib.sm_count(dev)
 
-    def launch():
-        kernel_lib.check(lib.inside_counts_launch(
-            pts.data_ptr(), bits.data_ptr(), frame.data_ptr(), P, G, D,
-            c_out.data_ptr(), t_out.data_ptr(), sms,
-            kernel_lib.stream_handle(dev)), "inside_counts_launch")
+    def launcher(pts, bits, corners, mask):
+        b, p = bits.shape
+        g = corners.shape[1]
+        axes, offsets = masked_box_frame(corners, mask)
+        frame = torch.cat([axes, offsets[..., None]], -1).reshape(b, g, 12)
+        frame = frame.contiguous()
+        c_out = torch.zeros((b, D, g), dtype=torch.int32, device=dev)
+        t_out = torch.zeros((b, D), dtype=torch.int32, device=dev)
 
-    ms = time_gpu(launch)
-    plain_ms = time_gpu(lambda: ic.inside_counts_plain(
-        pts, bits, corners, box_mask, D), reps=10, head_start=False)
-    active = int((bits != 0).sum())
-    n_bytes = P * 3 * 4 + P * 4 + G * 8 * 3 * 4 + G + D * G * 4 + D * 4
-    bound, by = bound_ms(n_bytes, active * G * 15)
-    print(f"K1 inside_counts: {int(counts.sum())} hits, {active} active "
-          f"points, equal to the twin; {ms:.4f} ms (twin {plain_ms:.4f})",
-          flush=True)
+        def run():
+            kernel_lib.check(lib.inside_counts_launch(
+                pts.data_ptr(), bits.data_ptr(), frame.data_ptr(),
+                corners.data_ptr(), mask.data_ptr(), b, p, g, D,
+                c_out.data_ptr(), t_out.data_ptr(), sms,
+                kernel_lib.stream_handle(dev)), "inside_counts_launch")
+        return run
+
+    def bound_of(pts, bits, corners, mask):
+        b, p = bits.shape
+        g = corners.shape[1]
+        active = int((bits != 0).sum())
+        n_bytes = b * (p * 3 * 4 + p * 4 + g * 8 * 3 * 4 + g + D * g * 4
+                       + D * 4)
+        return active, bound_ms(n_bytes, active * g * 15)
+
+    ms = time_gpu(launcher(*main))
+    ms_one = time_gpu(launcher(*one))
+    plain_ms = time_gpu(lambda: ic.inside_counts_plain(*main, D), reps=10,
+                        head_start=False)
+    active, (bound, by) = bound_of(*main)
+    active_one, (bound_one, _) = bound_of(*one)
+    print(f"K1 inside_counts: equal to the twin on {len(cases)} cases "
+          f"(hits {hits}); B=4: {ms:.4f} ms for {active} active points "
+          f"(twin {plain_ms:.4f}, bound {bound:.4g} by {by}); B=1: "
+          f"{ms_one:.4f} ms for {active_one} active points (bound "
+          f"{bound_one:.4g})", flush=True)
     return {"name": "inside_counts", "route": "cuda",
             "source": "lidar_object_detection_tpu_torch/csrc/"
                       "inside_counts.cu",
-            "replaces": "lidar_object_detection_tpu/ops/pallas_count.py:74",
-            "max_abs_err": max_err, "mismatches": diff, "ms": ms,
-            "kernel_ms": ms,
+            "replaces": "lidar_object_detection_tpu/ops/pallas_count.py:76",
+            "max_abs_err": max_err, "mismatches": mismatches, "ms": ms,
+            "kernel_ms": ms, "ms_b1": ms_one, "bound_ms_b1": bound_one,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 
@@ -494,9 +626,10 @@ def check_mask_kernels(torch, dev, rng):
 
 
 def check_nms(torch, dev, rng, detector, images):
-    """K5 against its twin: synthetic hard cases at B = 8, and the real
-    candidates of the main path's decode (both views); timed on one view's
-    candidates, the shape the main path launches it at."""
+    """K5 against its twin: synthetic hard cases at B = 8, N = 1024, M > N,
+    a frame with nothing alive, and the real candidates of the main path's
+    decode (both views, 2B frames); timed on those 2B frames, the one
+    launch the main path makes per batch."""
     from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
         nms_candidates)
     from lidar_object_detection_tpu_torch.ops import kernel_lib
@@ -504,34 +637,41 @@ def check_nms(torch, dev, rng, detector, images):
 
     p = detector.params
     thr, m = p.iou_threshold, p.max_detections
-    boxes, scores, valid = (torch.from_numpy(a).to(dev)
-                            for a in nms_case(rng, 8, 256, thr))
+    on_card = lambda arrays: tuple(torch.from_numpy(a).to(dev)
+                                   for a in arrays)
     outputs = detector.forward(images)
     _, real_boxes, real_scores, real_valid = nms_candidates(outputs, p)
-    b = len(images)
-    cases = {"synthetic": (boxes, scores, valid),
-             "decode": (real_boxes.contiguous(), real_scores.contiguous(),
-                        real_valid.contiguous())}
+    real = (real_boxes.contiguous(), real_scores.contiguous(),
+            real_valid.contiguous())
+    dead = list(on_card(nms_case(rng, 4, 256, thr)))
+    dead[2] = dead[2].clone()
+    dead[2][1] = False                     # frame 1: nothing alive
+    cases = {
+        "synthetic B=8": (on_card(nms_case(rng, 8, 256, thr)), m),
+        "N=1024": (on_card(nms_case(rng, 3, 1024, thr)), 40),
+        "M>N": (on_card(nms_case(rng, 2, 20, thr)), 32),
+        "nothing alive": (tuple(dead), m),
+        "decode 2B": (real, m),
+    }
     kept, mismatches, max_err = {}, 0, 0
-    for name, (bx, sc, va) in cases.items():
-        idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, m)
-        ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, m)
+    for name, ((bx, sc, va), mm) in cases.items():
+        idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, mm)
+        ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, mm)
         torch.cuda.synchronize()
         bad = int((idx != ref_idx).sum() + (keep != ref_keep).sum())
         if bad:
             raise AssertionError(f"K5 differs from its twin on the {name} "
                                  f"case in {bad} slots")
-        mismatches += bad
         # the largest difference of a picked index or a keep flag
         max_err = max(max_err, int((idx - ref_idx).abs().max()),
                       int((keep != ref_keep).any()))
-        kept[name] = int(keep.sum())
-    if kept["decode"] == 0 or kept["synthetic"] < 8:
+        kept[name] = keep.sum(dim=1).tolist()
+    if sum(kept["decode 2B"]) == 0 or sum(kept["synthetic B=8"]) < 8 \
+            or kept["nothing alive"][1] != 0:
         raise AssertionError(f"K5 check is degenerate: kept {kept}")
 
-    # one view's candidates, as the main path launches K5 (once per view)
-    bx, sc, va = (t[:b].contiguous() for t in cases["decode"])
-    n = bx.shape[1]
+    bx, sc, va = real
+    b, n = sc.shape
     lib = kernel_lib.library()
     out_idx = torch.empty((b, m), dtype=torch.int64, device=dev)
     out_keep = torch.empty((b, m), dtype=torch.bool, device=dev)
@@ -550,7 +690,7 @@ def check_nms(torch, dev, rng, detector, images):
     # 2 max, 4 add or subtract, 1 multiply, 1 divide, 1 compare with the
     # threshold), 3 per box for its area, and n compares per argmax step;
     # a frame makes one step per pick and one more that finds none left
-    picks = nms_lib.nms_plain(bx, sc, va, thr, m)[1].sum(dim=1).tolist()
+    picks = kept["decode 2B"]
     n_ops = sum(k * n * 11 + min(k + 1, m) * n + 3 * n for k in picks)
     n_bytes = b * n * (16 + 4 + 1) + b * m * (8 + 1)
     bound, by = bound_ms(n_bytes, n_ops)
@@ -635,9 +775,10 @@ def main_path(torch, dev, smi, detector, images, scenes):
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing}")
-    if launches["nms"] != 2:
-        raise AssertionError(f"K5 launched {launches['nms']} times for one "
-                             f"TTA batch, expected 2 (one per view)")
+    if launches["nms"] != 1 or launches["inside_counts"] != 1:
+        raise AssertionError(f"K5 and K1 launched {launches['nms']} and "
+                             f"{launches['inside_counts']} times for one "
+                             f"batch, expected once each")
 
     # the outputs, by the repo's own means
     n_det = det["det_valid"].sum(dim=1).tolist()
@@ -704,10 +845,42 @@ def main_path(torch, dev, smi, detector, images, scenes):
     return launches
 
 
-def csv_eval_phase(torch, dev, smi, images, scenes):
+def compare_bf16_float32(torch, bf16_det, f32_det, images):
+    """The served bf16 detector against the CLI's float32 one on the same
+    frames: which float32 detections bf16 drops at the score cut, and which
+    it adds (matched at IoU >= 0.5)."""
+    from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
+
+    a = bf16_det.detect(images)
+    b = f32_det.detect(images)
+    dropped, added, shift = [], [], 0.0
+    for i in range(len(images)):
+        ba = a["boxes"][i][a["det_valid"][i]].float()
+        bb = b["boxes"][i][b["det_valid"][i]].float()
+        iou = iou_2d_matrix(bb, ba) if len(ba) and len(bb) else None
+        hit_b = (iou.amax(dim=1) >= 0.5) if iou is not None else \
+            torch.zeros(len(bb), dtype=torch.bool)
+        hit_a = (iou.amax(dim=0) >= 0.5) if iou is not None else \
+            torch.zeros(len(ba), dtype=torch.bool)
+        dropped.append(int((~hit_b).sum()))
+        added.append(int((~hit_a).sum()))
+        if iou is not None and bool(hit_b.any()):
+            pair = iou.argmax(dim=1)[hit_b]
+            shift = max(shift, float((bb[hit_b] - ba[pair]).abs().max()))
+    print(f"bf16 (folded) vs float32 serving on the 4 frames: float32 "
+          f"keeps {b['det_valid'].sum(dim=1).tolist()} detections, bf16 "
+          f"{a['det_valid'].sum(dim=1).tolist()}; float32 detections bf16 "
+          f"drops {dropped}, bf16 detections float32 lacks {added} (IoU "
+          f">= 0.5); largest box shift of a matched pair {shift:.3f} px",
+          flush=True)
+
+
+def csv_eval_phase(torch, dev, smi, images, scenes, bf16_detector):
     """The csv_eval entry and the erosion study from a KITTI-360 tree on
     disk, with the YOLO detector as the CLI serves it (float32, unfolded
-    weights, the sidecar's point).  Returns the csv_eval run's launches."""
+    weights, the sidecar's point), which pins its own precision: nothing
+    here sets a global TF32 switch.  Returns the csv_eval run's
+    launches."""
     import copy
     import tempfile
 
@@ -726,6 +899,7 @@ def csv_eval_phase(torch, dev, smi, images, scenes):
     t0 = time.perf_counter()
     detector, _, _ = load_serving_checkpoint(CKPT, (H0, W0),
                                              default_scale="x", device=dev)
+    compare_bf16_float32(torch, bf16_detector, detector, images)
     plain = copy.copy(detector)
     plain.params = dataclasses.replace(detector.params, nms_impl="plain")
     with tempfile.TemporaryDirectory() as tmp:
@@ -931,8 +1105,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
@@ -942,7 +1114,7 @@ def main() -> int:
     phase("build", t0)
 
     detector, images, scenes = load_serving(torch, dev, rng)
-    kernels = [check_inside_counts(torch, dev, rng)]
+    kernels = [check_inside_counts(torch, dev, rng, scenes)]
     kernels += check_mask_kernels(torch, dev, rng)
     kernels.append(check_nms(torch, dev, rng, detector, images))
     phase("kernels against twins", t0)
@@ -950,7 +1122,7 @@ def main() -> int:
     launches = main_path(torch, dev, smi, detector, images, scenes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes)
+    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes, detector)
     for k in kernels:
         k["csv_eval_launches"] = csv_launches[k["name"]]
     phase("total", t0)

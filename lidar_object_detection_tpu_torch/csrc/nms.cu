@@ -14,33 +14,37 @@
 // The IoU follows geom/boxes.py (iou_2d_matrix) operation for operation,
 // each rounded on its own (__fsub_rn / __fmul_rn / __fadd_rn / __fdiv_rn),
 // so that no fused multiply-add moves a value across the threshold: the
-// kernel and its twin agree bit for bit.  min / max propagate NaN, as
-// torch.minimum / torch.maximum do.
+// kernel and its twin agree bit for bit.  It is iou(box[pick], box[j]),
+// the row of the pick that the twin reads.  min / max propagate NaN, as
+// torch.minimum / torch.maximum do.  The threshold arrives as the float32
+// the twin compares with.
 //
 // What bounds it on an H100.  Greedy NMS needs the IoU of each pick with
 // the N candidates, not all N^2 pairs: 11 fp32 operations per (pick,
 // candidate) pair (2 min, 2 max, 4 add or subtract, 1 multiply, 1 divide,
 // 1 compare with the threshold), 3 per box for its area, and N compares
-// per argmax step.  At 4 frames x 256 candidates and the full 32 picks
-// that is about 0.4 M operations, 0.006 us at 67 TFLOP/s; it moves about
-// 23 KB (boxes, scores, valid in; indices and flags out), 0.007 us at
-// 3.35 TB/s.  So it is bound by bytes on paper, and in fact by the M
-// serial argmax steps, each a block-wide reduction with two barriers, and
-// by the launch.  This kernel also computes all N rows of IoUs where only
-// the picks' rows are needed.
+// per argmax step.  The decode's frames pick 0 to 6 boxes of 256, so the
+// bound is set by the bytes (about 21 bytes per candidate): some 45 KB,
+// 0.01 us at 3.35 TB/s, for the 8 frames of a TTA batch.  In practice it
+// is the latency of the few serial argmax steps and the launch.
 //
-// What the design does about it.  The TPU kernel keeps the (N, N) float32
-// IoU matrix in VMEM (256 KiB at N = 256), more than the 227 KB of shared
-// memory an H100 block may hold.  Here each IoU is reduced at once to one
-// bit: the block keeps an N x ceil(N / 32) suppression bitmask in shared
-// memory (8 KiB at N = 256).  One block runs one frame, so the frames of
-// a batch run in parallel in one launch.  Thread i owns candidate i: it
-// computes row i of the bitmask from the boxes in shared memory (the same
-// box j is read by every thread at once, a broadcast), and holds its own
-// alive flag and score in registers.  Each of the M steps is a block
-// argmax of (score, index) pairs -- warp shuffles, then the warp leaders
-// through shared memory, ties to the lower index -- after which every
-// thread reads one bit of the winner's row.
+// What the design does about it.
+// * One warp per frame, one block per frame: the frames of a batch (both
+//   TTA views, 2B frames) run in parallel in one launch.  Lane l owns the
+//   candidates l, l + 32, l + 64, ...: their scores in registers and their
+//   alive flags as the bits of one register.  The kernel is compiled for
+//   8, 16 and 32 candidates per lane and launched with the fewest that
+//   hold N, since every scan of a step unrolls over them.  The boxes of
+//   the frame sit in shared memory, 16 bytes each, read as float4.
+// * An argmax step is warp shuffles only: each lane scans its own alive
+//   candidates (ascending index, strict >, so ties keep the lower index),
+//   then five butterfly rounds of (score, index) pairs give every lane the
+//   winner, ties to the lower index.  No block barrier.
+// * Lazy rows: after a pick, each lane computes the IoU of the pick with
+//   its alive candidates only, skipping the division where the boxes do
+//   not overlap.  That is at most picks x N IoUs per frame, not N^2.
+// * An early exit: once no candidate of the frame is alive, the warp
+//   writes the remaining slots as (0, false) at once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,7 +53,7 @@
 namespace {
 
 constexpr int kMaxN = 1024;
-constexpr int kMaxWarps = kMaxN / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fffffff) : fminf(a, b);
@@ -59,16 +63,21 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
 }
 
-// IoU of boxes a and b (xyxy), in the operation order of iou_2d_matrix.
-__device__ __forceinline__ float iou(const float* a, const float* b) {
-  const float iw = __fsub_rn(nan_min(a[2], b[2]), nan_max(a[0], b[0]));
-  const float ih = __fsub_rn(nan_min(a[3], b[3]), nan_max(a[1], b[1]));
-  const bool empty = (iw <= 0.0f) || (ih <= 0.0f);
-  const float inter = empty ? 0.0f : __fmul_rn(iw, ih);
-  const float area_a = __fmul_rn(__fsub_rn(a[2], a[0]), __fsub_rn(a[3], a[1]));
-  const float area_b = __fmul_rn(__fsub_rn(b[2], b[0]), __fsub_rn(b[3], b[1]));
-  const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
-  return uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
+// iou(a, b) > thr for boxes a and b (xyxy), a's area given, in the
+// operation order of iou_2d_matrix.  The division is skipped where the
+// boxes do not overlap: the IoU is then 0, as the twin computes it.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b,
+                                          float thr) {
+  const float iw = __fsub_rn(nan_min(a.z, b.z), nan_max(a.x, b.x));
+  const float ih = __fsub_rn(nan_min(a.w, b.w), nan_max(a.y, b.y));
+  float v = 0.0f;
+  if (!((iw <= 0.0f) || (ih <= 0.0f))) {
+    const float inter = __fmul_rn(iw, ih);
+    const float area_b = __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
+    const float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+    if (uni > 0.0f) v = __fdiv_rn(inter, uni);
+  }
+  return v > thr;
 }
 
 // (value, index) a beats (value, index) b: higher value, then lower index.
@@ -76,122 +85,106 @@ __device__ __forceinline__ bool beats(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-// grid (B,), block (threads >= N, a multiple of 32).  Dynamic shared
-// memory: boxes (N, 4) floats, then the (N, words) suppression bitmask.
-__global__ void nms_kernel(const float* __restrict__ boxes,
-                           const float* __restrict__ scores,
-                           const bool* __restrict__ valid, int n, int m,
-                           float thr, int64_t* __restrict__ out_idx,
-                           bool* __restrict__ out_keep) {
-  extern __shared__ float smem[];
-  __shared__ float s_val[kMaxWarps];
-  __shared__ int s_idx[kMaxWarps];
-  __shared__ int s_best;
-  __shared__ bool s_ok;
-
+// grid (B,), block 32 (one warp), N <= 32 kPerLane.  Dynamic shared
+// memory: the frame's boxes, (N,) float4.
+template <int kPerLane>
+__global__ void __launch_bounds__(32) nms_kernel(
+    const float4* __restrict__ boxes, const float* __restrict__ scores,
+    const bool* __restrict__ valid, int n, int m, float thr,
+    int64_t* __restrict__ out_idx, bool* __restrict__ out_keep) {
+  extern __shared__ float4 s_box[];
   const int frame = blockIdx.x;
-  const int i = threadIdx.x;
-  const int words = (n + 31) / 32;
-  float* s_box = smem;
-  uint32_t* s_bits = reinterpret_cast<uint32_t*>(smem + 4 * n);
-  const float* f_boxes = boxes + static_cast<size_t>(frame) * n * 4;
+  const int lane = threadIdx.x;
+  const size_t base = static_cast<size_t>(frame) * n;
+  for (int j = lane; j < n; j += 32) s_box[j] = boxes[base + j];
 
-  const float neg = -INFINITY;
-  float base = neg;
-  bool alive = false;
-  if (i < n) {
-    for (int k = 0; k < 4; ++k) s_box[4 * i + k] = f_boxes[4 * i + k];
-    const float s = scores[static_cast<size_t>(frame) * n + i];
-    alive = valid[static_cast<size_t>(frame) * n + i] && isfinite(s);
-    base = alive ? s : neg;
-  }
-  __syncthreads();
-
-  if (i < n) {
-    const float* mine = s_box + 4 * i;
-    for (int w = 0; w < words; ++w) {
-      uint32_t word = 0;
-      const int stop = min(32, n - 32 * w);
-      for (int b = 0; b < stop; ++b) {
-        const int j = 32 * w + b;
-        if (iou(mine, s_box + 4 * j) > thr) word |= 1u << b;
+  float sc[kPerLane];
+  uint32_t alive = 0u;          // bit k: candidate 32 k + lane is alive
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int j = 32 * k + lane;
+    sc[k] = -INFINITY;
+    if (j < n) {
+      const float s = scores[base + j];
+      if (valid[base + j] && isfinite(s)) {
+        sc[k] = s;
+        alive |= 1u << k;
       }
-      s_bits[i * words + w] = word;
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  const int lane = i & 31;
-  const int warp = i >> 5;
-  const int num_warps = blockDim.x >> 5;
   int64_t* f_idx = out_idx + static_cast<size_t>(frame) * m;
   bool* f_keep = out_keep + static_cast<size_t>(frame) * m;
-
-  for (int slot = 0; slot < m; ++slot) {
-    float v = alive ? base : neg;
-    int at = i;
+  int slot = 0;
+  for (; slot < m; ++slot) {
+    if (__ballot_sync(kFull, alive != 0u) == 0u) break;
+    float bv = -INFINITY;
+    int bi = 32 * kPerLane;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      if (((alive >> k) & 1u) && sc[k] > bv) {
+        bv = sc[k];
+        bi = 32 * k + lane;
+      }
+    }
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, at, off);
-      if (beats(ov, oi, v, at)) {
-        v = ov;
-        at = oi;
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (beats(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
       }
     }
+    const int pick = bi;        // the same in every lane
     if (lane == 0) {
-      s_val[warp] = v;
-      s_idx[warp] = at;
+      f_idx[slot] = pick;
+      f_keep[slot] = true;
     }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < num_warps ? s_val[lane] : neg;
-      at = lane < num_warps ? s_idx[lane] : kMaxN;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, at, off);
-        if (beats(ov, oi, v, at)) {
-          v = ov;
-          at = oi;
-        }
-      }
-      if (lane == 0) {
-        // no alive candidate: every value is -inf and the lowest index,
-        // 0, wins, as the twin's argmax does
-        const bool ok = v > neg;
-        s_best = at;
-        s_ok = ok;
-        f_idx[slot] = ok ? at : 0;
-        f_keep[slot] = ok;
-      }
+    const float4 a = s_box[pick];
+    const float area_a = __fmul_rn(__fsub_rn(a.z, a.x), __fsub_rn(a.w, a.y));
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      if (((alive >> k) & 1u) && iou_above(a, area_a, s_box[32 * k + lane],
+                                           thr))
+        alive &= ~(1u << k);
     }
-    __syncthreads();
-    const int best = s_best;
-    if (s_ok && i < n) {
-      const bool hit = (s_bits[best * words + (i >> 5)] >> (i & 31)) & 1u;
-      if (hit || i == best) alive = false;
-    }
+    if (lane == (pick & 31)) alive &= ~(1u << (pick >> 5));
+  }
+  for (int s = slot + lane; s < m; s += 32) {
+    f_idx[s] = 0;
+    f_keep[s] = false;
   }
 }
 
 }  // namespace
 
+// boxes (B, N, 4) f32, 16-byte aligned; scores (B, N) f32; valid (B, N)
+// bool; out_idx (B, M) i64 and out_keep (B, M) bool.  Returns
+// cudaGetLastError().
 extern "C" int nms_launch(const void* boxes, const void* scores,
                           const void* valid, int batch, int n, int m,
                           float thr, void* out_idx, void* out_keep,
                           void* stream) {
   if (batch < 1 || n < 1 || n > kMaxN || m < 1) return cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const int words = (n + 31) / 32;
-  const size_t smem = sizeof(float) * 4 * n + sizeof(uint32_t) * n * words;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  nms_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores),
-      static_cast<const bool*>(valid), n, m, thr,
-      static_cast<int64_t*>(out_idx), static_cast<bool*>(out_keep));
+  if (reinterpret_cast<uintptr_t>(boxes) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const size_t smem = sizeof(float4) * n;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* b4 = static_cast<const float4*>(boxes);
+  const float* sc = static_cast<const float*>(scores);
+  const bool* va = static_cast<const bool*>(valid);
+  int64_t* idx = static_cast<int64_t*>(out_idx);
+  bool* keep = static_cast<bool*>(out_keep);
+  // as few candidates per lane as N allows: the scans of a step unroll
+  // over them
+  if (n <= 256)
+    nms_kernel<8><<<batch, 32, smem, st>>>(b4, sc, va, n, m, thr, idx, keep);
+  else if (n <= 512)
+    nms_kernel<16><<<batch, 32, smem, st>>>(b4, sc, va, n, m, thr, idx,
+                                            keep);
+  else
+    nms_kernel<32><<<batch, 32, smem, st>>>(b4, sc, va, n, m, thr, idx,
+                                            keep);
   return cudaGetLastError();
 }

@@ -17,6 +17,11 @@ cvs_erosion.py:298-379):
   7. the best box with the reference's first-wins and ``min_points``
      semantics.
 
+Every step runs over the whole batch at once, frames on a leading axis
+(the JAX package vmaps ``fuse_frame``): each is elementwise or a gather
+per frame, so batching changes no output, and the inside-count is one
+launch of K1 per batch.  ``fuse_frame`` is the batch of one frame.
+
 The V4/V5 matchers of the JAX module are not ported yet.
 """
 
@@ -54,7 +59,20 @@ def fuse_frame(points, point_valid, mask_bits, det_valid, corners_cam0,
     Returns the JAX ``fuse_frame`` dict, with int32 words for the uint32
     ones.
     """
+    out = fuse_batch(points[None], point_valid[None], mask_bits[None],
+                     det_valid[None], corners_cam0[None], box_valid[None],
+                     velo_to_rect, cam_to_velo, intrinsics, params)
+    return {k: v[0] for k, v in out.items()}
+
+
+def fuse_batch(batch_points, batch_point_valid, batch_mask_bits,
+               batch_det_valid, batch_corners, batch_box_valid,
+               velo_to_rect, cam_to_velo, intrinsics,
+               params: FusionParams) -> Dict[str, torch.Tensor]:
+    """:func:`fuse_frame` over a leading (B,) frame axis (calibration
+    shared); each output gains that axis."""
     p = params
+    points = batch_points
     dtype = points.dtype
     intrinsics = intrinsics.to(dtype)
 
@@ -62,8 +80,9 @@ def fuse_frame(points, point_valid, mask_bits, det_valid, corners_cam0,
         points, velo_to_rect.to(dtype), intrinsics)
     valid = proj_lib.point_validity(
         u, v, depth, p.width, p.height, p.depth_min, p.depth_max,
-        point_valid)
+        batch_point_valid)
 
+    corners_cam0, box_valid = batch_corners, batch_box_valid
     if not p.bbox_filter:
         vis = box_valid
     elif p.bbox_filter_mode == "rich":
@@ -80,27 +99,30 @@ def fuse_frame(points, point_valid, mask_bits, det_valid, corners_cam0,
     corners_velo = boxes_lib.transform_corners(
         corners_cam0, cam_to_velo.to(dtype))
 
+    mask_bits = batch_mask_bits
     if p.erosion_enabled:
         mask_bits = erosion_lib.erode_packed(
             mask_bits, p.erosion_kernel_size, p.erosion_iterations)
 
-    det_word = masks_lib.detection_word(det_valid)
+    det_valid = batch_det_valid
+    det_word = masks_lib.detection_word(det_valid)                 # (B,)
     point_bits = masks_lib.gather_point_bits(mask_bits, u, v, valid)
-    point_bits = point_bits & det_word
+    point_bits = point_bits & det_word[:, None]
 
     if p.count_impl == "auto":
-        counts, total = inside_counts(points[:, :3], point_bits, corners_velo,
-                                      vis, p.num_detections, p.count_chunk)
+        counts, total = inside_counts(points[..., :3], point_bits,
+                                      corners_velo, vis, p.num_detections,
+                                      p.count_chunk)
     elif p.count_impl == "plain":
         counts, total = inside_counts_plain(
-            points[:, :3], point_bits, corners_velo, vis, p.num_detections,
-            p.count_chunk)
+            points[..., :3], point_bits, corners_velo, vis,
+            p.num_detections, p.count_chunk)
     else:
         raise ValueError(f"count_impl must be 'auto' or 'plain', got "
                          f"{p.count_impl!r}")
 
-    best_count = counts.amax(dim=1)
-    best_idx = counts.argmax(dim=1).to(torch.int32)
+    best_count = counts.amax(dim=-1)
+    best_idx = counts.argmax(dim=-1).to(torch.int32)
     matched = (best_count >= p.min_points) & (best_count > 0) & det_valid
     best_box = torch.where(matched, best_idx, -1)
     inside_ct = torch.where(matched, best_count, 0)
@@ -113,17 +135,3 @@ def fuse_frame(points, point_valid, mask_bits, det_valid, corners_cam0,
         "points_inside": inside_ct, "matched": matched,
         "eroded_mask_bits": mask_bits,
     }
-
-
-def fuse_batch(batch_points, batch_point_valid, batch_mask_bits,
-               batch_det_valid, batch_corners, batch_box_valid,
-               velo_to_rect, cam_to_velo, intrinsics,
-               params: FusionParams) -> Dict[str, torch.Tensor]:
-    """:func:`fuse_frame` over the leading frame axis (calibration shared);
-    each output gains a leading (B,) axis."""
-    frames = [
-        fuse_frame(batch_points[b], batch_point_valid[b], batch_mask_bits[b],
-                   batch_det_valid[b], batch_corners[b], batch_box_valid[b],
-                   velo_to_rect, cam_to_velo, intrinsics, params)
-        for b in range(batch_points.shape[0])]
-    return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}

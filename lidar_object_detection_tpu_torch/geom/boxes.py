@@ -56,10 +56,12 @@ def box_frame(corners: torch.Tensor):
 def masked_box_frame(corners: torch.Tensor, box_mask: torch.Tensor):
     """:func:`box_frame` with invalid boxes encoded so that no point ever
     tests inside: zero axes and offset -2 (the offset alone would not do:
-    ``a . p - 2`` can land in [0, 1])."""
+    ``a . p - 2`` can land in [0, 1]).  Takes (..., G, 8, 3) corners and
+    a (..., G) mask."""
     axes, offsets = box_frame(corners)
-    axes = torch.where(box_mask[:, None, None], axes, torch.zeros_like(axes))
-    offsets = torch.where(box_mask[:, None], offsets,
+    axes = torch.where(box_mask[..., None, None], axes,
+                       torch.zeros_like(axes))
+    offsets = torch.where(box_mask[..., None], offsets,
                           torch.full_like(offsets, -2.0))
     return axes, offsets
 

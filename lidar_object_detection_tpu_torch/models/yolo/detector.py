@@ -6,10 +6,16 @@ YOLO11-seg network, the static letterbox geometry and the decode, as
 ``model.predict(...)`` plays it in the reference (V1:55-93).  The masks
 come out as packed 32-bit words per pixel, ready for
 ``fusion.associate.fuse_frame``.
+
+A float32 detector runs its forward in full float32: cuDNN would
+otherwise run float32 convolutions in TF32, which keeps about three
+decimal digits, where the JAX package computes in float32.  It pins the
+precision for its own forward only and restores the caller's settings.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -20,9 +26,24 @@ from lidar_object_detection_tpu_torch.models.yolo.model import (
 from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     LetterboxSpec, PostprocessParams, letterbox_image, postprocess_batch)
 from lidar_object_detection_tpu_torch.models.yolo.tta import (
-    postprocess_tta_batch)
+    postprocess_tta)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
     fold_serving_variables, from_flax_variables)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN convolutions and cuBLAS products in IEEE float32 (no TF32)
+    inside the scope; the caller's settings are restored after it."""
+    conv = torch.backends.cudnn.conv
+    matmul = torch.backends.cuda.matmul
+    saved = conv.fp32_precision, matmul.fp32_precision
+    conv.fp32_precision = "ieee"
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision, matmul.fp32_precision = saved
 
 
 class YoloDetector:
@@ -85,24 +106,25 @@ class YoloDetector:
     def forward(self, images) -> Dict[str, List[torch.Tensor]]:
         """(B, H0, W0, 3) uint8 RGB (numpy or tensor) -> the network's raw
         outputs; with hflip TTA, one forward over both views (2B frames,
-        the mirrored views last)."""
+        the mirrored views last).  A float32 network runs in full float32
+        (:func:`full_float32`)."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         imgs = images.to(self.device).to(torch.float32) / 255.0
         if self.tta == "hflip":
             imgs = torch.cat([imgs, imgs.flip(2)], dim=0)
-        return self.model(letterbox_image(imgs, self.spec).to(self.dtype))
+        scope = (full_float32() if self.dtype == torch.float32
+                 else contextlib.nullcontext())
+        with scope:
+            return self.model(letterbox_image(imgs, self.spec).to(
+                self.dtype))
 
     def decode(self, outputs) -> Dict[str, torch.Tensor]:
         """Raw outputs of :meth:`forward` -> detections, on the outputs'
         device: the kernels decode CUDA tensors, the twins CPU tensors."""
         if self.tta != "hflip":
             return postprocess_batch(outputs, self.params)
-        b = outputs["proto"].shape[0] // 2
-        view = lambda sl: {k: [x[sl] for x in v] if isinstance(v, list)
-                           else v[sl] for k, v in outputs.items()}
-        return postprocess_tta_batch(view(slice(0, b)), view(slice(b, None)),
-                                     self.params, self.tta_match_iou)
+        return postprocess_tta(outputs, self.params, self.tta_match_iou)
 
     @torch.no_grad()
     def detect(self, images) -> Dict[str, torch.Tensor]:

@@ -17,7 +17,9 @@ Under ``jit`` the JAX package's two single-view mask assemblies are dead
 code that XLA drops (``tta.py:92-95``).  Eager PyTorch would run them, so
 the views are decoded with ``masks=False``, which returns the mask
 coefficients and assembles nothing: a TTA frame launches K3 and K2 once
-each.
+each.  Both views of a batch go through one decode, 2B frames at once, so
+the NMS (kernel K5 on CUDA tensors) is one launch per batch; every step of
+the decode is per frame, so this changes no output.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     postprocess_batch,
 )
 
-__all__ = ["flip_boxes", "postprocess_tta_pair", "postprocess_tta_batch"]
+__all__ = ["flip_boxes", "postprocess_tta", "postprocess_tta_pair"]
 
 
 def flip_boxes(boxes: torch.Tensor, src_w: float) -> torch.Tensor:
@@ -59,28 +61,35 @@ def _merge_frame(det_n, det_f, proto_n, proto_f, params: PostprocessParams,
     return _finish_masks(table, det_n["boxes"], det_n["det_valid"], params)
 
 
-def postprocess_tta_batch(out_n, out_f, params: PostprocessParams,
-                          match_iou: float = 0.5) -> Dict[str, torch.Tensor]:
-    """Consensus detections of a batch from both views' raw outputs
-    (levels (B, h, w, C)); ``out_f`` is the view of the horizontally
-    flipped source image.  Returns boxes / scores / det_valid of the
-    normal view and ``mask_bits`` (B, H0, W0) int32."""
-    det_n = postprocess_batch(out_n, params, masks=False)
-    det_f = postprocess_batch(out_f, params, masks=False)
+def postprocess_tta(outputs, params: PostprocessParams,
+                    match_iou: float = 0.5) -> Dict[str, torch.Tensor]:
+    """Consensus detections of a batch from one forward over both views:
+    raw outputs of 2B frames (levels (2B, h, w, C)), the B frames first
+    and their horizontal mirrors after them.  Returns boxes / scores /
+    det_valid of the normal view and ``mask_bits`` (B, H0, W0) int32."""
+    b = outputs["proto"].shape[0] // 2
+    det = postprocess_batch(outputs, params, masks=False)
+    det_n = {k: v[:b] for k, v in det.items()}
+    det_f = {k: v[b:] for k, v in det.items()}
     bits = [
-        _merge_frame({k: v[b] for k, v in det_n.items()},
-                     {k: v[b] for k, v in det_f.items()},
-                     out_n["proto"][b], out_f["proto"][b], params, match_iou)
-        for b in range(det_n["boxes"].shape[0])]
+        _merge_frame({k: v[i] for k, v in det_n.items()},
+                     {k: v[i] for k, v in det_f.items()},
+                     outputs["proto"][i], outputs["proto"][b + i], params,
+                     match_iou)
+        for i in range(b)]
     return {"boxes": det_n["boxes"], "scores": det_n["scores"],
             "det_valid": det_n["det_valid"], "mask_bits": torch.stack(bits)}
 
 
 def postprocess_tta_pair(out_n, out_f, params: PostprocessParams,
                          match_iou: float = 0.5) -> Dict[str, torch.Tensor]:
-    """One frame (levels (h, w, C), no batch axis): the serving schema of
-    ``postprocess_single`` with ``mask_bits`` from the consensus table."""
-    add = lambda o: {k: [x[None] for x in v] if isinstance(v, list)
-                     else v[None] for k, v in o.items()}
-    out = postprocess_tta_batch(add(out_n), add(out_f), params, match_iou)
+    """One frame from its two views' raw outputs (levels (h, w, C), no
+    batch axis; ``out_f`` is the view of the horizontally flipped source
+    image): the serving schema of ``postprocess_single`` with
+    ``mask_bits`` from the consensus table."""
+    pair = lambda a, b: torch.stack([a, b])
+    both = {k: [pair(x, y) for x, y in zip(v, out_f[k])]
+            if isinstance(v, list) else pair(v, out_f[k])
+            for k, v in out_n.items()}
+    out = postprocess_tta(both, params, match_iou)
     return {k: v[0] for k, v in out.items()}

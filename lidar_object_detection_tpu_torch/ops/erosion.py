@@ -38,18 +38,20 @@ def ellipse_kernel_offsets(ksize: int):
 
 
 def _shift_all_ones_border(bits: torch.Tensor, dy: int, dx: int):
-    """``out[y, x] = bits[y + dy, x + dx]``, all ones out of bounds."""
-    h, w = bits.shape
+    """``out[..., y, x] = bits[..., y + dy, x + dx]``, all ones out of
+    bounds."""
+    h, w = bits.shape[-2:]
     py, px = abs(dy), abs(dx)
-    padded = torch.full((h + 2 * py, w + 2 * px), -1, dtype=bits.dtype,
-                        device=bits.device)
-    padded[py:py + h, px:px + w] = bits
-    return padded[py + dy:py + dy + h, px + dx:px + dx + w]
+    padded = torch.full((*bits.shape[:-2], h + 2 * py, w + 2 * px), -1,
+                        dtype=bits.dtype, device=bits.device)
+    padded[..., py:py + h, px:px + w] = bits
+    return padded[..., py + dy:py + dy + h, px + dx:px + dx + w]
 
 
 def erode_packed(mask_bits: torch.Tensor, kernel_size: int = 3,
                  iterations: int = 1) -> torch.Tensor:
-    """Erode an (H, W) int32 packed mask image; all planes at once."""
+    """Erode an (..., H, W) int32 packed mask image (one frame or a batch);
+    all planes at once."""
     offsets = ellipse_kernel_offsets(kernel_size)
     out = mask_bits
     for _ in range(iterations):

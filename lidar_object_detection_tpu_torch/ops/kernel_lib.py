@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "inside_counts_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "inside_counts_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                             _I, _P),
     "mask_assemble_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _P, _P),
     "mask_count_launch": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

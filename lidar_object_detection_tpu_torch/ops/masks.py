@@ -44,16 +44,18 @@ def unpack_masks(bits: torch.Tensor, num_masks: int) -> torch.Tensor:
 
 
 def gather_point_bits(mask_bits: torch.Tensor, u, v, valid) -> torch.Tensor:
-    """(P,) int32 membership word of each point; 0 for invalid points.
+    """(..., P) int32 membership word of each point of (..., H, W) words
+    (one frame or a batch); 0 for invalid points.
 
     A plain gather: the JAX package fetches aligned 128-lane rows instead
     (``masks.py:65-70``), which only pays on a TPU.
     """
-    h, w = mask_bits.shape
+    h, w = mask_bits.shape[-2:]
     ui = u.to(torch.int32).clamp(0, w - 1)
     vi = v.to(torch.int32).clamp(0, h - 1)
     lin = (vi * w + ui).to(torch.int64)
-    bits = mask_bits.reshape(-1)[lin]
+    flat = mask_bits.reshape(*mask_bits.shape[:-2], h * w)
+    bits = torch.gather(flat, -1, lin)
     return torch.where(valid, bits, torch.zeros_like(bits))
 
 
@@ -64,6 +66,6 @@ def unpack_point_bits(bits: torch.Tensor, num_detections: int):
 
 
 def detection_word(det_valid: torch.Tensor) -> torch.Tensor:
-    """(D,) bool -> () int32 word with bit d set for each valid d."""
-    w = bit_weights(det_valid.shape[0], det_valid.device)
-    return wrap_int32(torch.where(det_valid, w, 0).sum())
+    """(..., D) bool -> (...) int32 word with bit d set for each valid d."""
+    w = bit_weights(det_valid.shape[-1], det_valid.device)
+    return wrap_int32(torch.where(det_valid, w, 0).sum(dim=-1))

@@ -9,7 +9,9 @@ is strictly greater than the threshold, itself included.  NaN and invalid
 scores are dropped.
 
 * :func:`nms_cuda` launches the hand-written CUDA kernel (``csrc/nms.cu``)
-  on CUDA tensors, one block per frame, and raises on anything else.
+  on CUDA tensors, one warp per frame, all frames of a batch in one launch
+  (the decode gives it both TTA views at once), and raises on anything
+  else.
 * :func:`nms_plain` is the plain PyTorch twin: every step is a few tensor
   operations over (B, N), frames side by side.  It is the CPU path and the
   kernel's oracle on the card.
@@ -28,7 +30,7 @@ import torch
 from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 
-# the kernel's limit: one thread per candidate in one block
+# the kernel's limit: 32 candidates on each lane of one warp
 MAX_CANDIDATES = 1024
 
 
@@ -105,6 +107,8 @@ def nms_cuda(boxes, scores, valid, iou_threshold: float, max_outputs: int):
     _check(valid, "valid", torch.bool, (b, n), device)
     if device.type != "cuda":
         raise ValueError(f"nms_cuda needs CUDA tensors, got {device}")
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()            # the kernel reads float4 boxes
     out_idx = torch.empty((b, max_outputs), dtype=torch.int64, device=device)
     out_keep = torch.empty((b, max_outputs), dtype=torch.bool, device=device)
     lib = kernel_lib.library()

@@ -1,10 +1,18 @@
 """PNG decoding with the standard library and numpy.
 
-The JAX package decodes camera frames with PIL (``data/kitti360.py``),
-which the card's machine does not promise.  This reader takes what
-KITTI-360's rectified frames are: 8-bit RGB or RGBA (the alpha channel is
-dropped), not interlaced, with any of the five row filters.  It raises on
-every other format.
+The JAX package decodes camera frames with PIL, as
+``Image.open(path).convert("RGB")`` (``data/kitti360.py``), which the
+card's machine does not promise.  This reader decodes every standard PNG
+format to the pixels that call gives:
+
+* colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey and alpha) and 6
+  (RGBA), at each bit depth the format allows (1, 2, 4, 8 and 16);
+* Adam7 interlacing and all five row filters.
+
+The reductions to 8-bit RGB are Pillow's: grey of 1, 2 and 4 bits is
+scaled to 0-255 (x 255, x 85, x 17); 16-bit grey is clipped to 255;
+16-bit RGB, RGBA and grey-and-alpha samples keep their high byte; a palette
+index past the PLTE entries is black; alpha and tRNS are dropped.
 """
 
 from __future__ import annotations
@@ -15,17 +23,22 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels of an 8-bit pixel
-_CHANNELS = {2: 3, 6: 4}
+# colour type -> (samples per pixel, allowed bit depths)
+_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+            4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def read_png_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB pixels of an 8-bit RGB or RGBA PNG file."""
+    """(H, W, 3) uint8 RGB pixels of a PNG file, as PIL's
+    ``convert("RGB")`` gives them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -33,6 +46,8 @@ def read_png_rgb(path: str) -> np.ndarray:
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -40,22 +55,80 @@ def read_png_rgb(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit RGB or RGBA, non-interlaced "
-                         f"PNG is read (bit depth {depth}, colour type "
-                         f"{color}, interlace {interlace})")
-    bpp = _CHANNELS[color]
-    stride = bpp * width
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != height * (stride + 1):
+    if color not in _FORMATS or depth not in _FORMATS[color][1] \
+            or interlace not in (0, 1):
+        raise ValueError(f"{path}: not a standard PNG format (bit depth "
+                         f"{depth}, colour type {color}, interlace "
+                         f"{interlace})")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
+    channels = _FORMATS[color][0]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace == 0:
+        samples, used = _decode_pass(raw, width, height, channels, depth)
+    else:
+        samples = np.zeros((height, width, channels), np.uint16)
+        used = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw = (width - x0 + dx - 1) // dx
+            ph = (height - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            part, n = _decode_pass(raw[used:], pw, ph, channels, depth)
+            samples[y0::dy, x0::dx] = part
+            used += n
+    if used != len(raw):
         raise ValueError(f"{path}: {len(raw)} bytes of pixel data, expected "
-                         f"{height * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
+                         f"{used}")
+    return _to_rgb(samples, color, depth, palette)
+
+
+def _decode_pass(raw: np.ndarray, width: int, height: int, channels: int,
+                 depth: int):
+    """Unfilter and unpack one (sub-)image of ``height`` rows from the
+    front of ``raw``.  Returns ((H, W, channels) integer samples, bytes
+    used)."""
+    row_bytes = (width * channels * depth + 7) // 8
+    used = height * (row_bytes + 1)
+    if len(raw) < used:
+        raise ValueError(f"{len(raw)} bytes of pixel data, expected at "
+                         f"least {used}")
+    rows = raw[:used].reshape(height, row_bytes + 1)
     kinds = rows[:, 0]
     if int(kinds.max(initial=0)) > 4:
-        raise ValueError(f"{path}: unknown PNG filter {int(kinds.max())}")
-    pixels = _unfilter(kinds, rows[:, 1:].reshape(height, width, bpp))
-    return np.ascontiguousarray(pixels[..., :3])
+        raise ValueError(f"unknown PNG filter {int(kinds.max())}")
+    # the filters predict from the byte one whole pixel to the left (one
+    # byte when a pixel is smaller than a byte)
+    bpp = max(1, channels * depth // 8)
+    data = _unfilter(kinds, rows[:, 1:].reshape(height, row_bytes // bpp,
+                                                bpp))
+    data = data.reshape(height, row_bytes)
+    if depth == 8:
+        out = data.reshape(height, width, channels)
+    elif depth == 16:
+        out = data.reshape(height, width, channels, 2)
+        out = (out[..., 0].astype(np.uint16) << 8) | out[..., 1]
+    else:
+        bits = np.unpackbits(data, axis=1).reshape(height, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        out = (bits * weights).sum(axis=2)[:, :width, None]
+    return out, used
+
+
+def _to_rgb(samples: np.ndarray, color: int, depth: int, palette):
+    """(H, W, C) samples -> (H, W, 3) uint8, with Pillow's reductions."""
+    if color == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        return lut[samples[..., 0]]
+    if depth < 8:
+        samples = samples * (255 // ((1 << depth) - 1))
+    elif depth == 16:
+        samples = (np.minimum(samples, 255) if color == 0
+                   else samples >> 8)
+    if color in (0, 4):
+        return np.repeat(samples[..., :1].astype(np.uint8), 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3].astype(np.uint8))
 
 
 def _unfilter(kinds: np.ndarray, data: np.ndarray) -> np.ndarray:

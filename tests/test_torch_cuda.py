@@ -98,6 +98,52 @@ def test_k5_nms_equals_twin(dev, batch, n, m):
     assert bool(keep.any(dim=1).all())
 
 
+def test_k5_frame_with_nothing_alive(dev):
+    """A frame whose candidates are all invalid writes (0, False) in every
+    slot, beside frames that pick."""
+    from lidar_object_detection_tpu_torch.ops.nms import nms_cuda, nms_plain
+
+    boxes, scores, valid = chip_smoke.nms_case(np.random.default_rng(3), 4,
+                                               256, 0.7)
+    valid[2] = False
+    boxes, scores, valid = (torch.from_numpy(a).to(dev)
+                            for a in (boxes, scores, valid))
+    idx, keep = nms_cuda(boxes, scores, valid, 0.7, 32)
+    ref_idx, ref_keep = nms_plain(boxes, scores, valid, 0.7, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, ref_keep) and torch.equal(idx, ref_idx)
+    assert not bool(keep[2].any()) and not bool(idx[2].any())
+    assert bool(keep[[0, 1, 3]].any(dim=1).all())
+
+
+def test_k1_batch_edge_cases_equal_twin(dev):
+    """K1 in one launch on the edge cases of the smoke: P not a multiple of
+    the kernel's rounds, D < 32, no active point, one box, every box
+    invalid, points exactly on box faces, boxes whose edges are not
+    orthogonal (whose slabs reach past the corners' bounds)."""
+    from lidar_object_detection_tpu_torch.ops import inside_counts as ic
+
+    rng = np.random.default_rng(4)
+    pts, words, corners, mask = chip_smoke.face_case(rng)
+    t = lambda a: torch.from_numpy(np.stack([a, a])).to(dev)
+    args = [t(pts), t(words), t(corners), t(mask)]
+    cases = [(args, 32), (args, 5), (args, 1),
+             ([args[0], torch.zeros_like(args[1])] + args[2:], 32),
+             (args[:2] + [args[2][:, :1].contiguous(),
+                          args[3][:, :1].contiguous()], 32),
+             (args[:3] + [torch.zeros_like(args[3])], 32)]
+    skewed = [chip_smoke.skew_case(rng, c) for c in (0.4, 3e-4)]
+    cases.append(([torch.from_numpy(np.stack([f[i] for f in skewed])).to(dev)
+                   for i in range(4)], 32))
+    for case, d in cases:
+        got = ic.inside_counts_cuda(*case, d)
+        ref = ic.inside_counts_plain(*case, d)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert int(ic.inside_counts_cuda(*args, 32)[0].sum()) > 0
+
+
 def test_decode_with_k5_equals_decode_with_twin(dev):
     """The YOLO decode on the card, its NMS as K5 and as the twin."""
     from lidar_object_detection_tpu_torch.models.yolo.postprocess import (

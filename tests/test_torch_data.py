@@ -2,7 +2,7 @@
 KITTI-360 tree written into a temporary directory: calibration matrices,
 skip rules, ``FrameBatch`` arrays, decoded images and the stub detector.
 Also ``utils/png.py`` against PIL, on the committed camera frames and on
-small PNGs of every row filter.
+small PNGs of every row filter, colour type, bit depth and Adam7.
 
 Tolerance: none.  Every array, matrix and pixel is equal.
 """
@@ -159,33 +159,52 @@ def test_stub_detector_matches_jax(tree, tmp_path):
 # utils/png.py
 # ---------------------------------------------------------------------------
 
-def _png(image, filt, depth=8, color=None, interlace=0):
-    """Encode (H, W, C) uint8 with every row under filter ``filt``."""
-    h, w, c = image.shape
-    color = {3: 2, 4: 6}[c] if color is None else color
-    prev = np.zeros(w * c, np.int64)
-    rows = []
-    for y in range(h):
-        cur = image[y].reshape(-1).astype(np.int64)
-        left = np.concatenate([np.zeros(c, np.int64), cur[:-c]])
-        up_left = np.concatenate([np.zeros(c, np.int64), prev[:-c]])
-        if filt == 0:
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _filter_rows(rows, filt, bpp):
+    """Filter (H, row_bytes) int64 bytes; ``filt`` is one filter for every
+    row, or a sequence with one per row."""
+    prev = np.zeros(rows.shape[1], np.int64)
+    out = []
+    for y, cur in enumerate(rows):
+        f = filt if isinstance(filt, int) else filt[y % len(filt)]
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        if f == 0:
             pred = 0
-        elif filt == 1:
+        elif f == 1:
             pred = left
-        elif filt == 2:
+        elif f == 2:
             pred = prev
-        elif filt == 3:
+        elif f == 3:
             pred = (left + prev) >> 1
         else:
             p = left + prev - up_left
             pa, pb, pc = abs(p - left), abs(p - prev), abs(p - up_left)
             pred = np.where((pa <= pb) & (pa <= pc), left,
                             np.where(pb <= pc, prev, up_left))
-        rows.append(bytes([filt]) + ((cur - pred) % 256).astype(
+        out.append(bytes([f]) + ((cur - pred) % 256).astype(
             np.uint8).tobytes())
         prev = cur
+    return b"".join(out)
 
+
+def _pack_rows(samples, depth):
+    """(H, W, C) integer samples -> (H, row_bytes) int64 bytes."""
+    h, w, c = samples.shape
+    if depth == 8:
+        return samples.reshape(h, w * c).astype(np.int64)
+    if depth == 16:
+        be = samples.astype(">u2").reshape(h, w * c).view(np.uint8)
+        return be.reshape(h, 2 * w * c).astype(np.int64)
+    bits = (samples.reshape(h, w * c, 1).astype(np.uint8)
+            >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1).astype(np.int64)
+
+
+def _png_file(w, h, depth, color, interlace, idat, plte=None):
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
@@ -193,8 +212,25 @@ def _png(image, filt, depth=8, color=None, interlace=0):
     return (b"\x89PNG\r\n\x1a\n"
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
                                          interlace))
-            + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + (chunk(b"PLTE", plte) if plte is not None else b"")
+            + chunk(b"IDAT", zlib.compress(idat))
             + chunk(b"IEND", b""))
+
+
+def _png(image, filt, depth=8, color=None, interlace=0, plte=None):
+    """Encode (H, W, C) samples of ``depth`` bits, every row under filter
+    ``filt`` (or the filters of a sequence in turn), Adam7-interlaced
+    when ``interlace`` is 1."""
+    h, w, c = image.shape
+    color = {3: 2, 4: 6}[c] if color is None else color
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        passes = [image[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7]
+        idat = b"".join(_filter_rows(_pack_rows(sub, depth), filt, bpp)
+                        for sub in passes if sub.size)
+    else:
+        idat = _filter_rows(_pack_rows(image, depth), filt, bpp)
+    return _png_file(w, h, depth, color, interlace, idat, plte)
 
 
 def test_png_matches_pil_on_committed_frames():
@@ -246,14 +282,52 @@ def test_png_mixed_row_filters_match_pil(tmp_path, source):
         got, np.asarray(Image.open(path).convert("RGB")))
 
 
-@pytest.mark.parametrize("kw", [dict(interlace=1), dict(depth=16),
-                                dict(color=0), dict(color=3)])
+@pytest.mark.parametrize("kw", [dict(interlace=2), dict(depth=16, color=3),
+                                dict(color=5), dict(depth=4, color=2)])
 def test_png_rejects_other_formats(tmp_path, kw):
-    image = np.zeros((4, 5, 3), np.uint8)
+    """Formats the PNG standard does not define are refused, as is a file
+    that is not a PNG."""
+    fields = dict(depth=8, color=2, interlace=0)
+    fields.update(kw)
     path = tmp_path / "x.png"
-    path.write_bytes(_png(image, 0, **kw))
-    with pytest.raises(ValueError, match="8-bit RGB"):
+    path.write_bytes(_png_file(5, 4, fields["depth"], fields["color"],
+                               fields["interlace"], bytes(4 * 16)))
+    with pytest.raises(ValueError, match="not a standard PNG format"):
         read_png_rgb(str(path))
     path.write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="not a PNG"):
         read_png_rgb(str(path))
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("color,depth", [
+    (0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+    (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_png_formats_match_pil(tmp_path, color, depth, interlace):
+    """Every colour type at every bit depth it allows, plain and Adam7,
+    decoded as PIL's ``convert("RGB")`` decodes it (its 16-bit and
+    sub-byte reductions included).  The rows cycle through all five
+    filters; the palette is shorter than the index range, so some indices
+    fall past it."""
+    rng = np.random.default_rng(color * 100 + depth * 2 + interlace)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    h, w = 13, 19
+    # smooth ramps plus noise, so that the predictors see carries
+    yy, xx = np.mgrid[0:h, 0:w]
+    top = 1 << depth
+    base = (yy[..., None] * 7 + xx[..., None] * 3
+            + np.arange(channels) * 11) * max(1, top // 256)
+    image = ((base + rng.integers(0, top, base.shape) // 4) % top)
+    if depth == 16:
+        image[0, :4, 0] = [0, 255, 256, 65535]   # clipped or low byte
+    plte = None
+    if color == 3:
+        n = max(1, top - 3) if depth < 8 else 200
+        plte = rng.integers(0, 256, (n, 3), dtype=np.uint8).tobytes()
+    path = tmp_path / f"c{color}d{depth}i{interlace}.png"
+    path.write_bytes(_png(image, (0, 1, 2, 3, 4), depth, color, interlace,
+                          plte))
+    want = np.asarray(Image.open(path).convert("RGB"))
+    got = read_png_rgb(str(path))
+    assert got.dtype == np.uint8 and got.shape == (h, w, 3)
+    np.testing.assert_array_equal(got, want)

@@ -15,7 +15,8 @@ import torch
 import chip_smoke
 from lidar_object_detection_tpu.eval import statistics as jstats
 from lidar_object_detection_tpu.fusion.associate import (
-    FusionParams as JFusionParams, fuse_frame as jfuse_frame)
+    FusionParams as JFusionParams, fuse_batch as jfuse_batch,
+    fuse_frame as jfuse_frame)
 from lidar_object_detection_tpu.geom import boxes as jboxes
 from lidar_object_detection_tpu.geom import projection as jproj
 from lidar_object_detection_tpu.ops import erosion as jerosion
@@ -129,6 +130,43 @@ def test_fuse_batch_and_statistics_rows_match_jax():
     assert [vars(r) for r in rows_t] == [vars(r) for r in rows_j]
     assert len(rows_t) > 0
     assert tstats.summarize(rows_t) == jstats.summarize(rows_j)
+
+
+@pytest.mark.parametrize("erosion,mode", [(False, "simple"), (True, "rich")])
+def test_batched_fuse_batch_matches_jax_fuse_batch(erosion, mode):
+    """The port's fuse_batch runs every step over the frame axis at once
+    (one inside-count call for the batch); the JAX fuse_batch vmaps
+    fuse_frame.  Every output is equal, coordinates to float64 rounding."""
+    scenes = [_scene(seed=11, frame=f) for f in range(3)]
+    kw = dict(width=W, height=H, num_detections=D, erosion_enabled=erosion,
+              bbox_filter_mode=mode)
+    stack = lambda k: np.stack([s[k] for s in scenes])
+    s0 = scenes[0]
+    calib = [s0[k] for k in ("velo_to_rect", "cam_to_velo", "intrinsics")]
+    ref = jfuse_batch(
+        *(jnp.asarray(stack(k)) for k in ("points", "point_valid")),
+        jnp.asarray(stack("mask_bits")),
+        *(jnp.asarray(stack(k)) for k in ("det_valid", "corners",
+                                          "box_valid")),
+        *(jnp.asarray(c) for c in calib), params=JFusionParams(**kw))
+    got = fuse_batch(
+        _t(stack("points")), _t(stack("point_valid")),
+        _t(_u32(stack("mask_bits"))), _t(stack("det_valid")),
+        _t(stack("corners")), _t(stack("box_valid")),
+        *(_t(c) for c in calib), FusionParams(**kw))
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    got = {k: v.numpy() for k, v in got.items()}
+    assert got.keys() == ref.keys()
+    for key in ("counts", "total_points", "best_box", "matched",
+                "points_inside", "point_valid", "box_visible"):
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    for key in ("point_bits", "eroded_mask_bits"):
+        np.testing.assert_array_equal(got[key], _u32(ref[key]), err_msg=key)
+    for key in ("u", "v", "depth", "corners_velo"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-12,
+                                   atol=1e-12, err_msg=key)
+    assert got["counts"].shape == (3, D, G)
+    assert ref["matched"].sum() > 0
 
 
 def test_geometry_matches_jax(rng):

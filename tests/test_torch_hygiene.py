@@ -109,7 +109,8 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 def test_card_tests_import_nothing_of_jax():
-    """The card's test file collects where JAX and Flax are missing."""
-    names = _imported_names(os.path.join(REPO, "tests", "test_torch_cuda.py"))
-    assert "chip_smoke" in names
-    assert _forbidden(names) == []
+    """The card's test files collect where JAX and Flax are missing."""
+    for name in ("test_torch_cuda.py", "test_torch_cuda_precision.py"):
+        names = _imported_names(os.path.join(REPO, "tests", name))
+        assert "chip_smoke" in names, name
+        assert _forbidden(names) == [], name

@@ -56,12 +56,56 @@ def test_twin_matches_pallas_kernel(rng, d):
     assert not got_c.numpy()[:, ~box_mask].any()
 
 
+@pytest.mark.parametrize("d", [5, 32])
+def test_batched_twin_matches_pallas_frame_by_frame(rng, d):
+    """The twin over a batch of 3 frames, in one call, equals the Pallas
+    kernel run frame by frame in interpret mode."""
+    frames = [_case(rng, p=1536, d=d) for _ in range(3)]
+    if d == 32:
+        frames = [(pt, rng.integers(0, 2 ** 32, len(w), dtype=np.uint64)
+                   .astype(np.uint32), c, m) for pt, w, c, m in frames]
+    stack = lambda i: np.stack([f[i] for f in frames])
+    got_c, got_t = ic.inside_counts(
+        torch.from_numpy(stack(0)),
+        torch.from_numpy(stack(1).view(np.int32)),
+        torch.from_numpy(stack(2)), torch.from_numpy(stack(3)), d,
+        chunk=500)
+    assert got_c.shape == (3, d, 24) and got_t.shape == (3, d)
+    for b, (points, words, corners, box_mask) in enumerate(frames):
+        ref_c, ref_t = pallas_inside_counts_packed(
+            jnp.asarray(points), jnp.asarray(words), jnp.asarray(corners),
+            jnp.asarray(box_mask), num_det=d, tile=512, interpret=True)
+        np.testing.assert_array_equal(got_c[b].numpy(), np.asarray(ref_c))
+        np.testing.assert_array_equal(got_t[b].numpy(), np.asarray(ref_t))
+    assert got_c.sum() > 0
+
+
 def test_cuda_wrapper_refuses_cpu_tensors(rng):
     points, words, corners, box_mask = _case(rng)
+    args = (torch.from_numpy(points), torch.from_numpy(words.view(np.int32)),
+            torch.from_numpy(corners), torch.from_numpy(box_mask))
     with pytest.raises(ValueError, match="CUDA"):
-        ic.inside_counts_cuda(
-            torch.from_numpy(points), torch.from_numpy(words.view(np.int32)),
-            torch.from_numpy(corners), torch.from_numpy(box_mask), 5)
+        ic.inside_counts_cuda(*args, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ic.inside_counts_cuda(*(a[None] for a in args), 5)
+
+
+@pytest.mark.cuda
+def test_batched_kernel_matches_twin_on_card(rng):
+    """One launch for 3 frames of 20000 points (not a multiple of the
+    kernel's 256-point rounds), equal to the twin frame by frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    frames = [_case(rng, p=20000, g=96, d=32) for _ in range(3)]
+    dev = torch.device("cuda")
+    stack = lambda i: torch.from_numpy(np.stack([f[i] for f in frames]))
+    words = np.stack([f[1] for f in frames]).view(np.int32)
+    args = (stack(0).to(dev), torch.from_numpy(words).to(dev),
+            stack(2).to(dev), stack(3).to(dev), 32)
+    got = ic.inside_counts_cuda(*args)
+    ref = ic.inside_counts_plain(*args)
+    for a, b in zip(got, ref):
+        assert a.shape[0] == 3 and torch.equal(a, b)
 
 
 @pytest.mark.cuda

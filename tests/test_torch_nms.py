@@ -67,6 +67,27 @@ def test_plain_matches_pallas_interpret(batch, n, m):
     np.testing.assert_array_equal(idx[keep], ref_idx[ref_keep])
 
 
+def test_both_views_in_one_call_equal_two_calls_and_pallas():
+    """The decode runs NMS once over both TTA views (2B frames): slot for
+    slot the two per-view calls, and the Pallas kernel frame by frame."""
+    from lidar_object_detection_tpu.ops.pallas_nms import pallas_nms
+
+    b, n, m = 3, 48, 16
+    boxes, scores, valid = chip_smoke.nms_case(np.random.default_rng(21),
+                                               2 * b, n, THR)
+    valid[4] = False                      # a frame with nothing alive
+    idx, keep = _plain(boxes, scores, valid, m)
+    for view in (slice(0, b), slice(b, None)):
+        v_idx, v_keep = _plain(boxes[view], scores[view], valid[view], m)
+        np.testing.assert_array_equal(keep[view], v_keep)
+        np.testing.assert_array_equal(idx[view], v_idx)
+    ref_idx, ref_keep = _jax_frames(pallas_nms, boxes, scores, valid, m,
+                                    interpret=True)
+    np.testing.assert_array_equal(keep, ref_keep)
+    np.testing.assert_array_equal(idx[keep], ref_idx[ref_keep])
+    assert not keep[4].any() and keep.any(axis=1).sum() == 2 * b - 1
+
+
 def test_near_threshold_pairs_decide_by_strict_greater():
     """The pair at the threshold and the one an ulp below both survive;
     the one an ulp above is suppressed."""
@@ -121,3 +142,10 @@ def test_kernel_equals_twin_on_card():
     torch.cuda.synchronize()
     assert torch.equal(keep, ref_keep)
     assert torch.equal(idx, ref_idx)
+    # one launch over both views equals one launch per view
+    before = kernel_lib.LAUNCHES["nms"]
+    halves = [nms_cuda(boxes[sl], scores[sl], valid[sl], THR, 32)
+              for sl in (slice(0, 4), slice(4, None))]
+    assert kernel_lib.LAUNCHES["nms"] == before + 2
+    assert torch.equal(torch.cat([h[0] for h in halves]), idx)
+    assert torch.equal(torch.cat([h[1] for h in halves]), keep)

@@ -126,6 +126,42 @@ def test_letterbox_and_tta_decode_match_jax(both):
         assert single["mask_bits"].shape == (H0, W0)
 
 
+def test_tta_decode_runs_one_nms_for_both_views(both, monkeypatch):
+    """The TTA decode takes both views' candidates in one NMS call; its
+    boxes, scores and mask words equal those of one NMS call per view."""
+    from lidar_object_detection_tpu_torch.models.yolo import (
+        postprocess as tpp, tta as ttta)
+
+    images = both[0]
+    tdet, _, _ = load_serving_checkpoint(CKPT, (H0, W0), imgsz=160,
+                                         device="cpu")
+    outputs = tdet.forward(images)
+    calls = []
+    real_nms = tpp.nms
+    monkeypatch.setattr(tpp, "nms", lambda *a: calls.append(
+        a[0].shape[0]) or real_nms(*a))
+    got = tdet.decode(outputs)
+    assert calls == [2 * len(images)]
+    # one NMS call per view, then the same merge
+    n = len(images)
+    view = lambda sl: {k: [x[sl] for x in v] if isinstance(v, list)
+                       else v[sl] for k, v in outputs.items()}
+    det_n = tpp.postprocess_batch(view(slice(0, n)), tdet.params,
+                                  masks=False)
+    det_f = tpp.postprocess_batch(view(slice(n, None)), tdet.params,
+                                  masks=False)
+    assert calls == [2 * n, n, n]
+    for b in range(n):
+        bits = ttta._merge_frame(
+            {k: v[b] for k, v in det_n.items()},
+            {k: v[b] for k, v in det_f.items()}, outputs["proto"][b],
+            outputs["proto"][n + b], tdet.params, tdet.tta_match_iou)
+        assert torch.equal(got["mask_bits"][b], bits)
+    for key in ("boxes", "scores", "det_valid"):
+        assert torch.equal(got[key], det_n[key])
+    assert int(got["det_valid"].sum()) > 0
+
+
 def test_fusion_statistics_match_jax(both):
     images, ref, got = both
     rng = np.random.default_rng(7)

@@ -78,10 +78,21 @@ def test_reader_scalars_and_bfloat16():
         unpackb(doc + b"\x00")
 
 
-@pytest.mark.parametrize("fold", [False, True])
-def test_forward_matches_flax(fold):
+@pytest.fixture
+def no_tf32():
+    """TF32 off for convolutions and products during one test; the
+    process's settings are restored after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_forward_matches_flax(fold, no_tf32):
     with open(CKPT, "rb") as f:
         variables = serialization.msgpack_restore(f.read())["variables"]
     tvars = read_flax_msgpack(CKPT)["variables"]
