@@ -34,8 +34,7 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    the loader must skip) and runs the ``csv_eval`` entry, the erosion
    study and the CLI from it, with the YOLO detector as the CLI serves it
    (float32, unfolded weights, its own precision pinned: the script sets
-   no global TF32 switch), after comparing that detector's detections
-   with the served bf16 one's.  Every kernel must launch in the csv_eval
+   no global TF32 switch).  Every kernel must launch in the csv_eval
    run; its detections and master CSV must equal those of the same run
    with the twin NMS.  The loader's part of the run is timed on its own;
 6. prints one JSON line of the kernels (times, bounds, launches, errors),
@@ -417,9 +416,9 @@ def skew_case(rng, skew, num_boxes=24, num_points=6151):
 
 
 def check_inside_counts(torch, dev, rng, scenes):
-    """K1 against its twin: the main path's batch of 4 scenes, the single
-    frame PR 5 timed, and edge cases; timed at B = 4 (the main path's one
-    launch per batch) and at B = 1."""
+    """K1 against its twin: the main path's batch of 4 scenes, a single
+    frame with 32 detections in a row, and edge cases; timed at B = 4 (the
+    main path's one launch per batch) and at B = 1 on the single frame."""
     from lidar_object_detection_tpu_torch.geom.boxes import (
         masked_box_frame, transform_corners)
     from lidar_object_detection_tpu_torch.ops import (
@@ -439,7 +438,7 @@ def check_inside_counts(torch, dev, rng, scenes):
         return (np.ascontiguousarray(points[:, :3]),
                 random_words(rng, pvalid, share), velo.numpy(), bvalid)
 
-    # the main path's scenes; PR 5's single frame (32 detections in a row)
+    # the main path's scenes; a single frame (32 detections in a row)
     main = batch_of([frame_of(*s) for s in scenes])
     dets = np.stack([np.array([x, 150, x + 120, 260], np.float32)
                      for x in np.linspace(50, 1250, D)])
@@ -451,7 +450,7 @@ def check_inside_counts(torch, dev, rng, scenes):
     skewed = batch_of([skew_case(rng, 0.4), skew_case(rng, 3e-4)])
     cases = {
         "main B=4": (main, D),
-        "PR 5 frame B=1": (one, D),
+        "single frame B=1": (one, D),
         "P=100003 B=2": (batch_of(odd_p), D),
         "D=5": (main, 5),
         "D=1": (one, 1),
@@ -463,19 +462,23 @@ def check_inside_counts(torch, dev, rng, scenes):
         "points on faces": (batch_of([face]), D),
         "skewed boxes": (skewed, D),
     }
-    mismatches, max_err, hits = 0, 0, {}
+    mismatches, compared, max_err, hits, failed = 0, 0, 0, {}, []
     for name, (args, d) in cases.items():
         counts, totals = ic.inside_counts_cuda(*args, d)
         ref_counts, ref_totals = ic.inside_counts_plain(*args, d)
         torch.cuda.synchronize()
         bad = int((counts != ref_counts).sum() + (totals != ref_totals).sum())
+        mismatches += bad
+        compared += counts.numel() + totals.numel()
         if bad:
-            raise AssertionError(f"K1 differs from its twin on the {name} "
-                                 f"case in {bad} entries")
+            failed.append(f"{name}: {bad}")
         max_err = max(max_err, int((counts - ref_counts).abs().max()),
                       int((totals - ref_totals).abs().max()))
         hits[name] = int(counts.sum())
-    if hits["main B=4"] == 0 or hits["PR 5 frame B=1"] == 0 \
+    if mismatches:
+        raise AssertionError(f"K1 differs from its twin in {mismatches} of "
+                             f"{compared} entries ({failed})")
+    if hits["main B=4"] == 0 or hits["single frame B=1"] == 0 \
             or hits["points on faces"] == 0 or hits["skewed boxes"] == 0:
         raise AssertionError(f"K1 check is degenerate: hits {hits}")
     if hits["all-zero words"] or hits["every box invalid"]:
@@ -502,29 +505,35 @@ def check_inside_counts(torch, dev, rng, scenes):
         return run
 
     def bound_of(pts, bits, corners, mask):
+        # 15 operations per (active point, valid box) pair of each frame:
+        # an invalid box holds no point by definition, so the function
+        # does no work for it
         b, p = bits.shape
         g = corners.shape[1]
-        active = int((bits != 0).sum())
+        active = (bits != 0).sum(dim=1)
+        pairs = int((active * mask.sum(dim=1)).sum())
         n_bytes = b * (p * 3 * 4 + p * 4 + g * 8 * 3 * 4 + g + D * g * 4
                        + D * 4)
-        return active, bound_ms(n_bytes, active * g * 15)
+        return int(active.sum()), pairs, bound_ms(n_bytes, pairs * 15)
 
     ms = time_gpu(launcher(*main))
     ms_one = time_gpu(launcher(*one))
     plain_ms = time_gpu(lambda: ic.inside_counts_plain(*main, D), reps=10,
                         head_start=False)
-    active, (bound, by) = bound_of(*main)
-    active_one, (bound_one, _) = bound_of(*one)
-    print(f"K1 inside_counts: equal to the twin on {len(cases)} cases "
-          f"(hits {hits}); B=4: {ms:.4f} ms for {active} active points "
-          f"(twin {plain_ms:.4f}, bound {bound:.4g} by {by}); B=1: "
-          f"{ms_one:.4f} ms for {active_one} active points (bound "
+    active, pairs, (bound, by) = bound_of(*main)
+    active_one, pairs_one, (bound_one, _) = bound_of(*one)
+    print(f"K1 inside_counts: equal to the twin on {len(cases)} cases, "
+          f"{compared} entries (hits {hits}); B=4: {ms:.4f} ms for {active} "
+          f"active points, {pairs} (active point, valid box) pairs (twin "
+          f"{plain_ms:.4f}, bound {bound:.4g} by {by}); B=1: {ms_one:.4f} "
+          f"ms for {active_one} active points, {pairs_one} pairs (bound "
           f"{bound_one:.4g})", flush=True)
     return {"name": "inside_counts", "route": "cuda",
             "source": "lidar_object_detection_tpu_torch/csrc/"
                       "inside_counts.cu",
             "replaces": "lidar_object_detection_tpu/ops/pallas_count.py:76",
-            "max_abs_err": max_err, "mismatches": mismatches, "ms": ms,
+            "max_abs_err": max_err, "mismatches": mismatches,
+            "compared": compared, "ms": ms,
             "kernel_ms": ms, "ms_b1": ms_one, "bound_ms_b1": bound_one,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
@@ -612,14 +621,15 @@ def check_mask_kernels(torch, dev, rng):
     return [
         {"name": "mask_assemble", "route": "cuda", "source": src,
          "replaces": "lidar_object_detection_tpu/ops/pallas_masks.py:246",
-         "max_abs_err": k2_err, "mismatches": mismatches, "ms": k2_ms,
+         "max_abs_err": k2_err, "mismatches": mismatches,
+         "compared": words.numel(), "ms": k2_ms,
          "kernel_ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "mask_count", "route": "cuda", "source": src,
          "replaces": "lidar_object_detection_tpu/ops/pallas_masks.py:282",
          "max_abs_err": k3_err, "mismatches": int((counts != ref_counts)
                                                    .sum()),
-         "ms": k3_ms, "kernel_ms": k3_ms,
+         "compared": counts.numel(), "ms": k3_ms, "kernel_ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None},
     ]
@@ -653,19 +663,23 @@ def check_nms(torch, dev, rng, detector, images):
         "nothing alive": (tuple(dead), m),
         "decode 2B": (real, m),
     }
-    kept, mismatches, max_err = {}, 0, 0
+    kept, mismatches, compared, max_err, failed = {}, 0, 0, 0, []
     for name, ((bx, sc, va), mm) in cases.items():
         idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, mm)
         ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, mm)
         torch.cuda.synchronize()
         bad = int((idx != ref_idx).sum() + (keep != ref_keep).sum())
+        mismatches += bad
+        compared += idx.numel() + keep.numel()
         if bad:
-            raise AssertionError(f"K5 differs from its twin on the {name} "
-                                 f"case in {bad} slots")
+            failed.append(f"{name}: {bad}")
         # the largest difference of a picked index or a keep flag
         max_err = max(max_err, int((idx - ref_idx).abs().max()),
                       int((keep != ref_keep).any()))
         kept[name] = keep.sum(dim=1).tolist()
+    if mismatches:
+        raise AssertionError(f"K5 differs from its twin in {mismatches} of "
+                             f"{compared} slots ({failed})")
     if sum(kept["decode 2B"]) == 0 or sum(kept["synthetic B=8"]) < 8 \
             or kept["nothing alive"][1] != 0:
         raise AssertionError(f"K5 check is degenerate: kept {kept}")
@@ -694,15 +708,16 @@ def check_nms(torch, dev, rng, detector, images):
     n_ops = sum(k * n * 11 + min(k + 1, m) * n + 3 * n for k in picks)
     n_bytes = b * n * (16 + 4 + 1) + b * m * (8 + 1)
     bound, by = bound_ms(n_bytes, n_ops)
-    print(f"K5 nms: equal to the twin on {len(cases)} cases (kept "
+    print(f"K5 nms: equal to the twin on {len(cases)} cases, {compared} "
+          f"slots (kept "
           f"{kept}); {ms:.4f} ms (twin {plain_ms:.4f}, bound {bound:.3g} "
           f"by {by}) for {b} frames x {n} candidates, {picks} picks",
           flush=True)
     return {"name": "nms", "route": "cuda",
             "source": "lidar_object_detection_tpu_torch/csrc/nms.cu",
             "replaces": "lidar_object_detection_tpu/ops/pallas_nms.py:74",
-            "max_abs_err": max_err, "mismatches": mismatches, "ms": ms,
-            "kernel_ms": ms,
+            "max_abs_err": max_err, "mismatches": mismatches,
+            "compared": compared, "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 
@@ -845,37 +860,7 @@ def main_path(torch, dev, smi, detector, images, scenes):
     return launches
 
 
-def compare_bf16_float32(torch, bf16_det, f32_det, images):
-    """The served bf16 detector against the CLI's float32 one on the same
-    frames: which float32 detections bf16 drops at the score cut, and which
-    it adds (matched at IoU >= 0.5)."""
-    from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
-
-    a = bf16_det.detect(images)
-    b = f32_det.detect(images)
-    dropped, added, shift = [], [], 0.0
-    for i in range(len(images)):
-        ba = a["boxes"][i][a["det_valid"][i]].float()
-        bb = b["boxes"][i][b["det_valid"][i]].float()
-        iou = iou_2d_matrix(bb, ba) if len(ba) and len(bb) else None
-        hit_b = (iou.amax(dim=1) >= 0.5) if iou is not None else \
-            torch.zeros(len(bb), dtype=torch.bool)
-        hit_a = (iou.amax(dim=0) >= 0.5) if iou is not None else \
-            torch.zeros(len(ba), dtype=torch.bool)
-        dropped.append(int((~hit_b).sum()))
-        added.append(int((~hit_a).sum()))
-        if iou is not None and bool(hit_b.any()):
-            pair = iou.argmax(dim=1)[hit_b]
-            shift = max(shift, float((bb[hit_b] - ba[pair]).abs().max()))
-    print(f"bf16 (folded) vs float32 serving on the 4 frames: float32 "
-          f"keeps {b['det_valid'].sum(dim=1).tolist()} detections, bf16 "
-          f"{a['det_valid'].sum(dim=1).tolist()}; float32 detections bf16 "
-          f"drops {dropped}, bf16 detections float32 lacks {added} (IoU "
-          f">= 0.5); largest box shift of a matched pair {shift:.3f} px",
-          flush=True)
-
-
-def csv_eval_phase(torch, dev, smi, images, scenes, bf16_detector):
+def csv_eval_phase(torch, dev, smi, images, scenes):
     """The csv_eval entry and the erosion study from a KITTI-360 tree on
     disk, with the YOLO detector as the CLI serves it (float32, unfolded
     weights, the sidecar's point), which pins its own precision: nothing
@@ -899,7 +884,9 @@ def csv_eval_phase(torch, dev, smi, images, scenes, bf16_detector):
     t0 = time.perf_counter()
     detector, _, _ = load_serving_checkpoint(CKPT, (H0, W0),
                                              default_scale="x", device=dev)
-    compare_bf16_float32(torch, bf16_detector, detector, images)
+    # one float32 forward first, so that the timed run below does not
+    # include cuDNN's first choice of float32 convolution plans
+    detector.forward(images)
     plain = copy.copy(detector)
     plain.params = dataclasses.replace(detector.params, nms_impl="plain")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1122,7 +1109,7 @@ def main() -> int:
     launches = main_path(torch, dev, smi, detector, images, scenes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes, detector)
+    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes)
     for k in kernels:
         k["csv_eval_launches"] = csv_launches[k["name"]]
     phase("total", t0)

@@ -13,11 +13,12 @@
 // offset -2, whose projection is -2 or NaN, so skipping them changes
 // nothing.
 //
-// What bounds it on an H100.  The bound counts what the TPU kernel does:
-// every point with a non-zero word against every box, about 15 fp32
-// operations per (active point, box) pair.  At the smoke's shapes (65 k
-// active points of 131 k, 384 boxes) that is 0.37 G operations per frame,
-// 5.6 us at the 67 TFLOP/s peak, while the 2 MB of points and words take
+// What bounds it on an H100.  The bound counts the function's work: every
+// point with a non-zero word against every valid box, about 15 fp32
+// operations per (active point, valid box) pair; an invalid box holds no
+// point by definition.  At the smoke's shapes (65 k active points of
+// 131 k, 300 valid boxes of 384) that is 0.29 G operations per frame,
+// 4.4 us at the 67 TFLOP/s peak, while the 2 MB of points and words take
 // 0.6 us at 3.35 TB/s: bound by operations.  The peak counts a fused
 // multiply-add as two operations; this kernel may not fuse (see below), so
 // its floor in issued fp32 instructions for that work is about twice the
@@ -66,6 +67,15 @@
 //   own (__fmul_rn / __fadd_rn), in the order of geom/boxes.py
 //   inside_from_frame, so no fused multiply-add moves a point across a
 //   face.  The slab tests are ANDed; their order does not matter.
+//
+// Profile builds (tools/k1_profile.py) define one of these; the library
+// the port loads defines none.  K1_THREADS and K1_STEP replace kThreads
+// and kStep.  K1_NO_SORT, K1_NO_CULL, K1_NO_SLABS and K1_LOAD_ONLY leave
+// out the round's sort, the culling, the slab tests, or all counting: the
+// counts are then wrong, only the time means something.  K1_PROFILE
+// records, per block, its SM and start and end times, and per warp the
+// clocks spent counting groups and waiting at the barrier after them, the
+// groups and the steps of kStep boxes (inside_counts_profile_buffer).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,15 +83,49 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+#ifndef K1_THREADS
+#define K1_THREADS 512
+#endif
+#ifndef K1_STEP
+#define K1_STEP 4
+#endif
+
+constexpr int kThreads = K1_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChunk = 32768;     // points per block: 16-bit counters
 constexpr int kGrid = 8;             // cells per axis of the round's sort
-constexpr int kStep = 4;             // candidate boxes a warp tests at once
+constexpr int kStep = K1_STEP;       // candidate boxes a warp tests at once
 constexpr float kRound = 1e-4f;      // widening per unit of magnitude
 constexpr float kSkew = 2e-2f;       // widening per unit of edge length
 constexpr float kMaxSkew = 1e-3f;    // cosine x aspect above which no cull
 constexpr unsigned kFull = 0xffffffffu;
+
+#ifdef K1_PROFILE
+// per block 1 + kWarps records of 4 words: {start ns, end ns, SM, 0},
+// then per warp {clocks counting, clocks waiting, groups, steps}
+__device__ unsigned long long* g_profile;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// around each round's count_group: the clocks spent counting, then those
+// spent at a barrier until the block's slowest warp is done
+#define K1_CLOCK(c) const long long c = clock64()
+#define K1_ROUND_END(c)                                \
+  do {                                                 \
+    const long long c1_ = clock64();                   \
+    __syncthreads();                                   \
+    busy += c1_ - (c);                                 \
+    wait += clock64() - c1_;                           \
+    ++groups;                                          \
+  } while (0)
+#else
+#define K1_CLOCK(c) (void)0
+#define K1_ROUND_END(c) (void)0
+#endif
 
 __device__ __forceinline__ bool in_slab(float x, float y, float z,
                                         float4 f) {
@@ -190,6 +234,11 @@ __device__ void sort_round(const float4* __restrict__ src, int n,
                            float4* __restrict__ dst, int* s_hist,
                            float* s_red) {
   const int tid = threadIdx.x;
+#ifdef K1_NO_SORT
+  if (tid < n) dst[tid] = src[tid];
+  __syncthreads();
+  return;
+#endif
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float nan = __int_as_float(0x7fffffff);
@@ -246,7 +295,7 @@ __device__ __forceinline__ void count_group(
     const float4* __restrict__ s_box, const float4* __restrict__ s_lo,
     const float4* __restrict__ s_hi, int num_valid,
     uint32_t* __restrict__ s_cnt, int num_boxes, int num_det, float4 pt,
-    int lane, int& total) {
+    int lane, int& total, unsigned long long& steps) {
   const uint32_t word = __float_as_uint(pt.w);
   uint32_t plane = 0u;
   for (int d = 0; d < num_det; ++d) {
@@ -271,9 +320,17 @@ __device__ __forceinline__ void count_group(
       // a NaN anywhere keeps the box
       cand = !((gx0 > hi.x + m) || (gx1 < lo.x - m) || (gy0 > hi.y + m) ||
                (gy1 < lo.y - m) || (gz0 > hi.z + m) || (gz1 < lo.z - m));
+#ifdef K1_NO_CULL
+      cand = true;
+#endif
     }
     uint32_t cands = __ballot_sync(kFull, cand);
+#ifdef K1_NO_SLABS
+    total += __popc(cands);
+    cands = 0u;
+#endif
     while (cands != 0u) {
+      ++steps;
       // up to kStep candidates at once, their slab tests independent; an
       // empty slot takes the padding box at num_valid, which holds nothing
       int j[kStep];
@@ -344,6 +401,10 @@ __global__ void __launch_bounds__(kThreads, 2) inside_counts_kernel(
   const int num_steps = (num_points + kThreads - 1) / kThreads;
   const int stride = gridDim.x * kThreads;
   if (static_cast<int>(blockIdx.x) >= num_steps) return;   // before any sync
+#ifdef K1_PROFILE
+  const unsigned long long t_start = global_ns();
+  unsigned long long busy = 0, wait = 0, groups = 0;
+#endif
 
   const uint32_t det_mask =
       num_det >= 32 ? kFull : ((1u << num_det) - 1u);
@@ -392,6 +453,7 @@ __global__ void __launch_bounds__(kThreads, 2) inside_counts_kernel(
   if (tid < 32) s_tot[tid] = 0;
 
   int total = 0;
+  unsigned long long steps = 0;   // read by profile builds only
   int n = 0;      // active points in the buffer: the same in every thread
   for (int base = blockIdx.x * kThreads; base < num_points; base += stride) {
     // the next step's points, loaded while this step is counted
@@ -411,10 +473,16 @@ __global__ void __launch_bounds__(kThreads, 2) inside_counts_kernel(
     n += added;
     __syncthreads();
     if (n >= kThreads) {
+#ifdef K1_LOAD_ONLY
+      total += __float_as_uint(s_pts[tid].w) != 0u;
+#else
       // sort_round reads s_pts[0, kThreads) and syncs before it returns
       sort_round(s_pts, kThreads, s_sorted, s_hist, s_red);
+      K1_CLOCK(c0);
       count_group(s_box, s_lo, s_hi, num_valid, s_cnt, num_boxes, num_det,
-                  s_sorted[tid], lane, total);
+                  s_sorted[tid], lane, total, steps);
+      K1_ROUND_END(c0);
+#endif
       const int rest = n - kThreads;     // < kThreads: no overlap
       if (tid < rest) s_pts[tid] = s_pts[kThreads + tid];
       n = rest;
@@ -425,16 +493,20 @@ __global__ void __launch_bounds__(kThreads, 2) inside_counts_kernel(
     z = nz;
   }
   __syncthreads();
+#ifndef K1_LOAD_ONLY
   if (n > 0) {                           // the last, partial round
     sort_round(s_pts, n, s_sorted, s_hist, s_red);
+    K1_CLOCK(c0);
     if (warp * 32 < n) {
       const float nan = __int_as_float(0x7fffffff);
       const float4 pt = tid < n ? s_sorted[tid]
                                 : make_float4(nan, nan, nan, 0.f);
       count_group(s_box, s_lo, s_hi, num_valid, s_cnt, num_boxes, num_det,
-                  pt, lane, total);
+                  pt, lane, total, steps);
     }
+    K1_ROUND_END(c0);
   }
+#endif
   if (lane < num_det && total != 0) atomicAdd(&s_tot[lane], total);
   __syncthreads();
 
@@ -448,6 +520,56 @@ __global__ void __launch_bounds__(kThreads, 2) inside_counts_kernel(
   }
   if (tid < num_det && s_tot[tid] != 0)
     atomicAdd(&totals[b * num_det + tid], s_tot[tid]);
+#ifdef K1_PROFILE
+  unsigned long long* rec =
+      g_profile + 4ull * (1 + kWarps) *
+                      (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                       blockIdx.x);
+  if (lane == 0) {
+    unsigned long long* w = rec + 4 * (1 + warp);
+    w[0] = busy;
+    w[1] = wait;
+    w[2] = groups;
+    w[3] = steps;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    rec[0] = t_start;
+    rec[1] = global_ns();
+    rec[2] = sm;
+  }
+#endif
+}
+
+// The launch's shared memory and grid: blocks per frame, and the blocks
+// one SM holds at once.
+cudaError_t launch_shape(int batch, int num_points, int num_boxes,
+                         int num_det, int num_sms, size_t* smem,
+                         int* per_frame, int* per_sm) {
+  *smem = sizeof(float4) * (5 * num_boxes + 3 + 3 * kThreads) +
+          sizeof(int) * num_boxes +
+          sizeof(uint32_t) * ((num_det * num_boxes + 1) / 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      inside_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem));
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, inside_counts_kernel, kThreads, *smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  // enough blocks for every resident slot of the card, each with at least
+  // two steps of points and at most kMaxChunk points
+  const long long steps = (num_points + kThreads - 1) / kThreads;
+  long long blocks = (static_cast<long long>(*per_sm) * num_sms + batch - 1) /
+                     batch;
+  if (blocks > (steps + 1) / 2) blocks = (steps + 1) / 2;
+  const long long fewest = (steps + kMaxChunk / kThreads - 1) /
+                           (kMaxChunk / kThreads);
+  if (blocks < fewest) blocks = fewest;
+  *per_frame = static_cast<int>(blocks);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -465,28 +587,13 @@ extern "C" int inside_counts_launch(const void* points, const void* bits,
   if (batch <= 0 || num_points <= 0 || num_boxes <= 0 || num_det <= 0)
     return 0;
   if (num_det > 32 || batch > 65535) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float4) * (5 * num_boxes + 3 + 3 * kThreads) +
-                      sizeof(int) * num_boxes +
-                      sizeof(uint32_t) * ((num_det * num_boxes + 1) / 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      inside_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  size_t smem;
+  int per_frame, per_sm;
+  const cudaError_t err = launch_shape(batch, num_points, num_boxes,
+                                       num_det, num_sms, &smem, &per_frame,
+                                       &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, inside_counts_kernel, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // enough blocks for every resident slot of the card, each with at least
-  // two steps of points and at most kMaxChunk points
-  const long long steps = (num_points + kThreads - 1) / kThreads;
-  long long blocks = (static_cast<long long>(per_sm) * num_sms + batch - 1) /
-                     batch;
-  if (blocks > (steps + 1) / 2) blocks = (steps + 1) / 2;
-  const long long fewest = (steps + kMaxChunk / kThreads - 1) /
-                           (kMaxChunk / kThreads);
-  if (blocks < fewest) blocks = fewest;
-  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  const dim3 grid(static_cast<unsigned>(per_frame), batch);
   inside_counts_kernel<<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const int32_t*>(bits),
@@ -495,3 +602,25 @@ extern "C" int inside_counts_launch(const void* points, const void* bits,
       static_cast<int32_t*>(counts), static_cast<int32_t*>(totals));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef K1_PROFILE
+// Where a profile build records (see g_profile): a zeroed device buffer of
+// 4 (1 + threads / 32) words per block of the grid.  Returns the CUDA
+// error code.
+extern "C" int inside_counts_profile_buffer(void* buffer) {
+  unsigned long long* p = static_cast<unsigned long long*>(buffer);
+  return static_cast<int>(cudaMemcpyToSymbol(g_profile, &p, sizeof(p)));
+}
+
+// The grid inside_counts_launch makes for these sizes: blocks per frame,
+// the blocks one SM holds at once, and threads per block.
+extern "C" int inside_counts_grid(int batch, int num_points, int num_boxes,
+                                  int num_det, int num_sms, int* per_frame,
+                                  int* per_sm, int* threads) {
+  size_t smem;
+  *threads = kThreads;
+  return static_cast<int>(launch_shape(batch, num_points, num_boxes,
+                                       num_det, num_sms, &smem, per_frame,
+                                       per_sm));
+}
+#endif

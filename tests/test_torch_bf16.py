@@ -156,6 +156,8 @@ def test_bf16_at_full_size_drops_only_marginal_detections():
             iou = np.asarray(_iou(bh, bl))
             kept = (iou >= 0.5).any(axis=1) if len(bl) else \
                 np.zeros(len(bh), bool)
+            print(f"{name} frame {b}: float32 keeps {len(bh)}, bf16 "
+                  f"{len(bl)}; float32 scores bf16 drops {sh[~kept]}")
             assert (sh[~kept] < 0.4).all(), (name, b, sh[~kept])
             if len(bl):
                 assert (iou >= 0.5).any(axis=0).all(), (name, b)
@@ -165,6 +167,8 @@ def test_bf16_at_full_size_drops_only_marginal_detections():
                             .mean())
     jax_drift = drift(_car_logits_jax(jdet["bf16"], images))
     port_drift = drift(_car_logits_port(tdet["bf16"], images))
+    print(f"car-logit drift of bf16 from float32: port {port_drift:.4f}, "
+          f"JAX {jax_drift:.4f}")
     assert drift(_car_logits_port(tdet["f32"], images)) < 1e-3
     assert 0 < port_drift <= 1.5 * jax_drift, (port_drift, jax_drift)
 
