@@ -15,17 +15,22 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    counts) on the main path's batch of 4 scans, one scan, and edge cases
    (P not a multiple of a tile, D < 32, no active point, one box, every
    box invalid, points exactly on box faces, boxes whose edges are not
-   orthogonal); K2/K3 (mask assembly); and
-   K5 (NMS) on synthetic hard cases (NaN, infinite and invalid scores,
-   ties, IoUs an ulp around the threshold, N = 1024, M > N, a frame with
-   nothing alive) and on the decode's real candidates of both views;
+   orthogonal); K3/K2 (mask assembly, one launch each per batch) at
+   B = 4 and B = 1 on a dense synthetic case and on the main path's own
+   consensus tables, and on edge cases (a frame with no valid detection,
+   D = 1, boxes off the image or with infinite or NaN coordinates, edges
+   on tile borders and at fractions, guards that fire for some
+   detections, a count exactly at the guard's minimum); and K5 (NMS) on
+   synthetic hard cases (NaN, infinite and invalid scores, ties, IoUs an
+   ulp around the threshold, N = 1024, M > N, a frame with nothing alive)
+   and on the decode's real candidates of both views;
 4. drives the main path through the port's entry points: the committed
    YOLO11n-seg checkpoint at its sidecar serving point (hflip TTA, guarded
    masks, BatchNorm folded, bf16) over 4 frames of 376 x 1408 (two real
    camera frames and their mirrors), then ``fuse_batch`` over synthetic
    131072-point scans with 384 box slots, then ``frame_statistics``.  The
    kernels' launch counters are zeroed just before and read just after,
-   and every kernel must have run, K1 and K5 once for the batch.  The
+   and every kernel must have run once for the batch.  The
    same network outputs are then decoded on the CPU by the twins, and the
    fusion is rerun with the plain inside-count, as references;
 5. writes the same frames and scans as a KITTI-360 directory tree (the
@@ -34,8 +39,8 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    the loader must skip) and runs the ``csv_eval`` entry, the erosion
    study and the CLI from it, with the YOLO detector as the CLI serves it
    (float32, unfolded weights, its own precision pinned: the script sets
-   no global TF32 switch).  Every kernel must launch in the csv_eval
-   run; its detections and master CSV must equal those of the same run
+   no global TF32 switch).  Every kernel must launch once in the
+   csv_eval run (one batch); its detections and master CSV must equal those of the same run
    with the twin NMS.  The loader's part of the run is timed on its own;
 6. prints one JSON line of the kernels (times, bounds, launches, errors),
    the card's name and power limit, and last the ``{"ok": true, ...}``
@@ -293,6 +298,72 @@ def nms_case(rng, batch, n, iou_threshold=0.7):
         scores[b, special[3:]] = scores[b, special[3]]   # a tie
     return boxes, scores, valid
 
+
+def mask_table(rng, batch, d, mh, mw):
+    """Smooth random probability tables (B, D, mh, mw) float32: a product
+    of sines through a sigmoid, so that a 0.99 cut leaves some detections
+    near-empty and the guard fires for them."""
+    yy = np.linspace(0, 1, mh)[None, None, :, None]
+    xx = np.linspace(0, 1, mw)[None, None, None, :]
+    fy = rng.uniform(1, 6, (batch, d, 1, 1))
+    fx = rng.uniform(1, 12, (batch, d, 1, 1))
+    amp = rng.uniform(2, 9, (batch, d, 1, 1))
+    return (1 / (1 + np.exp(-amp * np.sin(fy * 3 * yy + fx)
+                            * np.cos(fx * 2 * xx)))).astype(np.float32)
+
+
+def mask_cases(rng, h=H0, w=W0, mh=42, mw=160):
+    """Operands of K2/K3 at an h x w frame: name -> (table (B, D, mh, mw)
+    float32, boxes (B, D, 4) float32 xyxy, valid (B, D) bool).
+
+    * dense: 32 slots, 85 % valid, boxes up to 0.43 w x 0.8 h (600 x 300
+      at 1408 x 376), at B = 4 and its first frame at B = 1;
+    * a frame with no valid detection beside one with some;
+    * D = 1;
+    * boxes partly or wholly off the image, infinite and NaN coordinates,
+      the whole frame;
+    * edges on tile and 4-column borders, a hair inside them, at
+      fractional coordinates, boxes thinner than a pixel.
+    """
+    def boxes_of(batch, d):
+        x1 = rng.uniform(0, 0.93 * w, (batch, d))
+        y1 = rng.uniform(0, 0.84 * h, (batch, d))
+        return np.stack([x1, y1, x1 + rng.uniform(0.03 * w, 0.43 * w,
+                                                  (batch, d)),
+                         y1 + rng.uniform(0.08 * h, 0.8 * h, (batch, d))],
+                        -1).astype(np.float32)
+
+    def fixed(rows):
+        boxes = boxes_of(1, D)
+        boxes[0, :len(rows)] = np.array(rows, np.float32)
+        return (mask_table(rng, 1, D, mh, mw), boxes, np.ones((1, D), bool))
+
+    dense = (mask_table(rng, 4, D, mh, mw), boxes_of(4, D),
+             rng.random((4, D)) > 0.15)
+    none = (dense[0][:2].copy(), dense[1][:2].copy(), dense[2][:2].copy())
+    none[2][0] = False
+    inf, nan = np.inf, np.nan
+    off = fixed([[-50, -20, 0.3 * w, 0.4 * h],
+                 [0.8 * w, 0.7 * h, w + 100, h + 50],
+                 [w + 5, 10, w + 200, 40], [-300, -100, -1, -2],
+                 [10, h, 100, h + 40], [-inf, 0.2 * h, 0.2 * w, inf],
+                 [nan, 10, 100, 50], [20, 10, 120, nan], [0, 0, w, h],
+                 [w - 1, 0, w + 1, h]])
+    borders = fixed([[4, 8, 68, 16], [3.5, 7.5, 67.5, 15.5],
+                     [4.0001, 8.0001, 64.9999, 23.9999], [0, 0, 4, 1],
+                     [w - 4, h - 1, w, h], [1.25, 2.75, 9.75, 3.25],
+                     [5, 5, 5.5, 9], [6.2, 6.2, 6.8, 6.8],
+                     [16, 32, 16, 40], [0.5, 0.5, w - 0.5, h - 0.5]])
+    return {
+        "dense B=4": dense,
+        "dense B=1": tuple(a[:1] for a in dense),
+        "no valid detection": none,
+        "D=1": (mask_table(rng, 2, 1, mh, mw), boxes_of(2, 1),
+                np.ones((2, 1), bool)),
+        "off the image": off,
+        "borders and fractions": borders,
+    }
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -539,100 +610,151 @@ def check_inside_counts(torch, dev, rng, scenes):
             "library_ms": None}
 
 
-def check_mask_kernels(torch, dev, rng):
-    from lidar_object_detection_tpu_torch.ops import (
-        kernel_lib, mask_assembly as ma)
+def mask_bound(ops, count):
+    """Bound of K3 (``count``) or K2 on ``ops``: the valid detections'
+    tables, the boxes, flags, cuts and taps read once, the counts or the
+    words written once; 8 operations per (pixel, detection) pair inside a
+    valid box."""
+    b, d, mh, mw = ops.table.shape
+    bx = ops.boxes.cpu().numpy().astype(np.float64)
+    ok = ops.valid.cpu().numpy() & (bx[..., 0] < bx[..., 2]) \
+        & (bx[..., 1] < bx[..., 3])
+    cx = np.clip(np.ceil(np.nan_to_num(bx[..., [0, 2]])), 0, W0)
+    cy = np.clip(np.ceil(np.nan_to_num(bx[..., [1, 3]])), 0, H0)
+    area = np.where(ok, np.clip(cx[..., 1] - cx[..., 0], 0, None)
+                    * np.clip(cy[..., 1] - cy[..., 0], 0, None), 0)
+    n_bytes = int((area > 0).sum()) * mh * mw * 4 + b * d * (16 + 1 + 4) \
+        + (H0 + W0) * 12 + b * d * 4
+    if not count:
+        n_bytes += b * H0 * W0 * 4
+    return bound_ms(n_bytes, 8 * float(area.sum()))
 
-    mh, mw = 42, 160
-    # smooth random fields: a product of sines through a sigmoid, so that
-    # the 0.99 cut leaves some detections near-empty and the guard fires
-    yy = np.linspace(0, 1, mh)[None, :, None]
-    xx = np.linspace(0, 1, mw)[None, None, :]
-    fy = rng.uniform(1, 6, (D, 1, 1))
-    fx = rng.uniform(1, 12, (D, 1, 1))
-    amp = rng.uniform(2, 9, (D, 1, 1))
-    table_np = 1 / (1 + np.exp(-amp * np.sin(fy * 3 * yy + fx)
-                               * np.cos(fx * 2 * xx)))
-    table = torch.from_numpy(table_np.astype(np.float32)).to(dev)
-    x1 = rng.uniform(0, W0 - 100, D)
-    y1 = rng.uniform(0, H0 - 60, D)
-    boxes = torch.from_numpy(np.stack(
-        [x1, y1, x1 + rng.uniform(40, 600, D), y1 + rng.uniform(30, 300, D)],
-        1).astype(np.float32)).to(dev)
-    det_valid = torch.from_numpy(rng.random(D) > 0.15).to(dev)
 
-    ops = ma.prepare_operands(table, boxes, det_valid, H0, W0, 0.99)
-    counts = ma.count_above_cuda(ops)
-    ref_counts = ma.count_above_plain(ops)
-    thr = ma.guarded_thresholds(counts, 0.99, 0.5, 200)
-    ops_g = ma.prepare_operands(table, boxes, det_valid, H0, W0, thr)
-    words = ma.assemble_masks_cuda(ops_g)
-    ref_words = ma.assemble_masks_plain(ops_g)
-    plain_hi = ma.assemble_masks_plain(ops)
-    torch.cuda.synchronize()
-    if not torch.equal(counts, ref_counts):
-        raise AssertionError("K3 counts differ from the twin")
-    k3_err = int((counts - ref_counts).abs().max())
-    mismatches = int((words != ref_words).sum())
-    # the largest difference of any one mask bit (0 or 1)
-    k2_err = int((words ^ ref_words).ne(0).any())
-    if mismatches:
-        raise AssertionError(f"K2 words differ from the twin at "
-                             f"{mismatches} pixels")
-    if not bool((ref_words != 0).any()) or torch.equal(ref_words, plain_hi):
-        raise AssertionError("mask check is degenerate: no bits, or the "
-                             "guard never fired")
+def check_mask_kernels(torch, dev, rng, detector, images):
+    """K3 and K2 against their twins, one launch each per batch, on the
+    dense synthetic case and the main path's own consensus tables at B = 4
+    and B = 1, and on the edge cases of ``mask_cases``: K2 with the plain
+    cut, with the serving guard and with a guard whose ``min_pixels``
+    equals a count.  Timed at B = 4 and B = 1 on the dense and the
+    main-path case, and at every tile height on them."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        postprocess_batch)
+    from lidar_object_detection_tpu_torch.models.yolo.tta import (
+        consensus_tables)
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
 
-    lib = kernel_lib.library()
-    out_w = torch.empty((H0, W0), dtype=torch.int32, device=dev)
-    out_c = torch.zeros((D,), dtype=torch.int32, device=dev)
+    p = detector.params
+    thr, floor, min_pixels = (p.mask_threshold, p.mask_threshold_floor,
+                              p.mask_min_pixels)
+    outputs = detector.forward(images)
+    det = postprocess_batch(outputs, p, masks=False)
+    b = len(images)
+    main = (consensus_tables(det, outputs["proto"], p,
+                             detector.tta_match_iou),
+            det["boxes"][:b], det["det_valid"][:b])
+    cases = {name: tuple(torch.from_numpy(a).to(dev) for a in arrays)
+             for name, arrays in mask_cases(rng).items()}
+    cases["main path B=4"] = main
+    cases["main path B=1"] = tuple(a[:1] for a in main)
+    ops_of = {name: ma.prepare_operands(*args, H0, W0, thr)
+              for name, args in cases.items()}
+    bad = {"mask_count": 0, "mask_assemble": 0}
+    compared = {"mask_count": 0, "mask_assemble": 0}
+    k3_err, k2_err, failed, stats = 0, 0, [], {}
+    for name, ops in ops_of.items():
+        counts = ma.count_above_cuda(ops)
+        ref_counts = ma.count_above_plain(ops)
+        n_bad = int((counts != ref_counts).sum())
+        if counts.numel():
+            k3_err = max(k3_err, int((counts - ref_counts).abs().max()))
+        nonzero = counts[counts > 0]
+        at = int(nonzero.min()) if nonzero.numel() else 1
+        words_bad = 0
+        for guard in (None, ma.Guard(counts, floor, min_pixels),
+                      ma.Guard(counts, floor, at)):
+            words = ma.assemble_masks_cuda(ops, guard)
+            ref_words = ma.assemble_masks_plain(ops, guard)
+            words_bad += int((words != ref_words).sum())
+            # the largest difference of any one mask bit (0 or 1)
+            k2_err = max(k2_err, int((words ^ ref_words).ne(0).any()))
+            compared["mask_assemble"] += words.numel()
+        torch.cuda.synchronize()
+        bad["mask_count"] += n_bad
+        bad["mask_assemble"] += words_bad
+        compared["mask_count"] += counts.numel()
+        if n_bad or words_bad:
+            failed.append(f"{name}: {n_bad} counts, {words_bad} words")
+        under = (ref_counts < min_pixels) & ops.valid
+        stats[name] = {"valid": int(ops.valid.sum()),
+                       "guard fires": int(under.sum()),
+                       "guard keeps": int((~under & ops.valid).sum()),
+                       "pixels": int(ref_counts.sum())}
+    if failed:
+        raise AssertionError(f"K3/K2 differ from their twins: {bad} "
+                             f"({failed})")
+    dense, real = stats["dense B=4"], stats["main path B=4"]
+    if not (dense["guard fires"] and dense["guard keeps"]) \
+            or real["pixels"] == 0 or stats["D=1"]["pixels"] == 0 \
+            or stats["off the image"]["pixels"] == 0 \
+            or stats["borders and fractions"]["pixels"] == 0:
+        raise AssertionError(f"mask check is degenerate: {stats}")
 
-    def launcher(name, o, out):
-        def run():
-            kernel_lib.check(getattr(lib, name)(
-                o.table.data_ptr(), D, mh, mw, o.y0.data_ptr(),
-                o.wy0.data_ptr(), o.wy1.data_ptr(), o.x0.data_ptr(),
-                o.wx0.data_ptr(), o.wx1.data_ptr(), o.boxes.data_ptr(),
-                o.thr.data_ptr(), H0, W0, out.data_ptr(),
-                kernel_lib.stream_handle(dev)), name)
-        return run
+    def timer(name, ops, rows=ma.ROWS_PER_TILE):
+        out = torch.empty((ops.table.shape[0], H0, W0), dtype=torch.int32,
+                          device=dev)
+        counts = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
+                             device=dev)
+        guard = ma.Guard(ma.count_above_plain(ops), floor, min_pixels)
+        if name == "mask_count":
+            return lambda: ma.launch("mask_count_launch", ops, counts,
+                                     rows=rows)
+        return lambda: ma.launch("mask_assemble_launch", ops, out, guard,
+                                 rows=rows)
 
-    k2_ms = time_gpu(launcher("mask_assemble_launch", ops_g, out_w))
-    k3_ms = time_gpu(launcher("mask_count_launch", ops, out_c))
-    k2_plain = time_gpu(lambda: ma.assemble_masks_plain(ops_g), reps=10,
-                        head_start=False)
-    k3_plain = time_gpu(lambda: ma.count_above_plain(ops), reps=10,
-                        head_start=False)
-    b = ops.boxes.cpu().numpy()
-    area = (np.clip(np.ceil(b[:, 2]), 0, W0) - np.clip(np.ceil(b[:, 0]), 0,
-                                                       W0)) \
-        * (np.clip(np.ceil(b[:, 3]), 0, H0) - np.clip(np.ceil(b[:, 1]), 0,
-                                                      H0))
-    pairs = float(np.clip(area, 0, None).sum())
-    in_bytes = D * mh * mw * 4 + D * 4 * 4 + D + D * 4
-    k2_bound, k2_by = bound_ms(in_bytes + H0 * W0 * 4, pairs * 8)
-    k3_bound, k3_by = bound_ms(in_bytes + D * 4, pairs * 8)
-    n_guard = int((thr < 0.99).sum())
-    print(f"K3 mask_count: equal to the twin; {k3_ms:.4f} ms (twin "
-          f"{k3_plain:.4f}); K2 mask_assemble: {int((words != 0).sum())} "
-          f"pixels set, {n_guard} detections on the floor cut, equal to "
-          f"the twin; {k2_ms:.4f} ms (twin {k2_plain:.4f})", flush=True)
+    timed = {"": "main path B=4", "_b1": "main path B=1",
+             "_synthetic": "dense B=4", "_synthetic_b1": "dense B=1"}
+    entries = []
     src = "lidar_object_detection_tpu_torch/csrc/mask_assembly.cu"
-    return [
-        {"name": "mask_assemble", "route": "cuda", "source": src,
-         "replaces": "lidar_object_detection_tpu/ops/pallas_masks.py:246",
-         "max_abs_err": k2_err, "mismatches": mismatches,
-         "compared": words.numel(), "ms": k2_ms,
-         "kernel_ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
-        {"name": "mask_count", "route": "cuda", "source": src,
-         "replaces": "lidar_object_detection_tpu/ops/pallas_masks.py:282",
-         "max_abs_err": k3_err, "mismatches": int((counts != ref_counts)
-                                                   .sum()),
-         "compared": counts.numel(), "ms": k3_ms, "kernel_ms": k3_ms,
-         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
-    ]
+    for name, line, err in (("mask_count", 282, k3_err),
+                            ("mask_assemble", 246, k2_err)):
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": "lidar_object_detection_tpu/ops/"
+                             f"pallas_masks.py:{line}",
+                 "max_abs_err": err, "mismatches": bad[name],
+                 "compared": compared[name], "cases": len(ops_of)}
+        for suffix, case in timed.items():
+            ops = ops_of[case]
+            entry["ms" + suffix] = time_gpu(timer(name, ops))
+            entry["bound_ms" + suffix], by = mask_bound(
+                ops, name == "mask_count")
+            if not suffix:
+                entry["bound_by"] = by
+            entry["ms_by_rows" + suffix] = {
+                rows: time_gpu(timer(name, ops, rows), reps=10)
+                for rows in (1, 2, 4, 8)}
+        entry["kernel_ms"] = entry["ms"]
+        main_ops = ops_of["main path B=4"]
+        if name == "mask_count":
+            plain = lambda: ma.count_above_plain(main_ops)
+        else:
+            guard = ma.Guard(ma.count_above_plain(main_ops), floor,
+                             min_pixels)
+            plain = lambda: ma.assemble_masks_plain(main_ops, guard)
+        entry["plain_ms"] = time_gpu(plain, reps=10, head_start=False)
+        entry["library_ms"] = None
+        entries.append(entry)
+        print(f"{name}: equal to the twin on {len(ops_of)} cases "
+              f"({compared[name]} entries); main path B=4 "
+              f"{entry['ms']:.4f} ms (bound {entry['bound_ms']:.4g} by "
+              f"{entry['bound_by']}), B=1 {entry['ms_b1']:.4f} (bound "
+              f"{entry['bound_ms_b1']:.4g}); dense B=4 "
+              f"{entry['ms_synthetic']:.4f} (bound "
+              f"{entry['bound_ms_synthetic']:.4g}), B=1 "
+              f"{entry['ms_synthetic_b1']:.4f} (bound "
+              f"{entry['bound_ms_synthetic_b1']:.4g}); twin "
+              f"{entry['plain_ms']:.4f}", flush=True)
+    print(f"mask cases: {stats}", flush=True)
+    return entries
 
 
 def check_nms(torch, dev, rng, detector, images):
@@ -787,13 +909,9 @@ def main_path(torch, dev, smi, detector, images, scenes):
     torch.cuda.synchronize()
     launches = dict(kernel_lib.LAUNCHES)
     print(f"main-path launches: {launches}", flush=True)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the main path launched no {missing}")
-    if launches["nms"] != 1 or launches["inside_counts"] != 1:
-        raise AssertionError(f"K5 and K1 launched {launches['nms']} and "
-                             f"{launches['inside_counts']} times for one "
-                             f"batch, expected once each")
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError(f"the main path launched {launches} for one "
+                             f"batch, expected each kernel once")
 
     # the outputs, by the repo's own means
     n_det = det["det_valid"].sum(dim=1).tolist()
@@ -921,9 +1039,9 @@ def csv_eval_phase(torch, dev, smi, images, scenes):
         wall = time.perf_counter() - t1
         launches = dict(kernel_lib.LAUNCHES)
         print(f"csv_eval launches: {launches}", flush=True)
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            raise AssertionError(f"csv_eval launched no {missing}")
+        if any(n != 1 for n in launches.values()):
+            raise AssertionError(f"csv_eval launched {launches} for its one "
+                                 f"batch, expected each kernel once")
         fps = len(records) / wall
         # the loader's part of that run, timed again on its own: scans and
         # boxes, the batch, and the PNG decode
@@ -1102,7 +1220,7 @@ def main() -> int:
 
     detector, images, scenes = load_serving(torch, dev, rng)
     kernels = [check_inside_counts(torch, dev, rng, scenes)]
-    kernels += check_mask_kernels(torch, dev, rng)
+    kernels += check_mask_kernels(torch, dev, rng, detector, images)
     kernels.append(check_nms(torch, dev, rng, detector, images))
     phase("kernels against twins", t0)
 

@@ -1,209 +1,403 @@
 // Stack-free mask assembly kernels (K2, K3) of the YOLO-seg decode, for
-// sm_90a.
+// sm_90a, over a batch of frames: one launch each per batch.
 //
 // Replace: lidar_object_detection_tpu/ops/pallas_masks.py,
-//   pallas_assemble_masks (kernel body _mask_kernel) -> mask_assemble_kernel
-//   pallas_count_above    (kernel body _count_kernel) -> mask_count_kernel
-// pallas_assemble_masks_guarded is their composition (count, per-detection
-// cut, assemble) and stays two launches here too (ops/mask_assembly.py).
+//   pallas_assemble_masks (:246, kernel body _mask_kernel) -> mask_kernel<false>
+//   pallas_count_above    (:282, kernel body _count_kernel) -> mask_kernel<true>
+// pallas_assemble_masks_guarded (:309) is their composition: K3 counts at
+// the primary cut, then K2 picks each detection's cut on the device
+// (counts >= min_pixels ? threshold : floor, pallas_masks.py:327-329) from
+// K3's counts, so a guarded batch is two launches and no host sync.
 //
 // What they compute.  The input is a cropped proto-resolution probability
-// table (D, mh, mw).  Each output pixel (y, x) takes, for every detection
-// d, the bilinear value of the exact jax.image.resize taps: rows y0, y0+1
-// with weights wy0, wy1 and columns x0, x0+1 with weights wx0, wx1,
-//   c(x') = wy0 * t[d, y0, x'] + wy1 * t[d, y0+1, x']
+// table (B, D, mh, mw).  Each output pixel (y, x) of frame b takes, for
+// every detection d, the bilinear value of the exact jax.image.resize taps:
+// rows y0, y0+1 with weights wy0, wy1 and columns x0, x0+1 with weights
+// wx0, wx1,
+//   c(x') = wy0 * t[b, d, y0, x'] + wy1 * t[b, d, y0+1, x']
 //   v     = wx0 * c(x0) + wx1 * c(x0+1)
 // each product and sum rounded on its own (__fmul_rn / __fadd_rn, in the
 // order of the PyTorch twin, so the two agree bit for bit).  The pixel
-// belongs to detection d when v > thr[d] and the pixel lies in d's
-// half-open box [x1, x2) x [y1, y2) (an invalid detection arrives with an
-// empty box).  K2 ORs the detections' bits into one 32-bit word per pixel;
-// K3 counts, per detection, the pixels that pass.
+// belongs to detection d when d is valid, the pixel lies in d's half-open
+// box [x1, x2) x [y1, y2), and v > cut[d].  K2 ORs the detections' bits
+// into one 32-bit word per pixel; K3 counts, per detection, the pixels
+// that pass.
 //
-// What bounds them on an H100.  Per frame they read a 0.86 MB table and
-// K2 writes a 2.1 MB word image (376 x 1408 x 4 B): about 1 us of memory
-// traffic at 3.35 TB/s.  The arithmetic is about 7 fp32 operations for
-// each (pixel, detection) pair inside a box, at most 32 x 529k pairs, or
-// some 2 us at 67 TFLOP/s.  Both are small; at these sizes the launch and
-// the tail of the grid matter as much.
+// What bounds them on an H100.  At the main path's shapes (B = 4, D = 32
+// slots, 42 x 160 tables, 376 x 1408 frames) K2 writes 8.5 MB of words
+// and reads the valid detections' table rows (at most 3.4 MB): about
+// 2.6-3.6 us at 3.35 TB/s.  K3 reads the same rows and writes 512 bytes.
+// The arithmetic is 8 fp32 operations for each (pixel, detection) pair
+// inside a valid box, a few million pairs: under 1 us at 67 TFLOP/s.  Both
+// are bound by bytes, and at these sizes by latency and launch.
 //
-// What the design does about it.  The TPU kernel x-interpolates with a
-// dense (mw, 128) weight matrix to feed its matrix unit, and K3 sums into
-// one output block across a sequential grid.  Here one block owns one
-// output row: it y-interpolates the two table rows of every detection once
-// into shared memory (D x mw floats), and then each thread reads the two
-// column taps of its pixels directly.  A detection whose box does not hold
-// the pixel is skipped before any arithmetic.  K3 keeps per-thread counts
-// in registers, reduces them across the warp, and adds each block's sums
-// into the zeroed int32 output with atomics (exact in any order).
+// Why not tensor cores.  The TPU kernel x-interpolates with a dense
+// (mw, 128) column-weight matrix because that feeds its matrix unit.  The
+// matrix has two nonzeros per column, so a wgmma over it would do about
+// mw / 2 = 80 times the work the function needs, and the kernels are bound
+// by bytes anyway.
+//
+// What the design does about it.
+// * Tiles.  One block of 128 threads owns a tile of `rows` output rows
+//   (1-8; the port launches 2) by 512 columns of one frame: grid (column
+//   tiles, row tiles, B), every frame of the batch in one launch.  Each
+//   thread owns 4 adjacent columns (W % 4 == 0) and keeps their column taps
+//   in registers.
+// * Culling.  At the start of a tile, warp 0 loads every slot's box,
+//   validity and cut at once and runs a ballot over the D <= 32 slots:
+//   valid, a non-empty box, and a box whose pixel ranges [ceil x1, ceil x2)
+//   x [ceil y1, ceil y2) meet the tile.  Per row a second ballot keeps the
+//   detections whose box covers that row, and each thread ANDs it with the
+//   detections whose columns meet its 4 pixels, then walks the set bits
+//   (__ffs), not all D slots.  For an integer x, x >= x1 iff x >= ceil(x1)
+//   and x < x2 iff x < ceil(x2), so the integer ranges are the float tests
+//   exactly and culling changes no result.  A tile with no active
+//   detection writes zeros (K2) or leaves (K3).
+// * Reads.  A pixel reads its detection's two table rows through L1 (the
+//   tables of a batch, 3.4 MB, stay in L2).  A quad that reads at most 3
+//   table columns (upsampling by 2 or more: 160 -> 1408 is 8.8)
+//   y-interpolates them once and picks each pixel's two; no integer
+//   divide anywhere.  Measured on the card (chip_smoke.py, PERF.md): the
+//   first version, which y-interpolated each row's active columns into
+//   shared memory (one warp per detection, a barrier per row) and differed
+//   in its setup and K3 loop too, took 1.1-1.4 times as long in K2 and
+//   1.7-2.5 times in K3 at B = 4 (each at its best rows per block), so
+//   nothing is staged and no cp.async is used; an L1 prefetch of each
+//   tile's table rows gained nothing; two detections per step took more
+//   registers and 5-20 % more time.
+// * Stores.  K2 writes each thread's 4 words as one 16-byte int4.
+// * Counts.  K3 walks the detections that meet a warp's columns uniformly
+//   across the warp; lane d keeps the warp's count of detection d (one
+//   __reduce_add_sync per step), the warps meet in shared counters, and
+//   each block adds one global atomic per detection it counted into the
+//   zeroed (B, D) output: integer atomics are exact in any order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxDet = 32;
+constexpr int kMaxRows = 8;
+constexpr int kThreads = 128;              // one block: 4 warps
+constexpr int kTileCols = 4 * kThreads;    // 4 adjacent pixels a thread
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Taps {
-  const float* table;  // (D, mh, mw)
-  const int32_t* y0;   // (H,)
+struct Args {
+  const float* table;     // (B, D, mh, mw)
+  const int32_t* y0;      // (H,) row taps and weights
   const float* wy0;
   const float* wy1;
-  const int32_t* x0;   // (W,)
+  const int32_t* x0;      // (W,) column taps and weights
   const float* wx0;
   const float* wx1;
-  const float* boxes;  // (D, 4) xyxy, invalid -> empty
-  const float* thr;    // (D,)
-  int num_det, mh, mw, height, width;
+  const float4* boxes;    // (B, D) xyxy
+  const uint8_t* valid;   // (B, D)
+  const float* thr;       // (B, D) cut, or the primary cut when guarded
+  const int32_t* guard;   // (B, D) K3's counts at thr, or null
+  float floor;            // the cut of a guarded detection under min_pixels
+  int min_pixels;
+  int num_det, mh, mw, height, width, rows;
 };
 
-// Loads the block's row of y-interpolated table values and the boxes.
-__device__ void load_row(const Taps& t, int y, float* s_comb, float* s_box,
-                         float* s_thr) {
-  const int r0 = t.y0[y];
-  const int r1 = min(r0 + 1, t.mh - 1);
-  const float w0 = t.wy0[y];
-  const float w1 = t.wy1[y];
-  for (int i = threadIdx.x; i < t.num_det * t.mw; i += blockDim.x) {
-    const int d = i / t.mw;
-    const int j = i - d * t.mw;
-    const float* base = t.table + static_cast<size_t>(d) * t.mh * t.mw;
-    s_comb[i] = __fadd_rn(__fmul_rn(w0, base[r0 * t.mw + j]),
-                          __fmul_rn(w1, base[r1 * t.mw + j]));
+// The tile's active detections, set up by warp 0.
+struct Tile {
+  int x_lo[kMaxDet];      // pixel columns [x_lo, x_hi) of the box
+  int x_hi[kMaxDet];
+  float cut[kMaxDet];
+  uint32_t active;        // the active detections
+  uint32_t row_mask[kMaxRows];
+  int src0[kMaxRows];     // per tile row: table rows and weights
+  int src1[kMaxRows];
+  float w0[kMaxRows];
+  float w1[kMaxRows];
+};
+
+__device__ __forceinline__ int clamp_ceil(float v, int hi) {
+  return static_cast<int>(
+      fminf(fmaxf(ceilf(v), 0.0f), static_cast<float>(hi)));
+}
+
+__device__ void setup_tile(const Args& a, int b, int x_begin, int x_end,
+                           int y_begin, int y_end, Tile& t) {
+  const int d = threadIdx.x;  // warp 0: one lane per detection slot
+  // every load first, so that the setup waits for one round trip
+  const size_t i = static_cast<size_t>(b) * a.num_det + d;
+  const bool slot = d < a.num_det;
+  float4 bx = make_float4(0.f, 0.f, 0.f, 0.f);
+  bool valid = false;
+  float cut = 0.f;
+  int guard = 0;
+  if (slot) {
+    bx = a.boxes[i];
+    valid = a.valid[i] != 0;
+    cut = a.thr[i];
+    if (a.guard != nullptr) guard = a.guard[i];
   }
-  for (int i = threadIdx.x; i < t.num_det * 4; i += blockDim.x)
-    s_box[i] = t.boxes[i];
-  for (int i = threadIdx.x; i < t.num_det; i += blockDim.x)
-    s_thr[i] = t.thr[i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool pixel_on(const Taps& t, const float* s_comb,
-                                         const float* s_box,
-                                         const float* s_thr, int d, float xf,
-                                         float yf, int c0, int c1, float w0,
-                                         float w1) {
-  const float* b = s_box + 4 * d;
-  if (!(xf >= b[0] && xf < b[2] && yf >= b[1] && yf < b[3])) return false;
-  const float* row = s_comb + d * t.mw;
-  const float v = __fadd_rn(__fmul_rn(w0, row[c0]), __fmul_rn(w1, row[c1]));
-  return v > s_thr[d];
-}
-
-__global__ void mask_assemble_kernel(Taps t, int32_t* __restrict__ out) {
-  // D * mw y-interpolated values, then the boxes and the thresholds
-  extern __shared__ __align__(16) float s_comb[];
-  float* s_box = s_comb + t.num_det * t.mw;
-  float* s_thr = s_box + 4 * t.num_det;
-  const int y = blockIdx.x;
-  load_row(t, y, s_comb, s_box, s_thr);
-  const float yf = static_cast<float>(y);
-  for (int x = threadIdx.x; x < t.width; x += blockDim.x) {
-    const int c0 = t.x0[x];
-    const int c1 = min(c0 + 1, t.mw - 1);
-    const float w0 = t.wx0[x];
-    const float w1 = t.wx1[x];
-    const float xf = static_cast<float>(x);
-    uint32_t word = 0u;
-    for (int d = 0; d < t.num_det; ++d)
-      if (pixel_on(t, s_comb, s_box, s_thr, d, xf, yf, c0, c1, w0, w1))
-        word |= 1u << d;
-    out[static_cast<size_t>(y) * t.width + x] = static_cast<int32_t>(word);
+  const int y = y_begin + d;
+  if (d < a.rows && y < y_end) {
+    const int s0 = a.y0[y];
+    t.src0[d] = s0;
+    t.src1[d] = min(s0 + 1, a.mh - 1);
+    t.w0[d] = a.wy0[y];
+    t.w1[d] = a.wy1[y];
   }
+  const int cx0 = clamp_ceil(bx.x, a.width);
+  const int cx1 = clamp_ceil(bx.z, a.width);
+  const int cy0 = clamp_ceil(bx.y, a.height);
+  const int cy1 = clamp_ceil(bx.w, a.height);
+  // the float compares are false for a NaN coordinate
+  const bool on = slot && valid && bx.x < bx.z && bx.y < bx.w &&
+                  max(cx0, x_begin) < min(cx1, x_end) &&
+                  max(cy0, y_begin) < min(cy1, y_end);
+  if (on) {
+    t.x_lo[d] = cx0;
+    t.x_hi[d] = cx1;
+    t.cut[d] = (a.guard != nullptr && guard < a.min_pixels) ? a.floor : cut;
+  }
+  const uint32_t active = __ballot_sync(kFull, on);
+  for (int r = 0; r < a.rows; ++r) {
+    const int yr = y_begin + r;
+    const uint32_t m = __ballot_sync(kFull, on && cy0 <= yr && yr < cy1);
+    if (d == 0) t.row_mask[r] = m;
+  }
+  if (d == 0) t.active = active;
 }
 
-__global__ void mask_count_kernel(Taps t, int32_t* __restrict__ counts) {
-  extern __shared__ __align__(16) float s_comb[];
-  float* s_box = s_comb + t.num_det * t.mw;
-  float* s_thr = s_box + 4 * t.num_det;
-  const int y = blockIdx.x;
-  load_row(t, y, s_comb, s_box, s_thr);
-  const float yf = static_cast<float>(y);
-  int cnt[kMaxDet];
+struct Quad {  // one thread's 4 adjacent pixels of a row
+  int x;
+  int base;           // first table column the quad reads
+  int i0[4], i1[4];   // each pixel's two table columns, from base
+  float w0[4], w1[4];
+  bool narrow;        // the quad reads at most 3 table columns
+};
+
+__device__ __forceinline__ float lerp_rn(float w0, float a, float w1,
+                                         float b) {
+  return __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
+}
+
+__device__ __forceinline__ float pick3(int i, float v0, float v1, float v2) {
+  return i == 0 ? v0 : (i == 1 ? v1 : v2);
+}
+
+// Bit p set where pixel p of the quad, in tile row r, belongs to detection
+// d (whose box covers row r).  The table is read through L1: a detection's
+// two table rows serve every pixel of the tile row.  A quad that reads at
+// most 3 table columns (upsampling by 2 or more) y-interpolates them once.
+__device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
+                                              const Quad& q, int b, int r,
+                                              int d) {
+  const float* row0 = a.table +
+      ((static_cast<size_t>(b) * a.num_det + d) * a.mh + t.src0[r]) * a.mw +
+      q.base;
+  const float* row1 = row0 + (t.src1[r] - t.src0[r]) * a.mw;
+  const float wy0 = t.w0[r];
+  const float wy1 = t.w1[r];
+  const int lo = t.x_lo[d] - q.x;
+  const int hi = t.x_hi[d] - q.x;
+  const float cut = t.cut[d];
+  uint32_t bits = 0u;
+  if (q.narrow) {
+    const int last = a.mw - 1 - q.base;
+    const int k1 = min(1, last);
+    const int k2 = min(2, last);
+    const float v0 = lerp_rn(wy0, __ldg(row0), wy1, __ldg(row1));
+    const float v1 = lerp_rn(wy0, __ldg(row0 + k1), wy1, __ldg(row1 + k1));
+    const float v2 = lerp_rn(wy0, __ldg(row0 + k2), wy1, __ldg(row1 + k2));
 #pragma unroll
-  for (int d = 0; d < kMaxDet; ++d) cnt[d] = 0;
-  for (int x = threadIdx.x; x < t.width; x += blockDim.x) {
-    const int c0 = t.x0[x];
-    const int c1 = min(c0 + 1, t.mw - 1);
-    const float w0 = t.wx0[x];
-    const float w1 = t.wx1[x];
-    const float xf = static_cast<float>(x);
-#pragma unroll
-    for (int d = 0; d < kMaxDet; ++d)
-      if (d < t.num_det &&
-          pixel_on(t, s_comb, s_box, s_thr, d, xf, yf, c0, c1, w0, w1))
-        ++cnt[d];
-  }
-  // all lanes are converged here: reduce each count across the warp and
-  // let lane 0 add the warp's sums
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 0; d < kMaxDet; ++d) {
-    if (d >= t.num_det) break;
-    const int s = __reduce_add_sync(0xffffffffu, cnt[d]);
-    if (lane == 0 && s != 0) atomicAdd(&counts[d], s);
-  }
-}
-
-int launch(bool count, const void* table, int num_det, int mh, int mw,
-           const void* y0, const void* wy0, const void* wy1, const void* x0,
-           const void* wx0, const void* wx1, const void* boxes,
-           const void* thr, int height, int width, void* out,
-           void* stream) {
-  if (num_det <= 0 || height <= 0 || width <= 0) return 0;
-  if (num_det > kMaxDet) return static_cast<int>(cudaErrorInvalidValue);
-  Taps t{static_cast<const float*>(table), static_cast<const int32_t*>(y0),
-         static_cast<const float*>(wy0),   static_cast<const float*>(wy1),
-         static_cast<const int32_t*>(x0),  static_cast<const float*>(wx0),
-         static_cast<const float*>(wx1),   static_cast<const float*>(boxes),
-         static_cast<const float*>(thr),   num_det, mh, mw, height, width};
-  const size_t smem = sizeof(float) * (num_det * mw + 5 * num_det);
-  cudaError_t err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (count) {
-    err = cudaFuncSetAttribute(mask_count_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mask_count_kernel<<<height, kThreads, smem, s>>>(
-        t, static_cast<int32_t*>(out));
+    for (int p = 0; p < 4; ++p) {
+      const float v = lerp_rn(q.w0[p], pick3(q.i0[p], v0, v1, v2),
+                              q.w1[p], pick3(q.i1[p], v0, v1, v2));
+      bits |= static_cast<uint32_t>(p >= lo && p < hi && v > cut) << p;
+    }
   } else {
-    err = cudaFuncSetAttribute(mask_assemble_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    mask_assemble_kernel<<<height, kThreads, smem, s>>>(
-        t, static_cast<int32_t*>(out));
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p < lo || p >= hi) continue;
+      const float ca = lerp_rn(wy0, __ldg(row0 + q.i0[p]), wy1,
+                               __ldg(row1 + q.i0[p]));
+      const float cb = lerp_rn(wy0, __ldg(row0 + q.i1[p]), wy1,
+                               __ldg(row1 + q.i1[p]));
+      bits |= static_cast<uint32_t>(lerp_rn(q.w0[p], ca, q.w1[p], cb) > cut)
+              << p;
+    }
   }
+  return bits;
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads)
+mask_kernel(Args a, int32_t* __restrict__ out) {
+  __shared__ Tile t;
+  __shared__ int s_cnt[kMaxDet];
+  const int x_begin = blockIdx.x * kTileCols;
+  const int x_end = min(x_begin + kTileCols, a.width);
+  const int y_begin = blockIdx.y * a.rows;
+  const int y_end = min(y_begin + a.rows, a.height);
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid < 32) {
+    setup_tile(a, b, x_begin, x_end, y_begin, y_end, t);
+    s_cnt[tid] = 0;
+  }
+  // the thread's column taps, loaded while warp 0 sets up the tile
+  Quad q;
+  q.x = x_begin + 4 * tid;
+  const bool has_quad = q.x < a.width;
+  if (has_quad) {
+    const int4 c = *reinterpret_cast<const int4*>(a.x0 + q.x);
+    const float4 f0 = *reinterpret_cast<const float4*>(a.wx0 + q.x);
+    const float4 f1 = *reinterpret_cast<const float4*>(a.wx1 + q.x);
+    const int c0[4] = {c.x, c.y, c.z, c.w};
+    q.w0[0] = f0.x; q.w0[1] = f0.y; q.w0[2] = f0.z; q.w0[3] = f0.w;
+    q.w1[0] = f1.x; q.w1[1] = f1.y; q.w1[2] = f1.z; q.w1[3] = f1.w;
+    q.base = c0[0];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      q.i0[p] = c0[p] - q.base;
+      q.i1[p] = min(c0[p] + 1, a.mw - 1) - q.base;
+    }
+    q.narrow = q.i1[3] <= 2;
+  }
+  __syncthreads();
+  const uint32_t active = t.active;
+  const int rows = y_end - y_begin;
+  int4* words = reinterpret_cast<int4*>(
+      out + (static_cast<size_t>(b) * a.height + y_begin) * a.width + q.x);
+  const int row_stride = a.width / 4;  // in int4
+  if (active == 0u) {
+    if (!kCount && has_quad)
+      for (int r = 0; r < rows; ++r)
+        words[r * row_stride] = make_int4(0, 0, 0, 0);
+    return;
+  }
+  // the active detections whose columns meet this thread's 4 pixels
+  uint32_t col_mask = 0u;
+#pragma unroll
+  for (int d = 0; d < kMaxDet; ++d)
+    if (((active >> d) & 1u) && t.x_lo[d] < q.x + 4 && t.x_hi[d] > q.x)
+      col_mask |= 1u << d;
+  if (!has_quad) col_mask = 0u;
+
+  if (kCount) {
+    // lane d keeps its warp's count of detection d; the loop over the
+    // detections that meet the warp's columns is uniform across the warp
+    const uint32_t warp_cols = __reduce_or_sync(kFull, col_mask);
+    int acc = 0;
+    for (int r = 0; r < rows; ++r) {
+      for (uint32_t rest = t.row_mask[r] & warp_cols; rest != 0u;
+           rest &= rest - 1u) {
+        const int d = __ffs(rest) - 1;
+        const int c = ((col_mask >> d) & 1u)
+                          ? __popc(quad_bits(a, t, q, b, r, d)) : 0;
+        const int s = __reduce_add_sync(kFull, c);
+        if (lane == d) acc += s;
+      }
+    }
+    if (acc != 0) atomicAdd(&s_cnt[lane], acc);
+    __syncthreads();
+    if (tid < a.num_det && s_cnt[tid] != 0)
+      atomicAdd(&out[static_cast<size_t>(b) * a.num_det + tid], s_cnt[tid]);
+  } else if (has_quad) {
+    for (int r = 0; r < rows; ++r) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      for (uint32_t rest = t.row_mask[r] & col_mask; rest != 0u;
+           rest &= rest - 1u) {
+        const int d = __ffs(rest) - 1;
+        const uint32_t bits = quad_bits(a, t, q, b, r, d);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) w[p] |= ((bits >> p) & 1u) << d;
+      }
+      words[r * row_stride] =
+          make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                    static_cast<int>(w[2]), static_cast<int>(w[3]));
+    }
+  }
+}
+
+int launch(bool count, Args a, int batch, void* out, void* stream) {
+  if (batch <= 0 || a.height <= 0 || a.width <= 0) return 0;
+  if (a.num_det < 0 || a.num_det > kMaxDet || a.width % 4 != 0 ||
+      a.rows < 1 || a.rows > kMaxRows || a.mh < 1 || a.mw < 1 ||
+      batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.width + kTileCols - 1) / kTileCols,
+                  (a.height + a.rows - 1) / a.rows, batch);
+  const int threads = kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (count)
+    mask_kernel<true><<<grid, threads, 0, s>>>(a, o);
+  else
+    mask_kernel<false><<<grid, threads, 0, s>>>(a, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const void* table, int num_det, int mh, int mw,
+               const void* y0, const void* wy0, const void* wy1,
+               const void* x0, const void* wx0, const void* wx1,
+               const void* boxes, const void* valid, const void* thr,
+               int height, int width, int rows) {
+  Args a{};
+  a.table = static_cast<const float*>(table);
+  a.y0 = static_cast<const int32_t*>(y0);
+  a.wy0 = static_cast<const float*>(wy0);
+  a.wy1 = static_cast<const float*>(wy1);
+  a.x0 = static_cast<const int32_t*>(x0);
+  a.wx0 = static_cast<const float*>(wx0);
+  a.wx1 = static_cast<const float*>(wx1);
+  a.boxes = static_cast<const float4*>(boxes);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.thr = static_cast<const float*>(thr);
+  a.num_det = num_det;
+  a.mh = mh;
+  a.mw = mw;
+  a.height = height;
+  a.width = width;
+  a.rows = rows;
+  return a;
 }
 
 }  // namespace
 
-// table (D, mh, mw) f32; row taps y0 (H,) i32, wy0, wy1 (H,) f32; column
-// taps x0 (W,) i32, wx0, wx1 (W,) f32; boxes (D, 4) f32; thr (D,) f32.
-// K2 writes out (H, W) i32 packed words.  Returns cudaGetLastError().
-extern "C" int mask_assemble_launch(const void* table, int num_det, int mh,
-                                    int mw, const void* y0, const void* wy0,
-                                    const void* wy1, const void* x0,
-                                    const void* wx0, const void* wx1,
-                                    const void* boxes, const void* thr,
-                                    int height, int width, void* out,
-                                    void* stream) {
-  return launch(false, table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
-                boxes, thr, height, width, out, stream);
+// table (B, D, mh, mw) f32; row taps y0 (H,) i32, wy0, wy1 (H,) f32; column
+// taps x0 (W,) i32, wx0, wx1 (W,) f32; boxes (B, D, 4) f32; valid (B, D)
+// bool; thr (B, D) f32; `rows` output rows per block (1-8).  K3 adds
+// per-detection pixel counts into counts (B, D) i32, zeroed by the caller.
+// Returns cudaGetLastError().
+extern "C" int mask_count_launch(const void* table, int batch, int num_det,
+                                 int mh, int mw, const void* y0,
+                                 const void* wy0, const void* wy1,
+                                 const void* x0, const void* wx0,
+                                 const void* wx1, const void* boxes,
+                                 const void* valid, const void* thr,
+                                 int height, int width, int rows,
+                                 void* counts, void* stream) {
+  Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
+                     boxes, valid, thr, height, width, rows);
+  return launch(true, a, batch, counts, stream);
 }
 
-// Same operands; K3 adds per-detection pixel counts into counts (D,) i32,
-// zeroed by the caller.
-extern "C" int mask_count_launch(const void* table, int num_det, int mh,
-                                 int mw, const void* y0, const void* wy0,
-                                 const void* wy1, const void* x0,
-                                 const void* wx0, const void* wx1,
-                                 const void* boxes, const void* thr,
-                                 int height, int width, void* counts,
-                                 void* stream) {
-  return launch(true, table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
-                boxes, thr, height, width, counts, stream);
+// Same operands; K2 writes out (B, H, W) i32 packed words.  With guard
+// (B, D) i32 (K3's counts at thr) non-null, detection d of frame b cuts at
+// thr where guard >= min_pixels and at floor otherwise; with guard null,
+// at thr.
+extern "C" int mask_assemble_launch(const void* table, int batch,
+                                    int num_det, int mh, int mw,
+                                    const void* y0, const void* wy0,
+                                    const void* wy1, const void* x0,
+                                    const void* wx0, const void* wx1,
+                                    const void* boxes, const void* valid,
+                                    const void* thr, const void* guard,
+                                    float floor, int min_pixels, int height,
+                                    int width, int rows, void* out,
+                                    void* stream) {
+  Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
+                     boxes, valid, thr, height, width, rows);
+  a.guard = static_cast<const int32_t*>(guard);
+  a.floor = floor;
+  a.min_pixels = min_pixels;
+  return launch(false, a, batch, out, stream);
 }

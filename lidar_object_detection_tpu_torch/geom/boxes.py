@@ -153,10 +153,10 @@ def corners_visibility_rich(corners_cam0, intrinsics, width: int,
 
 
 def iou_2d_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
-    """(N, 4) x (M, 4) xyxy -> (N, M) IoU; zero where the intersection is
-    empty or the union is zero."""
-    a = boxes_a[:, None, :]
-    b = boxes_b[None, :, :]
+    """(..., N, 4) x (..., M, 4) xyxy -> (..., N, M) IoU, the leading axes
+    a batch; zero where the intersection is empty or the union is zero."""
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
     iw = torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0],
                                                              b[..., 0])
     ih = torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1],

@@ -15,11 +15,11 @@ module's ``nms_impl="pallas"``) on CUDA tensors.  The JAX module's
 logit-space, relative-threshold and bf16 ``fast`` mask modes are not.
 
 The decode runs over a batch: (B, ...) tensors where the JAX package
-vmapped a per-frame function, so the NMS is one launch for the batch.
-Mask assembly runs per frame through :func:`_finish_masks`, which takes
-kernels K3/K2 on CUDA tensors (the stack-free design,
-``postprocess.py:400-424`` of the JAX package) and their plain twins on
-CPU tensors.
+vmapped a per-frame function, so the NMS is one launch for the batch, and
+so is the mask assembly: :func:`_finish_masks` takes the batch's
+(B, D, mh, mw) tables to kernels K3/K2 on CUDA tensors, once each (the
+stack-free design, ``postprocess.py:400-424`` of the JAX package), and to
+their plain twins on CPU tensors.
 """
 
 from __future__ import annotations
@@ -211,11 +211,9 @@ def postprocess_batch(outputs, params: PostprocessParams,
     if not masks:
         out["coef"] = det_coef
         return out
-    out["mask_bits"] = torch.stack([
-        _finish_masks(cropped_prob_table(outputs["proto"][b], det_coef[b],
-                                         spec),
-                      det_boxes[b], keep_valid[b], p)
-        for b in range(det_boxes.shape[0])])
+    out["mask_bits"] = _finish_masks(
+        cropped_prob_table(outputs["proto"], det_coef, spec), det_boxes,
+        keep_valid, p)
     return out
 
 
@@ -245,27 +243,30 @@ def _proto_crop_bounds(mh: int, mw: int, spec: LetterboxSpec):
 
 def cropped_prob_table(protos: torch.Tensor, coef: torch.Tensor,
                        spec: LetterboxSpec) -> torch.Tensor:
-    """(D, mh_c, mw_c) float32 sigmoid table at proto resolution with the
-    letterbox padding stripped, from protos (mh, mw, nm) and coef (D, nm).
-    Bilinear upsampling is linear, so TTA averages these small tables."""
-    mh, mw, _ = protos.shape
+    """(..., D, mh_c, mw_c) float32 sigmoid tables at proto resolution
+    with the letterbox padding stripped, from protos (..., mh, mw, nm) and
+    coef (..., D, nm), the leading axes a batch of frames.  Bilinear
+    upsampling is linear, so TTA averages these small tables."""
+    mh, mw, _ = protos.shape[-3:]
     probs = torch.sigmoid(torch.einsum(
-        "dn,hwn->dhw", coef.to(torch.float32), protos.to(torch.float32)))
+        "...dn,...hwn->...dhw", coef.to(torch.float32),
+        protos.to(torch.float32)))
     top, bottom, left, right = _proto_crop_bounds(mh, mw, spec)
-    return probs[:, top:bottom, left:right]
+    return probs[..., top:bottom, left:right]
 
 
 def _finish_masks(table: torch.Tensor, boxes: torch.Tensor,
                   det_valid: torch.Tensor,
                   params: PostprocessParams) -> torch.Tensor:
-    """Upsample + threshold + box-crop + bit-pack a cropped table into
-    (H0, W0) int32 words, guarded when the params carry a floor: K3 (for
-    the guard) and K2 on a CUDA tensor, their twins on a CPU tensor."""
+    """Upsample + threshold + box-crop + bit-pack a batch's cropped tables
+    (B, D, mh_c, mw_c) into (B, H0, W0) int32 words, guarded when the
+    params carry a floor: K3 (for the guard) and K2 once each on CUDA
+    tensors, their twins on CPU tensors."""
     p = params
     h, w = p.spec.src_h, p.spec.src_w
     if p.mask_threshold_floor is None:
-        return mask_assembly.assemble_masks(table, boxes, det_valid, h, w,
-                                            p.mask_threshold)
-    return mask_assembly.assemble_masks_guarded(
+        return mask_assembly.assemble_masks_batch(table, boxes, det_valid, h,
+                                                  w, p.mask_threshold)
+    return mask_assembly.assemble_masks_guarded_batch(
         table, boxes, det_valid, h, w, p.mask_threshold,
         p.mask_threshold_floor, p.mask_min_pixels)

@@ -9,17 +9,17 @@ the normal view's.
 
 The average happens at proto resolution: bilinear upsampling is linear and
 its taps are symmetric, so mirroring the small cropped table's width axis
-and averaging it equals averaging the two upsampled fields.  One table per
-frame then goes through the shared assembly tail (``_finish_masks``: K3
-and K2 on CUDA).
+and averaging it equals averaging the two upsampled fields.  The batch's
+tables then go through the shared assembly tail together
+(``_finish_masks``: K3 and K2 on CUDA, once each per batch).
 
 Under ``jit`` the JAX package's two single-view mask assemblies are dead
 code that XLA drops (``tta.py:92-95``).  Eager PyTorch would run them, so
 the views are decoded with ``masks=False``, which returns the mask
-coefficients and assembles nothing: a TTA frame launches K3 and K2 once
-each.  Both views of a batch go through one decode, 2B frames at once, so
-the NMS (kernel K5 on CUDA tensors) is one launch per batch; every step of
-the decode is per frame, so this changes no output.
+coefficients and assembles nothing.  Both views of a batch go through one
+decode, 2B frames at once, so the NMS (kernel K5 on CUDA tensors) is one
+launch per batch, and the merge runs over all B frames at once; every step
+of the decode and the merge is per frame, so this changes no output.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     postprocess_batch,
 )
 
-__all__ = ["flip_boxes", "postprocess_tta", "postprocess_tta_pair"]
+__all__ = ["consensus_tables", "flip_boxes", "postprocess_tta",
+           "postprocess_tta_pair"]
 
 
 def flip_boxes(boxes: torch.Tensor, src_w: float) -> torch.Tensor:
@@ -45,20 +46,26 @@ def flip_boxes(boxes: torch.Tensor, src_w: float) -> torch.Tensor:
                         src_w - boxes[..., 0], boxes[..., 3]], dim=-1)
 
 
-def _merge_frame(det_n, det_f, proto_n, proto_f, params: PostprocessParams,
-                 match_iou: float) -> torch.Tensor:
-    """One frame's consensus mask words from its two decoded views."""
+def consensus_tables(det, protos, params: PostprocessParams,
+                     match_iou: float) -> torch.Tensor:
+    """(B, D, mh_c, mw_c) consensus tables of a batch from the decode of
+    both views (``det`` with ``coef``, 2B frames, the mirrors last) and
+    their protos (2B, mh, mw, nm): each normal-view detection whose best
+    flipped-view IoU reaches ``match_iou`` averages its table with that
+    detection's mirrored one."""
+    b = protos.shape[0] // 2
     spec = params.spec
-    table_n = cropped_prob_table(proto_n, det_n["coef"], spec)
-    table_f = cropped_prob_table(proto_f, det_f["coef"], spec).flip(-1)
-    boxes_f = flip_boxes(det_f["boxes"], float(spec.src_w))
-    iou = iou_2d_matrix(det_n["boxes"], boxes_f)                  # (D, D)
-    iou = torch.where(det_f["det_valid"][None, :], iou, 0.0)
-    best = iou.argmax(dim=1)
-    matched = (iou.amax(dim=1) >= match_iou) & det_n["det_valid"]
-    table = torch.where(matched[:, None, None],
-                        0.5 * (table_n + table_f[best]), table_n)
-    return _finish_masks(table, det_n["boxes"], det_n["det_valid"], params)
+    tables = cropped_prob_table(protos, det["coef"], spec)
+    table_n, table_f = tables[:b], tables[b:].flip(-1)
+    boxes_f = flip_boxes(det["boxes"][b:], float(spec.src_w))
+    iou = iou_2d_matrix(det["boxes"][:b], boxes_f)             # (B, D, D)
+    iou = torch.where(det["det_valid"][b:, None, :], iou, 0.0)
+    best = iou.argmax(dim=-1)
+    matched = (iou.amax(dim=-1) >= match_iou) & det["det_valid"][:b]
+    best_f = torch.gather(table_f, 1,
+                          best[:, :, None, None].expand_as(table_f))
+    return torch.where(matched[..., None, None], 0.5 * (table_n + best_f),
+                       table_n)
 
 
 def postprocess_tta(outputs, params: PostprocessParams,
@@ -69,16 +76,10 @@ def postprocess_tta(outputs, params: PostprocessParams,
     det_valid of the normal view and ``mask_bits`` (B, H0, W0) int32."""
     b = outputs["proto"].shape[0] // 2
     det = postprocess_batch(outputs, params, masks=False)
-    det_n = {k: v[:b] for k, v in det.items()}
-    det_f = {k: v[b:] for k, v in det.items()}
-    bits = [
-        _merge_frame({k: v[i] for k, v in det_n.items()},
-                     {k: v[i] for k, v in det_f.items()},
-                     outputs["proto"][i], outputs["proto"][b + i], params,
-                     match_iou)
-        for i in range(b)]
-    return {"boxes": det_n["boxes"], "scores": det_n["scores"],
-            "det_valid": det_n["det_valid"], "mask_bits": torch.stack(bits)}
+    table = consensus_tables(det, outputs["proto"], params, match_iou)
+    boxes, valid = det["boxes"][:b], det["det_valid"][:b]
+    return {"boxes": boxes, "scores": det["scores"][:b], "det_valid": valid,
+            "mask_bits": _finish_masks(table, boxes, valid, params)}
 
 
 def postprocess_tta_pair(out_n, out_f, params: PostprocessParams,

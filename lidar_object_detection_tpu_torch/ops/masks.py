@@ -29,12 +29,13 @@ def bit_weights(num_bits: int, device=None) -> torch.Tensor:
 
 
 def pack_masks(masks: torch.Tensor) -> torch.Tensor:
-    """(D, H, W) {0, 1} masks -> (H, W) int32 packed words, D <= 32."""
-    d = masks.shape[0]
+    """(..., D, H, W) {0, 1} masks -> (..., H, W) int32 packed words,
+    D <= 32."""
+    d = masks.shape[-3]
     if d > 32:
         raise ValueError(f"at most 32 masks per frame, got {d}")
     w = bit_weights(d, masks.device)
-    return wrap_int32((masks.to(torch.int64) * w[:, None, None]).sum(dim=0))
+    return wrap_int32((masks.to(torch.int64) * w[:, None, None]).sum(dim=-3))
 
 
 def unpack_masks(bits: torch.Tensor, num_masks: int) -> torch.Tensor:

@@ -52,7 +52,7 @@ def nms_plain(boxes, scores, valid, iou_threshold: float, max_outputs: int):
         return _single(nms_plain, boxes, scores, valid, iou_threshold,
                        max_outputs)
     b, n = scores.shape
-    iou = torch.stack([iou_2d_matrix(boxes[i], boxes[i]) for i in range(b)])
+    iou = iou_2d_matrix(boxes, boxes)
     finite = valid & torch.isfinite(scores)
     neg = torch.tensor(float("-inf"), device=scores.device)
     base = torch.where(finite, scores.to(torch.float32), neg)

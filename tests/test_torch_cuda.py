@@ -72,10 +72,10 @@ def test_k2_k3_mask_kernels_equal_twins(dev):
     y1 = rng.uniform(0, h - 60, d)
     boxes = np.stack([x1, y1, x1 + rng.uniform(40, 600, d),
                       y1 + rng.uniform(30, 300, d)], 1).astype(np.float32)
-    ops = ma.prepare_operands(torch.from_numpy(table).to(dev),
-                              torch.from_numpy(boxes).to(dev),
-                              torch.from_numpy(rng.random(d) > 0.2).to(dev),
-                              h, w, 0.99)
+    ops = ma.prepare_operands(torch.from_numpy(table)[None].to(dev),
+                              torch.from_numpy(boxes)[None].to(dev),
+                              torch.from_numpy(rng.random((1, d)) > 0.2).to(
+                                  dev), h, w, 0.99)
     assert torch.equal(ma.count_above_cuda(ops), ma.count_above_plain(ops))
     words = ma.assemble_masks_cuda(ops)
     assert torch.equal(words, ma.assemble_masks_plain(ops))

@@ -210,6 +210,24 @@ def test_geometry_matches_jax(rng):
         rtol=1e-12)
 
 
+def test_iou_2d_matrix_takes_a_batch_axis(rng):
+    """A batch of frames' IoU matrices in one call equals the JAX IoU of
+    each frame, and the port's per-frame call, exactly."""
+    xy = rng.uniform(0, 300, (3, 10, 2)).astype(np.float32)
+    a = np.concatenate([xy, xy + rng.uniform(-20, 80, (3, 10, 2))], -1)
+    b = a[:, ::-1] + rng.normal(0, 5, a.shape).astype(np.float32)
+    got = tboxes.iou_2d_matrix(_t(a), _t(b.copy()))
+    assert got.shape == (3, 10, 10)
+    for f in range(3):
+        np.testing.assert_array_equal(
+            got[f].numpy(),
+            tboxes.iou_2d_matrix(_t(a[f]), _t(b[f].copy())).numpy())
+        np.testing.assert_array_equal(
+            got[f].numpy(), np.asarray(jboxes.iou_2d_matrix(
+                jnp.asarray(a[f]), jnp.asarray(b[f]))))
+    assert bool((got > 0).any())
+
+
 def test_packed_masks_and_erosion_match_jax(rng):
     masks = rng.random((32, 40, 56)) > 0.3
     words = jmasks.pack_masks(masks)

@@ -151,15 +151,110 @@ def test_tta_decode_runs_one_nms_for_both_views(both, monkeypatch):
     det_f = tpp.postprocess_batch(view(slice(n, None)), tdet.params,
                                   masks=False)
     assert calls == [2 * n, n, n]
-    for b in range(n):
-        bits = ttta._merge_frame(
-            {k: v[b] for k, v in det_n.items()},
-            {k: v[b] for k, v in det_f.items()}, outputs["proto"][b],
-            outputs["proto"][n + b], tdet.params, tdet.tta_match_iou)
-        assert torch.equal(got["mask_bits"][b], bits)
+    det = {k: torch.cat([det_n[k], det_f[k]]) for k in det_n}
+    table = ttta.consensus_tables(det, outputs["proto"], tdet.params,
+                                  tdet.tta_match_iou)
+    bits = tpp._finish_masks(table, det_n["boxes"], det_n["det_valid"],
+                             tdet.params)
+    assert torch.equal(got["mask_bits"], bits)
     for key in ("boxes", "scores", "det_valid"):
         assert torch.equal(got[key], det_n[key])
     assert int(got["det_valid"].sum()) > 0
+
+
+def _raw_jax_outputs(images):
+    """The JAX network's raw outputs on both views of ``images`` (the
+    mirrors last), as numpy, and the JAX detector and its serving point."""
+    from lidar_object_detection_tpu.models.yolo.postprocess import (
+        letterbox_image as jletterbox)
+
+    jdet, _, res = jload(CKPT, (H0, W0), imgsz=160)
+    imgs = images.astype(np.float32) / np.float32(255.0)
+    both_views = np.concatenate([imgs, imgs[:, :, ::-1]])
+    lb = np.stack([np.asarray(jletterbox(jnp.asarray(im), jdet.spec))
+                   for im in both_views])
+    raw = jdet.model.apply(jdet.variables, jnp.asarray(lb))
+    raw = {k: [np.asarray(x) for x in v] if isinstance(v, list)
+           else np.asarray(v) for k, v in raw.items()}
+    return raw, jdet, res
+
+
+def test_batched_tta_decode_matches_jax_frame_by_frame(both):
+    """The port's TTA decode of the whole batch (one NMS, one merge, one
+    mask assembly) against the JAX package's ``tta`` decode of each frame
+    on the same raw outputs: equal validity and mask words, boxes to
+    float32 rounding."""
+    from lidar_object_detection_tpu.models.yolo.postprocess import (
+        PostprocessParams as JParams)
+    from lidar_object_detection_tpu.models.yolo.tta import (
+        postprocess_tta_pair as jpair)
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        PostprocessParams)
+    from lidar_object_detection_tpu_torch.models.yolo.tta import (
+        postprocess_tta)
+
+    images = both[0]
+    raw, jdet, res = _raw_jax_outputs(images)
+    kw = dict(mask_threshold=res["mask_threshold"],
+              mask_threshold_floor=res["mask_threshold_floor"],
+              mask_min_pixels=res["mask_min_pixels"])
+    tdet, _, _ = load_serving_checkpoint(CKPT, (H0, W0), imgsz=160,
+                                         device="cpu")
+    to_t = lambda a: torch.from_numpy(np.array(a))
+    got = postprocess_tta({k: [to_t(x) for x in v] if isinstance(v, list)
+                           else to_t(v) for k, v in raw.items()},
+                          PostprocessParams(spec=tdet.spec, **kw))
+    n = len(images)
+    assert got["mask_bits"].shape == (n, H0, W0)
+    for b in range(n):
+        view = lambda i: {k: [jnp.asarray(x[i]) for x in v]
+                          if isinstance(v, list) else jnp.asarray(v[i])
+                          for k, v in raw.items()}
+        ref = jpair(view(b), view(b + n), JParams(spec=jdet.spec, **kw))
+        np.testing.assert_array_equal(got["det_valid"][b].numpy(),
+                                      np.asarray(ref["det_valid"]))
+        np.testing.assert_allclose(got["boxes"][b].numpy(),
+                                   np.asarray(ref["boxes"]), rtol=0,
+                                   atol=1e-3)
+        np.testing.assert_array_equal(
+            got["mask_bits"][b].numpy(),
+            np.asarray(ref["mask_bits"]).astype(np.uint32).view(np.int32))
+    assert bool((got["mask_bits"] != 0).any())
+
+
+@pytest.mark.parametrize("tta", ["hflip", "none"])
+def test_decode_assembles_masks_once_per_batch(both, monkeypatch, tta):
+    """The decode of a batch calls the count twin once and the assembly
+    twin once (the kernels' stand-ins on the CPU), and no per-frame
+    mask function; its words equal those of the unpatched decode."""
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    images = both[0]
+    tdet, _, _ = load_serving_checkpoint(CKPT, (H0, W0), imgsz=160,
+                                         device="cpu")
+    tdet.tta = tta
+    outputs = tdet.forward(images)
+    ref = tdet.decode(outputs)
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(ops, *args):
+            calls.append((name, tuple(ops.table.shape[:2])))
+            return fn(ops, *args)
+        return wrapped
+
+    monkeypatch.setattr(ma, "count_above_plain",
+                        spy("count", ma.count_above_plain))
+    monkeypatch.setattr(ma, "assemble_masks_plain",
+                        spy("assemble", ma.assemble_masks_plain))
+    for single in ("assemble_masks", "count_above",
+                   "assemble_masks_guarded"):
+        monkeypatch.setattr(ma, single, None)
+    got = tdet.decode(outputs)
+    d = tdet.params.max_detections
+    n = len(images)
+    assert calls == [("count", (n, d)), ("assemble", (n, d))]
+    assert torch.equal(got["mask_bits"], ref["mask_bits"])
 
 
 def test_fusion_statistics_match_jax(both):
