@@ -611,23 +611,43 @@ def check_inside_counts(torch, dev, rng, scenes):
 
 
 def mask_bound(ops, count):
-    """Bound of K3 (``count``) or K2 on ``ops``: the valid detections'
-    tables, the boxes, flags, cuts and taps read once, the counts or the
-    words written once; 8 operations per (pixel, detection) pair inside a
-    valid box."""
+    """Bound of K3 (``count``) or K2 on ``ops``.
+
+    Bytes: for each valid box with pixels, the table rows y0[cy0] ..
+    y0[cy1 - 1] + 1 and columns x0[cx0] .. x0[cx1 - 1] + 1 that its pixel
+    range [cx0, cx1) x [cy0, cy1) reaches; the taps of the output rows and
+    columns some box covers; every slot's box, flag and cut; the counts
+    written (K3) or read (K2) and, for K2, the words written once.
+    Operations: 3 for each (output row, reached table column) of a box
+    (the y interpolation, shared by the row's pixels) and 4 for each
+    (pixel, detection) pair inside a valid box (the x interpolation and
+    the compare)."""
     b, d, mh, mw = ops.table.shape
+    h, w = ops.shape
+    y0 = ops.y0.cpu().numpy()
+    x0 = ops.x0.cpu().numpy()
     bx = ops.boxes.cpu().numpy().astype(np.float64)
     ok = ops.valid.cpu().numpy() & (bx[..., 0] < bx[..., 2]) \
         & (bx[..., 1] < bx[..., 3])
-    cx = np.clip(np.ceil(np.nan_to_num(bx[..., [0, 2]])), 0, W0)
-    cy = np.clip(np.ceil(np.nan_to_num(bx[..., [1, 3]])), 0, H0)
-    area = np.where(ok, np.clip(cx[..., 1] - cx[..., 0], 0, None)
-                    * np.clip(cy[..., 1] - cy[..., 0], 0, None), 0)
-    n_bytes = int((area > 0).sum()) * mh * mw * 4 + b * d * (16 + 1 + 4) \
-        + (H0 + W0) * 12 + b * d * 4
+    cx = np.clip(np.ceil(np.nan_to_num(bx[..., [0, 2]])), 0, w).astype(int)
+    cy = np.clip(np.ceil(np.nan_to_num(bx[..., [1, 3]])), 0, h).astype(int)
+    table_bytes, ops_count = 0, 0.0
+    row_used = np.zeros(h, bool)
+    col_used = np.zeros(w, bool)
+    for i in zip(*np.nonzero(ok & (cx[..., 0] < cx[..., 1])
+                             & (cy[..., 0] < cy[..., 1]))):
+        (xa, xb), (ya, yb) = cx[i], cy[i]
+        n_rows = min(y0[yb - 1] + 1, mh - 1) - y0[ya] + 1
+        n_cols = min(x0[xb - 1] + 1, mw - 1) - x0[xa] + 1
+        table_bytes += n_rows * n_cols * 4
+        ops_count += 3 * (yb - ya) * n_cols + 4 * (yb - ya) * (xb - xa)
+        row_used[ya:yb] = True
+        col_used[xa:xb] = True
+    n_bytes = table_bytes + (int(row_used.sum()) + int(col_used.sum())) * 12 \
+        + b * d * (16 + 1 + 4) + b * d * 4
     if not count:
-        n_bytes += b * H0 * W0 * 4
-    return bound_ms(n_bytes, 8 * float(area.sum()))
+        n_bytes += b * h * w * 4
+    return bound_ms(n_bytes, ops_count)
 
 
 def check_mask_kernels(torch, dev, rng, detector, images):
@@ -636,7 +656,7 @@ def check_mask_kernels(torch, dev, rng, detector, images):
     and B = 1, and on the edge cases of ``mask_cases``: K2 with the plain
     cut, with the serving guard and with a guard whose ``min_pixels``
     equals a count.  Timed at B = 4 and B = 1 on the dense and the
-    main-path case, and at every tile height on them."""
+    main-path case."""
     from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
         postprocess_batch)
     from lidar_object_detection_tpu_torch.models.yolo.tta import (
@@ -699,17 +719,15 @@ def check_mask_kernels(torch, dev, rng, detector, images):
             or stats["borders and fractions"]["pixels"] == 0:
         raise AssertionError(f"mask check is degenerate: {stats}")
 
-    def timer(name, ops, rows=ma.ROWS_PER_TILE):
+    def timer(name, ops):
         out = torch.empty((ops.table.shape[0], H0, W0), dtype=torch.int32,
                           device=dev)
         counts = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
                              device=dev)
         guard = ma.Guard(ma.count_above_plain(ops), floor, min_pixels)
         if name == "mask_count":
-            return lambda: ma.launch("mask_count_launch", ops, counts,
-                                     rows=rows)
-        return lambda: ma.launch("mask_assemble_launch", ops, out, guard,
-                                 rows=rows)
+            return lambda: ma.launch("mask_count_launch", ops, counts)
+        return lambda: ma.launch("mask_assemble_launch", ops, out, guard)
 
     timed = {"": "main path B=4", "_b1": "main path B=1",
              "_synthetic": "dense B=4", "_synthetic_b1": "dense B=1"}
@@ -729,9 +747,6 @@ def check_mask_kernels(torch, dev, rng, detector, images):
                 ops, name == "mask_count")
             if not suffix:
                 entry["bound_by"] = by
-            entry["ms_by_rows" + suffix] = {
-                rows: time_gpu(timer(name, ops, rows), reps=10)
-                for rows in (1, 2, 4, 8)}
         entry["kernel_ms"] = entry["ms"]
         main_ops = ops_of["main path B=4"]
         if name == "mask_count":

@@ -23,13 +23,17 @@
 // into one 32-bit word per pixel; K3 counts, per detection, the pixels
 // that pass.
 //
-// What bounds them on an H100.  At the main path's shapes (B = 4, D = 32
-// slots, 42 x 160 tables, 376 x 1408 frames) K2 writes 8.5 MB of words
-// and reads the valid detections' table rows (at most 3.4 MB): about
-// 2.6-3.6 us at 3.35 TB/s.  K3 reads the same rows and writes 512 bytes.
-// The arithmetic is 8 fp32 operations for each (pixel, detection) pair
-// inside a valid box, a few million pairs: under 1 us at 67 TFLOP/s.  Both
-// are bound by bytes, and at these sizes by latency and launch.
+// What bounds them on an H100.  The function needs, per valid box, only
+// the table rows and columns its pixel range reaches through the taps
+// (about 1-3 KB for a car), and 3 fp32 operations per (output row, reached
+// column) of the box plus 4 per (pixel, detection) pair inside it
+// (chip_smoke.mask_bound).  At the main path's shapes (B = 4, D = 32
+// slots, 42 x 160 tables, 376 x 1408 frames, 10 valid boxes) K2 writes
+// 8.5 MB of words: 2.5 us at 3.35 TB/s, bound by bytes.  K3 writes 512
+// bytes and is bound by its operations, about 0.015 us there and 0.3 us
+// on a dense batch (103 of 128 slots valid, boxes up to 600 x 300).  At
+// these sizes both are bound in practice by latency and launch (measured
+// 9-10 us on the main path, PERF.md).
 //
 // Why not tensor cores.  The TPU kernel x-interpolates with a dense
 // (mw, 128) column-weight matrix because that feeds its matrix unit.  The
@@ -38,9 +42,10 @@
 // by bytes anyway.
 //
 // What the design does about it.
-// * Tiles.  One block of 128 threads owns a tile of `rows` output rows
-//   (1-8; the port launches 2) by 512 columns of one frame: grid (column
-//   tiles, row tiles, B), every frame of the batch in one launch.  Each
+// * Tiles.  One block of 128 threads owns a tile of kRows = 2 output rows
+//   by 512 columns of one frame: grid (column tiles, row tiles, B), every
+//   frame of the batch in one launch.  Two rows per block was the fastest
+//   of 1, 2, 4 and 8 on the card (PERF.md, runs C-F).  Each
 //   thread owns 4 adjacent columns (W % 4 == 0) and keeps their column taps
 //   in registers.
 // * Culling.  At the start of a tile, warp 0 loads every slot's box,
@@ -78,7 +83,7 @@
 namespace {
 
 constexpr int kMaxDet = 32;
-constexpr int kMaxRows = 8;
+constexpr int kRows = 2;                   // output rows a block
 constexpr int kThreads = 128;              // one block: 4 warps
 constexpr int kTileCols = 4 * kThreads;    // 4 adjacent pixels a thread
 constexpr unsigned kFull = 0xffffffffu;
@@ -97,7 +102,7 @@ struct Args {
   const int32_t* guard;   // (B, D) K3's counts at thr, or null
   float floor;            // the cut of a guarded detection under min_pixels
   int min_pixels;
-  int num_det, mh, mw, height, width, rows;
+  int num_det, mh, mw, height, width;
 };
 
 // The tile's active detections, set up by warp 0.
@@ -106,11 +111,11 @@ struct Tile {
   int x_hi[kMaxDet];
   float cut[kMaxDet];
   uint32_t active;        // the active detections
-  uint32_t row_mask[kMaxRows];
-  int src0[kMaxRows];     // per tile row: table rows and weights
-  int src1[kMaxRows];
-  float w0[kMaxRows];
-  float w1[kMaxRows];
+  uint32_t row_mask[kRows];
+  int src0[kRows];        // per tile row: table rows and weights
+  int src1[kRows];
+  float w0[kRows];
+  float w1[kRows];
 };
 
 __device__ __forceinline__ int clamp_ceil(float v, int hi) {
@@ -135,7 +140,7 @@ __device__ void setup_tile(const Args& a, int b, int x_begin, int x_end,
     if (a.guard != nullptr) guard = a.guard[i];
   }
   const int y = y_begin + d;
-  if (d < a.rows && y < y_end) {
+  if (d < kRows && y < y_end) {
     const int s0 = a.y0[y];
     t.src0[d] = s0;
     t.src1[d] = min(s0 + 1, a.mh - 1);
@@ -156,7 +161,8 @@ __device__ void setup_tile(const Args& a, int b, int x_begin, int x_end,
     t.cut[d] = (a.guard != nullptr && guard < a.min_pixels) ? a.floor : cut;
   }
   const uint32_t active = __ballot_sync(kFull, on);
-  for (int r = 0; r < a.rows; ++r) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
     const int yr = y_begin + r;
     const uint32_t m = __ballot_sync(kFull, on && cy0 <= yr && yr < cy1);
     if (d == 0) t.row_mask[r] = m;
@@ -233,8 +239,8 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
   __shared__ int s_cnt[kMaxDet];
   const int x_begin = blockIdx.x * kTileCols;
   const int x_end = min(x_begin + kTileCols, a.width);
-  const int y_begin = blockIdx.y * a.rows;
-  const int y_end = min(y_begin + a.rows, a.height);
+  const int y_begin = blockIdx.y * kRows;
+  const int y_end = min(y_begin + kRows, a.height);
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -320,11 +326,10 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
 int launch(bool count, Args a, int batch, void* out, void* stream) {
   if (batch <= 0 || a.height <= 0 || a.width <= 0) return 0;
   if (a.num_det < 0 || a.num_det > kMaxDet || a.width % 4 != 0 ||
-      a.rows < 1 || a.rows > kMaxRows || a.mh < 1 || a.mw < 1 ||
-      batch > 65535)
+      a.mh < 1 || a.mw < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.width + kTileCols - 1) / kTileCols,
-                  (a.height + a.rows - 1) / a.rows, batch);
+                  (a.height + kRows - 1) / kRows, batch);
   const int threads = kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
@@ -339,7 +344,7 @@ Args make_args(const void* table, int num_det, int mh, int mw,
                const void* y0, const void* wy0, const void* wy1,
                const void* x0, const void* wx0, const void* wx1,
                const void* boxes, const void* valid, const void* thr,
-               int height, int width, int rows) {
+               int height, int width) {
   Args a{};
   a.table = static_cast<const float*>(table);
   a.y0 = static_cast<const int32_t*>(y0);
@@ -356,7 +361,6 @@ Args make_args(const void* table, int num_det, int mh, int mw,
   a.mw = mw;
   a.height = height;
   a.width = width;
-  a.rows = rows;
   return a;
 }
 
@@ -364,8 +368,7 @@ Args make_args(const void* table, int num_det, int mh, int mw,
 
 // table (B, D, mh, mw) f32; row taps y0 (H,) i32, wy0, wy1 (H,) f32; column
 // taps x0 (W,) i32, wx0, wx1 (W,) f32; boxes (B, D, 4) f32; valid (B, D)
-// bool; thr (B, D) f32; `rows` output rows per block (1-8).  K3 adds
-// per-detection pixel counts into counts (B, D) i32, zeroed by the caller.
+// bool; thr (B, D) f32.  K3 adds per-detection pixel counts into counts (B, D) i32, zeroed by the caller.
 // Returns cudaGetLastError().
 extern "C" int mask_count_launch(const void* table, int batch, int num_det,
                                  int mh, int mw, const void* y0,
@@ -373,10 +376,10 @@ extern "C" int mask_count_launch(const void* table, int batch, int num_det,
                                  const void* x0, const void* wx0,
                                  const void* wx1, const void* boxes,
                                  const void* valid, const void* thr,
-                                 int height, int width, int rows,
-                                 void* counts, void* stream) {
+                                 int height, int width, void* counts,
+                                 void* stream) {
   Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
-                     boxes, valid, thr, height, width, rows);
+                     boxes, valid, thr, height, width);
   return launch(true, a, batch, counts, stream);
 }
 
@@ -392,10 +395,9 @@ extern "C" int mask_assemble_launch(const void* table, int batch,
                                     const void* boxes, const void* valid,
                                     const void* thr, const void* guard,
                                     float floor, int min_pixels, int height,
-                                    int width, int rows, void* out,
-                                    void* stream) {
+                                    int width, void* out, void* stream) {
   Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
-                     boxes, valid, thr, height, width, rows);
+                     boxes, valid, thr, height, width);
   a.guard = static_cast<const int32_t*>(guard);
   a.floor = floor;
   a.min_pixels = min_pixels;

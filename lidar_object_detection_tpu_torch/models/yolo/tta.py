@@ -62,8 +62,7 @@ def consensus_tables(det, protos, params: PostprocessParams,
     iou = torch.where(det["det_valid"][b:, None, :], iou, 0.0)
     best = iou.argmax(dim=-1)
     matched = (iou.amax(dim=-1) >= match_iou) & det["det_valid"][:b]
-    best_f = torch.gather(table_f, 1,
-                          best[:, :, None, None].expand_as(table_f))
+    best_f = table_f[torch.arange(b, device=best.device)[:, None], best]
     return torch.where(matched[..., None, None], 0.5 * (table_n + best_f),
                        table_n)
 

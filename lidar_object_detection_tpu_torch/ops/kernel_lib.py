@@ -38,9 +38,9 @@ SIGNATURES = {
     "inside_counts_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                              _I, _P),
     "mask_assemble_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P),
+                             _P, _P, _P, _P, _F, _I, _I, _I, _P, _P),
     "mask_count_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _I, _I, _I, _P, _P),
+                          _P, _P, _I, _I, _P, _P),
     "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
 }
 

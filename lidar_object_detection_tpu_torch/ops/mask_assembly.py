@@ -50,8 +50,6 @@ from lidar_object_detection_tpu_torch.ops.resize import resize_taps
 MAX_DET = 32
 # a block of K2/K3 covers this many columns (128 threads, 4 pixels each)
 TILE_COLS = 512
-# output rows a block covers; 1-8 (timed on the card by chip_smoke.py)
-ROWS_PER_TILE = 2
 
 
 @functools.lru_cache(maxsize=32)
@@ -134,23 +132,35 @@ def guarded_cut(thr: torch.Tensor, guard: Guard) -> torch.Tensor:
                                     device=thr.device))
 
 
-def _binary_plain(ops: MaskOperands, cut: torch.Tensor) -> torch.Tensor:
-    """(B, D, H, W) bool of the pixels that pass, in the kernels' order."""
-    t = ops.table
+def _binary_plain(ops: MaskOperands, cut: torch.Tensor,
+                  b: int) -> torch.Tensor:
+    """(D, H, W) bool of frame ``b``'s pixels that pass, in the kernels'
+    order."""
+    t = ops.table[b]
     mh, mw = t.shape[-2], t.shape[-1]
     r1 = torch.clamp(ops.y0 + 1, max=mh - 1)
     c1 = torch.clamp(ops.x0 + 1, max=mw - 1)
-    c = (ops.wy0[:, None] * t[..., ops.y0.long(), :]
-         + ops.wy1[:, None] * t[..., r1.long(), :])          # (B, D, H, mw)
+    c = (ops.wy0[:, None] * t[:, ops.y0.long(), :]
+         + ops.wy1[:, None] * t[:, r1.long(), :])            # (D, H, mw)
     v = (ops.wx0 * c[..., ops.x0.long()]
-         + ops.wx1 * c[..., c1.long()])                      # (B, D, H, W)
+         + ops.wx1 * c[..., c1.long()])                      # (D, H, W)
     h, w = ops.shape
     ys = torch.arange(h, dtype=torch.float32, device=t.device)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=t.device)[None, :]
-    x1, y1, x2, y2 = (e[..., None, None] for e in ops.boxes.unbind(-1))
+    x1, y1, x2, y2 = (e[:, None, None] for e in ops.boxes[b].unbind(-1))
     in_box = (xs >= x1) & (xs < x2) & (ys >= y1) & (ys < y2) \
-        & ops.valid[..., None, None]
-    return (v > cut[..., None, None]) & in_box
+        & ops.valid[b, :, None, None]
+    return (v > cut[b, :, None, None]) & in_box
+
+
+def _per_frame(fn, ops: MaskOperands, empty_shape) -> torch.Tensor:
+    """Stack ``fn(b)`` over the batch's frames: the twins build one frame's
+    (D, H, W) stack at a time, so their memory does not grow with B."""
+    b = ops.table.shape[0]
+    if b == 0:
+        return torch.zeros(empty_shape, dtype=torch.int32,
+                           device=ops.table.device)
+    return torch.stack([fn(i) for i in range(b)])
 
 
 def assemble_masks_plain(ops: MaskOperands,
@@ -158,12 +168,15 @@ def assemble_masks_plain(ops: MaskOperands,
     """Plain twin of K2: (B, H, W) int32 packed words, cut at ``ops.thr``
     or by ``guard``."""
     cut = ops.thr if guard is None else guarded_cut(ops.thr, guard)
-    return pack_masks(_binary_plain(ops, cut))
+    return _per_frame(lambda b: pack_masks(_binary_plain(ops, cut, b)), ops,
+                      (0, *ops.shape))
 
 
 def count_above_plain(ops: MaskOperands) -> torch.Tensor:
     """Plain twin of K3: (B, D) int32 pixel counts at ``ops.thr``."""
-    return _binary_plain(ops, ops.thr).sum(dim=(-2, -1)).to(torch.int32)
+    return _per_frame(
+        lambda b: _binary_plain(ops, ops.thr, b).sum(dim=(-2, -1)).to(
+            torch.int32), ops, (0, ops.table.shape[1]))
 
 
 def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
@@ -198,11 +211,10 @@ def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
 
 
 def launch(fn_name: str, ops: MaskOperands, out: torch.Tensor,
-           guard: Optional[Guard] = None, rows: int = ROWS_PER_TILE) -> None:
+           guard: Optional[Guard] = None) -> None:
     """Launch K3 (``mask_count_launch``, adding into ``out`` (B, D)) or K2
     (``mask_assemble_launch``, writing ``out`` (B, H, W)) on the current
-    stream, ``rows`` output rows per block.  Counts no launch: the
-    wrappers below do."""
+    stream.  Counts no launch: the wrappers below do."""
     _check(fn_name, ops, out, guard)
     b, d, mh, mw = ops.table.shape
     h, w = ops.shape
@@ -216,7 +228,7 @@ def launch(fn_name: str, ops: MaskOperands, out: torch.Tensor,
                  [guard.counts.data_ptr(), float(guard.floor),
                   int(guard.min_pixels)])
     code = getattr(kernel_lib.library(), fn_name)(
-        *args, h, w, rows, out.data_ptr(), kernel_lib.stream_handle(device))
+        *args, h, w, out.data_ptr(), kernel_lib.stream_handle(device))
     kernel_lib.check(code, fn_name)
 
 

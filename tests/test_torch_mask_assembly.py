@@ -309,6 +309,65 @@ def test_single_frame_functions_are_batch_of_one(rng):
                                                      200), guarded[b])
 
 
+def test_twins_build_one_frame_stack_at_a_time(rng, monkeypatch):
+    """The twins hold one frame's (D, H, W) stack at a time, so their peak
+    memory does not grow with the batch; an empty batch gives empty
+    outputs."""
+    table, boxes, valid = _batch_of_three(rng)
+    ops = ma.prepare_operands(_t(table), _t(boxes), _t(valid), H, W, 0.5)
+    shapes = []
+    inner = ma._binary_plain
+
+    def spy(ops, cut, b):
+        out = inner(ops, cut, b)
+        shapes.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(ma, "_binary_plain", spy)
+    ma.count_above_plain(ops)
+    ma.assemble_masks_plain(ops)
+    assert shapes == [(8, H, W)] * 6
+    empty = ma.prepare_operands(_t(table[:0]), _t(boxes[:0]), _t(valid[:0]),
+                                H, W, 0.5)
+    assert ma.count_above_plain(empty).shape == (0, 8)
+    assert ma.assemble_masks_plain(empty).shape == (0, H, W)
+
+
+def test_mask_bound_counts_only_the_table_entries_boxes_reach(rng):
+    """The smoke's K2/K3 bound reads, per valid box with pixels, only the
+    table entries its pixels' taps touch (found here by walking the
+    pixels), plus the taps of the covered rows and columns, the slots and
+    the counts; K2 adds the words.  Operations: 3 per (row, table column)
+    and 4 per (pixel, detection) pair."""
+    table, boxes, valid = _batch_of_three(rng)
+    boxes[1, 0] = [-30, -5, 3.5, 2.2]            # clipped at the corner
+    boxes[1, 1] = [10, 10, 10, 30]               # empty
+    ops = ma.prepare_operands(_t(table), _t(boxes), _t(valid), H, W, 0.5)
+    y0, x0 = ops.y0.numpy(), ops.x0.numpy()
+    mh, mw = table.shape[-2:]
+    n_bytes, n_ops = 0, 0
+    rows_used, cols_used = set(), set()
+    for b, d in zip(*np.nonzero(valid)):
+        x1, y1, x2, y2 = boxes[b, d]
+        ys = [y for y in range(H) if y1 <= y < y2]
+        xs = [x for x in range(W) if x1 <= x < x2]
+        if not ys or not xs:
+            continue
+        t_rows = {r for y in ys for r in (y0[y], min(y0[y] + 1, mh - 1))}
+        t_cols = {c for x in xs for c in (x0[x], min(x0[x] + 1, mw - 1))}
+        n_bytes += 4 * len(t_rows) * len(t_cols)
+        n_ops += 3 * len(ys) * len(t_cols) + 4 * len(ys) * len(xs)
+        rows_used.update(ys)
+        cols_used.update(xs)
+    n_bytes += 12 * (len(rows_used) + len(cols_used)) + 3 * 8 * (21 + 4)
+    full = 4 * mh * mw * int(valid.sum())
+    assert n_bytes < full
+    assert chip_smoke.mask_bound(ops, True) == \
+        chip_smoke.bound_ms(n_bytes, n_ops)
+    assert chip_smoke.mask_bound(ops, False) == \
+        chip_smoke.bound_ms(n_bytes + 4 * 3 * H * W, n_ops)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -359,7 +418,7 @@ def test_batched_kernels_equal_twins_on_edge_cases(name):
 
 
 @pytest.mark.cuda
-def test_batch_launch_equals_launch_per_frame_at_every_tile_height():
+def test_batch_launch_equals_launch_per_frame():
     dev = _card()
     table, boxes, valid = (torch.from_numpy(a).to(dev) for a in
                            chip_smoke.mask_cases(np.random.default_rng(4))[
@@ -374,13 +433,6 @@ def test_batch_launch_equals_launch_per_frame_at_every_tile_height():
         assert torch.equal(c[0], counts[b])
         assert torch.equal(ma.assemble_masks_cuda(
             one, ma.Guard(c, 0.5, 200))[0], words[b])
-    for rows in (1, 2, 4, 8):
-        out = torch.zeros_like(counts)
-        ma.launch("mask_count_launch", ops, out, rows=rows)
-        w = torch.empty_like(words)
-        ma.launch("mask_assemble_launch", ops, w, ma.Guard(counts, 0.5, 200),
-                  rows=rows)
-        assert torch.equal(out, counts) and torch.equal(w, words)
 
 
 @pytest.mark.cuda
