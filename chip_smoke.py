@@ -42,9 +42,22 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    no global TF32 switch).  Every kernel must launch once in the
    csv_eval run (one batch); its detections and master CSV must equal those of the same run
    with the twin NMS.  The loader's part of the run is timed on its own;
-6. prints one JSON line of the kernels (times, bounds, launches, errors),
-   the card's name and power limit, and last the ``{"ok": true, ...}``
-   line.
+6. serves the JAX headline (``bench.py``): the committed YOLO11x-seg
+   checkpoint (its read and load timed), single view, BatchNorm folded,
+   bf16, at the sidecar's guarded point, streamed by
+   ``FusionPipeline.stream(chunk=8, compact=True)`` through the native
+   prefetcher (built from the port's C++ source with ``g++``) into a
+   ``MetricStore``, from a KITTI-360 tree of 8 frames with 360-degree
+   sweeps of 122880 slots culled to the camera frustum.  Every kernel must
+   launch once per chunk; the rows must equal the uncompacted stream's and
+   ``run()``'s frame by frame, the store's CSV the rows'; a scan over the
+   compaction capacity must raise.  It times the x forward, the stream
+   (with the loader's and PNG decode's shares) and detect + fuse on the
+   card at B = 8, and holds K1 (compacted scans), K5 (single view), K3 and
+   K2 (x's tables) to their twins at those shapes;
+7. prints one JSON line of the kernels (times, bounds, launches, errors;
+   ``headline_*`` for the headline's case), the card's name and power
+   limit, and last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It imports nothing of JAX and nothing of the JAX package.
@@ -59,6 +72,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -66,6 +80,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "yolo11n_seg_distill.msgpack")
+# bench.py's headline detector
+CKPT_X = os.path.join(REPO, "checkpoints", "yolo11x_seg_distill.msgpack")
 FRAMES = [os.path.join(REPO, "artifacts", "learned_detector", "seg_overlays",
                        name) for name in ("0000000100.png", "0000002033.png")]
 
@@ -87,6 +103,9 @@ CAM_TO_VELO = np.linalg.inv(VELO_TO_RECT).astype(np.float32)
 
 P, G, D = 131072, 384, 32
 H0, W0 = 376, 1408
+# bench.py's tight shapes: the KITTI-360 sample's largest scan (122,183
+# points) padded to a multiple of 4096
+P_HEADLINE = 122880
 
 
 # ---------------------------------------------------------------------------
@@ -120,14 +139,16 @@ def to_velo(points_cam):
 
 
 def make_scene(rng, det_boxes, det_valid, num_points=P, num_boxes=G,
-               num_valid=300, intrinsics=INTRINSICS):
+               num_valid=300, intrinsics=INTRINSICS, surround=False):
     """One frame's synthetic scan and GT boxes.
 
     Each valid detection gets a 3D box at 8-20 m whose projection covers
     its 2D box, filled with points; the other valid slots hold boxes
     scattered in front of the camera, some filled with points; the rest of
-    the scan is background.  Returns velodyne points (P, 4), point mask,
-    cam0 corners (G, 8, 3) and box mask.
+    the scan is background: in front of the camera, or with ``surround``
+    all around the sensor at uniform azimuth, as a Velodyne sweep lies, so
+    that most of it falls outside the camera's view.  Returns velodyne
+    points (P, 4), point mask, cam0 corners (G, 8, 3) and box mask.
     """
     corners = np.zeros((num_boxes, 8, 3), np.float32)
     box_valid = np.zeros(num_boxes, bool)
@@ -157,8 +178,14 @@ def make_scene(rng, det_boxes, det_valid, num_points=P, num_boxes=G,
     inside_cam = np.concatenate(chunks) if chunks else np.zeros((0, 3))
     inside_cam = inside_cam[:num_points // 2]
     n_bg = num_points - len(inside_cam) - 1024      # 1024 padding slots
-    bg = np.stack([rng.uniform(-40, 40, n_bg), rng.uniform(-3, 2, n_bg),
-                   rng.uniform(1, 70, n_bg)], 1)
+    if surround:
+        azimuth = rng.uniform(-np.pi, np.pi, n_bg)
+        reach = rng.uniform(3, 70, n_bg)
+        bg = np.stack([reach * np.sin(azimuth), rng.uniform(-3, 2, n_bg),
+                       reach * np.cos(azimuth)], 1)
+    else:
+        bg = np.stack([rng.uniform(-40, 40, n_bg), rng.uniform(-3, 2, n_bg),
+                       rng.uniform(1, 70, n_bg)], 1)
     pts_cam = np.concatenate([inside_cam, bg]).astype(np.float32)
     points = np.zeros((num_points, 4), np.float32)
     points[:len(pts_cam), :3] = to_velo(pts_cam)
@@ -486,14 +513,94 @@ def skew_case(rng, skew, num_boxes=24, num_points=6151):
             corners.astype(np.float32), np.ones(num_boxes, bool))
 
 
+def k1_launcher(torch, dev, pts, bits, corners, mask, d=D):
+    """A call of K1's C entry point alone on prepared operands, for
+    timing: no launch counted, no output checked."""
+    from lidar_object_detection_tpu_torch.geom.boxes import masked_box_frame
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    sms = kernel_lib.sm_count(dev)
+    b, p = bits.shape
+    g = corners.shape[1]
+    axes, offsets = masked_box_frame(corners, mask)
+    frame = torch.cat([axes, offsets[..., None]], -1).reshape(b, g, 12)
+    frame = frame.contiguous()
+    c_out = torch.zeros((b, d, g), dtype=torch.int32, device=dev)
+    t_out = torch.zeros((b, d), dtype=torch.int32, device=dev)
+
+    def run():
+        kernel_lib.check(lib.inside_counts_launch(
+            pts.data_ptr(), bits.data_ptr(), frame.data_ptr(),
+            corners.data_ptr(), mask.data_ptr(), b, p, g, d,
+            c_out.data_ptr(), t_out.data_ptr(), sms,
+            kernel_lib.stream_handle(dev)), "inside_counts_launch")
+    return run
+
+
+def k1_bytes(bits, mask, d=D):
+    """The bytes K1's function must move: every membership word read once,
+    the coordinates of the active points only (a point whose word is 0
+    needs none), counted in the 32-byte sectors they lie in, the valid
+    boxes' corners, the box mask, and the counts written once."""
+    import torch
+
+    b, p = bits.shape
+    g = mask.shape[1]
+    frame, point = (bits != 0).nonzero(as_tuple=True)
+    first = (frame * p + point) * 12           # (B, P, 3) float32
+    sectors = torch.cat([first // 32, (first + 11) // 32]).unique().numel()
+    return (b * p * 4 + sectors * 32 + int(mask.sum()) * 8 * 3 * 4
+            + b * (g + d * g * 4 + d * 4))
+
+
+def k1_bound(pts, bits, corners, mask, d=D):
+    """K1's bound: 15 operations per (active point, valid box) pair of
+    each frame (an invalid box holds no point by definition, so the
+    function does no work for it), and ``k1_bytes``.  Returns (active
+    points, pairs, (ms, by))."""
+    active = (bits != 0).sum(dim=1)
+    pairs = int((active * mask.sum(dim=1)).sum())
+    return int(active.sum()), pairs, bound_ms(k1_bytes(bits, mask, d),
+                                              pairs * 15)
+
+
+def nms_launcher(torch, dev, bx, sc, va, thr, m):
+    """A call of K5's C entry point alone, for timing."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    b, n = sc.shape
+    out_idx = torch.empty((b, m), dtype=torch.int64, device=dev)
+    out_keep = torch.empty((b, m), dtype=torch.bool, device=dev)
+
+    def run():
+        kernel_lib.check(lib.nms_launch(
+            bx.data_ptr(), sc.data_ptr(), va.data_ptr(), b, n, m, thr,
+            out_idx.data_ptr(), out_keep.data_ptr(),
+            kernel_lib.stream_handle(dev)), "nms_launch")
+    return run
+
+
+def nms_bound(picks, b, n, m):
+    """K5's bound.  Greedy NMS needs the IoU of each pick with the n
+    candidates, not the full (n, n) matrix: 11 operations per (pick,
+    candidate) pair (2 min, 2 max, 4 add or subtract, 1 multiply, 1
+    divide, 1 compare with the threshold), 3 per box for its area, and n
+    compares per argmax step; a frame makes one step per pick and one more
+    that finds none left.  ``picks`` holds each frame's kept count."""
+    n_ops = sum(k * n * 11 + min(k + 1, m) * n + 3 * n for k in picks)
+    n_bytes = b * n * (16 + 4 + 1) + b * m * (8 + 1)
+    return bound_ms(n_bytes, n_ops)
+
+
 def check_inside_counts(torch, dev, rng, scenes):
     """K1 against its twin: the main path's batch of 4 scenes, a single
     frame with 32 detections in a row, and edge cases; timed at B = 4 (the
     main path's one launch per batch) and at B = 1 on the single frame."""
     from lidar_object_detection_tpu_torch.geom.boxes import (
-        masked_box_frame, transform_corners)
-    from lidar_object_detection_tpu_torch.ops import (
-        inside_counts as ic, kernel_lib)
+        transform_corners)
+    from lidar_object_detection_tpu_torch.ops import inside_counts as ic
 
     cam_to_velo = torch.from_numpy(CAM_TO_VELO)
 
@@ -555,37 +662,8 @@ def check_inside_counts(torch, dev, rng, scenes):
     if hits["all-zero words"] or hits["every box invalid"]:
         raise AssertionError(f"K1 counted points it must not: {hits}")
 
-    lib = kernel_lib.library()
-    sms = kernel_lib.sm_count(dev)
-
-    def launcher(pts, bits, corners, mask):
-        b, p = bits.shape
-        g = corners.shape[1]
-        axes, offsets = masked_box_frame(corners, mask)
-        frame = torch.cat([axes, offsets[..., None]], -1).reshape(b, g, 12)
-        frame = frame.contiguous()
-        c_out = torch.zeros((b, D, g), dtype=torch.int32, device=dev)
-        t_out = torch.zeros((b, D), dtype=torch.int32, device=dev)
-
-        def run():
-            kernel_lib.check(lib.inside_counts_launch(
-                pts.data_ptr(), bits.data_ptr(), frame.data_ptr(),
-                corners.data_ptr(), mask.data_ptr(), b, p, g, D,
-                c_out.data_ptr(), t_out.data_ptr(), sms,
-                kernel_lib.stream_handle(dev)), "inside_counts_launch")
-        return run
-
-    def bound_of(pts, bits, corners, mask):
-        # 15 operations per (active point, valid box) pair of each frame:
-        # an invalid box holds no point by definition, so the function
-        # does no work for it
-        b, p = bits.shape
-        g = corners.shape[1]
-        active = (bits != 0).sum(dim=1)
-        pairs = int((active * mask.sum(dim=1)).sum())
-        n_bytes = b * (p * 3 * 4 + p * 4 + g * 8 * 3 * 4 + g + D * g * 4
-                       + D * 4)
-        return int(active.sum()), pairs, bound_ms(n_bytes, pairs * 15)
+    launcher = lambda *args: k1_launcher(torch, dev, *args)
+    bound_of = k1_bound
 
     ms = time_gpu(launcher(*main))
     ms_one = time_gpu(launcher(*one))
@@ -779,7 +857,6 @@ def check_nms(torch, dev, rng, detector, images):
     launch the main path makes per batch."""
     from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
         nms_candidates)
-    from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.ops import nms as nms_lib
 
     p = detector.params
@@ -823,28 +900,11 @@ def check_nms(torch, dev, rng, detector, images):
 
     bx, sc, va = real
     b, n = sc.shape
-    lib = kernel_lib.library()
-    out_idx = torch.empty((b, m), dtype=torch.int64, device=dev)
-    out_keep = torch.empty((b, m), dtype=torch.bool, device=dev)
-
-    def launch():
-        kernel_lib.check(lib.nms_launch(
-            bx.data_ptr(), sc.data_ptr(), va.data_ptr(), b, n, m, thr,
-            out_idx.data_ptr(), out_keep.data_ptr(),
-            kernel_lib.stream_handle(dev)), "nms_launch")
-
-    ms = time_gpu(launch)
+    ms = time_gpu(nms_launcher(torch, dev, bx, sc, va, thr, m))
     plain_ms = time_gpu(lambda: nms_lib.nms_plain(bx, sc, va, thr, m),
                         reps=10, head_start=False)
-    # Greedy NMS needs the IoU of each pick with the n candidates, not the
-    # full (n, n) matrix: 11 operations per (pick, candidate) pair (2 min,
-    # 2 max, 4 add or subtract, 1 multiply, 1 divide, 1 compare with the
-    # threshold), 3 per box for its area, and n compares per argmax step;
-    # a frame makes one step per pick and one more that finds none left
     picks = kept["decode 2B"]
-    n_ops = sum(k * n * 11 + min(k + 1, m) * n + 3 * n for k in picks)
-    n_bytes = b * n * (16 + 4 + 1) + b * m * (8 + 1)
-    bound, by = bound_ms(n_bytes, n_ops)
+    bound, by = nms_bound(picks, b, n, m)
     print(f"K5 nms: equal to the twin on {len(cases)} cases, {compared} "
           f"slots (kept "
           f"{kept}); {ms:.4f} ms (twin {plain_ms:.4f}, bound {bound:.3g} "
@@ -1000,7 +1060,6 @@ def csv_eval_phase(torch, dev, smi, images, scenes):
     here sets a global TF32 switch.  Returns the csv_eval run's
     launches."""
     import copy
-    import tempfile
 
     from lidar_object_detection_tpu_torch.config import (
         FusionConfig, PipelineVersion)
@@ -1131,6 +1190,422 @@ def csv_eval_phase(torch, dev, smi, images, scenes):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the JAX headline's serving path, streamed from disk
+# ---------------------------------------------------------------------------
+
+def frustum_points(rng, n, intrinsics=INTRINSICS, width=W0, height=H0):
+    """n velodyne points (n, 4) that all project into the image, at depths
+    of 2-45 m: a scan that no compaction to half its size can hold."""
+    u = rng.uniform(0, width - 1, n)
+    v = rng.uniform(0, height - 1, n)
+    z = rng.uniform(2, 45, n)
+    k = intrinsics.astype(np.float64)
+    cam = np.stack([(u - k[0, 2]) * z / k[0, 0], (v - k[1, 2]) * z / k[1, 1],
+                    z], 1)
+    points = np.zeros((n, 4), np.float32)
+    points[:, :3] = to_velo(cam)
+    points[:, 3] = rng.uniform(0, 1, n)
+    return points
+
+
+def load_headline(torch, dev):
+    """``bench.py``'s headline detector through the port: the x checkpoint
+    at its sidecar's guarded point (0.99, floor 0.5 at 200 px), single
+    view, BatchNorm folded, bf16.  Returns (detector, seconds to read and
+    load it)."""
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+
+    t0 = time.perf_counter()
+    detector, step, resolved = load_serving_checkpoint(
+        CKPT_X, (H0, W0), tta="none", device=dev, dtype=torch.bfloat16,
+        fold_weights=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {"scale": "x", "tta": "none", "mask_threshold": 0.99,
+            "mask_threshold_floor": 0.5, "mask_min_pixels": 200}
+    if any(resolved[k] != v for k, v in want.items()):
+        raise AssertionError(f"unexpected serving point {resolved}")
+    print(f"headline detector: {os.path.basename(CKPT_X)} step {step}, "
+          f"serving point {resolved}, read and loaded in {seconds:.2f} s",
+          flush=True)
+    return detector, seconds
+
+
+def headline_stream(torch, dev, rng, detector, root):
+    """The streaming path of the JAX headline from a KITTI-360 tree written
+    under ``root``: 8 frames (the two committed frames, their mirrors, and
+    the four again) with 360-degree sweeps of ``P_HEADLINE`` slots, a frame
+    without boxes, and one whose in-view points exceed the compaction
+    capacity.  ``stream(chunk=8, compact=True)`` reads them through the
+    native prefetcher into a ``MetricStore``; on the card every kernel must
+    launch once per chunk.  Its rows must equal, frame by frame, those of
+    the uncompacted stream (one loader thread) and of ``run()`` over the
+    same frames in one batch; the store's CSV must equal the master CSV
+    written from the rows; the frame over capacity must raise.
+
+    Returns the stream's launches, its host times and the device-resident
+    operands of the timed and checked cases."""
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, PipelineVersion)
+    from lidar_object_detection_tpu_torch.data import Kitti360Dataset, native
+    from lidar_object_detection_tpu_torch.eval.statistics import (
+        append_to_master_csv)
+    from lidar_object_detection_tpu_torch.eval.store import MetricStore
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines.runner import (
+        FusionPipeline)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    t0 = time.perf_counter()
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    t = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t
+    real = [read_png_rgb(path) for path in FRAMES]
+    four = real + [np.ascontiguousarray(im[:, ::-1]) for im in real]
+    images = np.ascontiguousarray(np.stack(four * 2))
+    b = len(images)
+    first = detector.detect(images)
+    boxes = first["boxes"].float().cpu().numpy()
+    valid = first["det_valid"].cpu().numpy()
+    frames = []
+    for i in range(b):
+        points, pvalid, corners, bvalid = make_scene(
+            rng, boxes[i], valid[i], num_points=P_HEADLINE, surround=True)
+        # the committed PNG files as they are; the mirrors re-encoded
+        image = FRAMES[i % 4] if i % 4 < len(FRAMES) else images[i]
+        frames.append((100 + i, image, points[pvalid], corners[bvalid]))
+    frames.append((200, FRAMES[0], frames[0][2], None))
+    frames.append((300, FRAMES[0], frustum_points(rng, P_HEADLINE - 20000),
+                   frames[0][3]))
+    write_kitti360_tree(root, frames)
+    cfg = FusionConfig.for_version(PipelineVersion.CSV_EVAL)
+    cfg = dataclasses.replace(cfg, shapes=Kitti360Dataset(root)
+                              .tight_shapes())
+    ds = Kitti360Dataset(root, shapes=cfg.shapes)
+    pipe = FusionPipeline(ds, cfg, detector, device=dev)
+    spec = pipe.compaction_spec()
+    if (cfg.shapes.max_points, spec.max_out) != (P_HEADLINE,
+                                                 P_HEADLINE // 2):
+        raise AssertionError(f"shapes {cfg.shapes}, capacity {spec.max_out}")
+    ids = [100 + i for i in range(b)]
+    stamp = "2026-01-01T00:00:00"
+    store_path = os.path.join(root, "store.jsonl")
+    phase("headline: tree written", t0)
+
+    sync()
+    kernel_lib.reset_launches()
+    t = time.perf_counter()
+    compact = dict(pipe.stream(ids + [200], chunk=8, compact=True,
+                               store=MetricStore(store_path),
+                               timestamp=stamp))
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(kernel_lib.LAUNCHES)
+    chunks = -(-b // 8)
+    print(f"headline stream launches: {launches} for {chunks} chunk(s)",
+          flush=True)
+    if sorted(compact) != ids:
+        raise AssertionError(f"the stream gave frames {sorted(compact)}")
+    if dev.type == "cuda" and any(n != chunks for n in launches.values()):
+        raise AssertionError(f"the headline stream launched {launches}, "
+                             f"expected each kernel once per chunk")
+    # the same again, timed warm; then the references
+    sync()
+    t = time.perf_counter()
+    again = dict(pipe.stream(ids, chunk=8, compact=True))
+    sync()
+    wall_warm = time.perf_counter() - t
+    plain = dict(pipe.stream(ids, chunk=8, compact=False, num_threads=1))
+    whole = {f.frame_id: f.statistics for f in pipe.run(ids).frames}
+    rows = lambda d: {k: [vars(r) for r in v] for k, v in d.items()}
+    for name, other in (("the warm compacted stream", again),
+                        ("the uncompacted stream", plain),
+                        ("run()", whole)):
+        if rows(other) != rows(compact):
+            raise AssertionError(f"the compacted stream's rows differ from "
+                                 f"{name}'s")
+    flat = [r for fid in sorted(compact) for r in compact[fid]]
+    matched = sum(r.is_matched for r in flat)
+    if not flat or not matched:
+        raise AssertionError(f"degenerate headline rows: {len(flat)} rows, "
+                             f"{matched} matched")
+    store_csv = os.path.join(root, "store.csv")
+    rows_csv = os.path.join(root, "rows.csv")
+    MetricStore(store_path).export_csv(store_csv)
+    append_to_master_csv(flat, rows_csv, stamp)
+    with open(store_csv, "rb") as f, open(rows_csv, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the store's CSV differs from the rows'")
+    try:
+        list(pipe.stream([300], chunk=8, compact=True))
+    except ValueError as e:
+        if "after compaction" not in str(e):
+            raise
+        overflow = str(e)
+    else:
+        raise AssertionError("a scan over the compaction capacity streamed")
+
+    # the loader's and the PNG decode's parts, timed on their own
+    t = time.perf_counter()
+    loaded = sorted(native.ScanPrefetcher(
+        [ds.scan_path(f) for f in ids], cfg.shapes.max_points,
+        queue_depth=16, compaction=spec))
+    corners = [ds.load_boxes(f) for f in ids]
+    loader_s = time.perf_counter() - t
+    batch = pipe._assemble_stream_batch(
+        [(fid, pts, pv, n, c) for fid, (_, pts, pv, n), c
+         in zip(ids, loaded, corners)])
+    t = time.perf_counter()
+    decoded = ds.load_images(batch)
+    decode_s = time.perf_counter() - t
+    if not np.array_equal(decoded, images):
+        raise AssertionError("the decoded frames differ from the PNGs'")
+    kept = [n for *_, n in loaded]
+    raw = [os.path.getsize(ds.scan_path(f)) // 16 for f in ids]
+    print(f"headline stream: {b} frames, {len(flat)} rows, {matched} "
+          f"matched, equal to the uncompacted stream's and run()'s, and the "
+          f"store's CSV to the rows'; compaction kept {kept} of {raw} "
+          f"points; over capacity: {overflow}; loader built in "
+          f"{build_s:.2f} s", flush=True)
+
+    # several chunks, for the rate: the eight frames three times more (the
+    # PNG files copied), so that the producer thread decodes a chunk while
+    # the card serves the one before
+    more = [(fid + b * k, ds.image_path(fid), pts, c)
+            for k in range(1, 4) for fid, _, pts, c in frames[:b]]
+    write_kitti360_tree(root, more)
+    many = ids + [fid for fid, *_ in more]
+    sync()
+    kernel_lib.reset_launches()
+    t = time.perf_counter()
+    streamed = dict(pipe.stream(
+        many, chunk=8, compact=True,
+        store=MetricStore(os.path.join(root, "many.jsonl")),
+        timestamp=stamp))
+    sync()
+    wall_many = time.perf_counter() - t
+    launches_many = dict(kernel_lib.LAUNCHES)
+    chunks_many = len(many) // 8
+    if sorted(streamed) != sorted(many):
+        raise AssertionError(f"the stream of {len(many)} frames gave "
+                             f"{sorted(streamed)}")
+    if dev.type == "cuda" and any(n != chunks_many
+                                  for n in launches_many.values()):
+        raise AssertionError(f"the stream of {chunks_many} chunks launched "
+                             f"{launches_many}")
+    # the chunks' composition follows the loader threads' completion order
+    same = sum(
+        [dict(vars(r), frame=0) for r in streamed[fid]]
+        == [dict(vars(r), frame=0) for r in compact[ids[(fid - 100) % b]]]
+        for fid in many)
+    t = time.perf_counter()
+    for fid in many:
+        read_png_rgb(ds.image_path(fid))
+    decode_many_s = time.perf_counter() - t
+    times = {"build_s": build_s, "stream_s": wall, "stream_warm_s": wall_warm,
+             "loader_s": loader_s, "decode_s": decode_s,
+             "kept_share": sum(kept) / sum(raw), "frames_many": len(many),
+             "chunks_many": chunks_many, "stream_many_s": wall_many,
+             "decode_many_s": decode_many_s, "same_rows_many": same,
+             "launches_many": launches_many}
+    print(f"headline stream of {len(many)} frames in {chunks_many} chunks: "
+          f"launches {launches_many}; {same} of {len(many)} frames' rows "
+          f"equal to their copy's in the one-chunk stream", flush=True)
+    phase("headline stream", t0)
+    return launches, times, (images, batch, pipe)
+
+
+def headline_device(torch, dev, smi, detector, operands, times):
+    """The headline on the card: the x forward, the stream's frames/s with
+    the loader's and the PNG decode's shares, detect + fuse device-resident
+    at B = 8 (CUDA events), and K1, K3, K2 and K5 held to their twins at
+    the path's shapes and timed.  Returns each kernel's headline entries."""
+    from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        cropped_prob_table, nms_candidates, postprocess_batch)
+    from lidar_object_detection_tpu_torch.ops import inside_counts as ic
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+    from lidar_object_detection_tpu_torch.ops import nms as nms_lib
+
+    t0 = time.perf_counter()
+    images, batch, pipe = operands
+    b = len(images)
+    gpu_images = torch.from_numpy(images).to(dev)
+    points = torch.from_numpy(batch.points).to(dev)
+    pvalid = torch.from_numpy(batch.point_valid).to(dev)
+    bvalid = torch.from_numpy(batch.box_valid).to(dev)
+    corners = pipe._gt_corners(batch)
+    calib = (pipe._velo_to_rect, pipe._corners_to_velo, pipe._intrinsics)
+
+    def events(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters, out
+
+    forward_ms, outputs = events(lambda: detector.forward(gpu_images))
+
+    def step():
+        det = detector.detect(gpu_images)
+        return det, fuse_batch(points, pvalid, det["mask_bits"],
+                               det["det_valid"], corners, bvalid, *calib,
+                               params=pipe.params)
+
+    step_ms, (det, fused) = events(step)
+    print(f"headline x forward: {forward_ms:.2f} ms per batch of {b} "
+          f"(bf16, folded, single view, CUDA events over 10 batches) on "
+          f"{smi}", flush=True)
+    print(f"headline stream: {b / times['stream_s']:.2f} frames/s cold, "
+          f"{b / times['stream_warm_s']:.2f} warm (host clock: prefetch "
+          f"and compaction, boxes, PNG decode, detect, fuse, rows, store) "
+          f"on {smi}; loader {times['loader_s']:.3f} s "
+          f"({times['loader_s'] / times['stream_warm_s']:.3f} of the warm "
+          f"stream), PNG decode {times['decode_s']:.3f} s "
+          f"({times['decode_s'] / times['stream_warm_s']:.3f}); compaction "
+          f"kept {times['kept_share']:.3f} of the points", flush=True)
+    print(f"headline detect + fuse, device-resident: "
+          f"{b / step_ms * 1e3:.2f} frames/s ({step_ms:.2f} ms per batch of "
+          f"{b}, CUDA events over 10 batches) on {smi}", flush=True)
+    n, k = times["frames_many"], times["chunks_many"]
+    wall_many, decode_many = times["stream_many_s"], times["decode_many_s"]
+    serial_s = k * (times["loader_s"] + step_ms / 1e3) + decode_many
+    print(f"headline stream of {n} frames in {k} chunks: "
+          f"{n / wall_many:.2f} frames/s ({wall_many:.3f} s, host clock) on "
+          f"{smi}; PNG decode of the {n} frames alone {decode_many:.3f} s "
+          f"({decode_many / wall_many:.3f} of the stream); loader, decode "
+          f"and detect + fuse one after another {serial_s:.3f} s",
+          flush=True)
+
+    cases = {}
+    p = detector.params
+    # K1 on the compacted points and the path's own words
+    k1_args = (points[..., :3].contiguous(), fused["point_bits"],
+               fused["corners_velo"].contiguous(), fused["box_visible"])
+    d = p.max_detections
+    got = ic.inside_counts_cuda(*k1_args, d)
+    ref = ic.inside_counts_plain(*k1_args, d)
+    err = max(int((x - y).abs().max()) for x, y in zip(got, ref))
+    if err or int(got[0].sum()) == 0:
+        raise AssertionError(f"K1 at the headline's shapes: error {err}, "
+                             f"{int(got[0].sum())} hits")
+    active, pairs, (bound, by) = k1_bound(*k1_args, d=d)
+    cases["inside_counts"] = {
+        "headline_ms": time_gpu(k1_launcher(torch, dev, *k1_args, d=d)),
+        "headline_plain_ms": time_gpu(
+            lambda: ic.inside_counts_plain(*k1_args, d), reps=10,
+            head_start=False),
+        "headline_bound_ms": bound, "headline_bound_by": by,
+        "headline_max_abs_err": err,
+        "headline_shape": f"B={b} P={points.shape[1]} G={bvalid.shape[1]} "
+                          f"D={d}, {active} active points, {pairs} pairs, "
+                          f"{k1_bytes(*k1_args[1::2], d)} bytes"}
+    # K5 on the single view's candidates
+    _, bx, sc, va = nms_candidates(outputs, p)
+    bx, sc, va = bx.contiguous(), sc.contiguous(), va.contiguous()
+    thr, m = p.iou_threshold, p.max_detections
+    idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, m)
+    ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, m)
+    err = max(int((idx - ref_idx).abs().max()),
+              int((keep != ref_keep).any()))
+    picks = keep.sum(dim=1).tolist()
+    if err or not sum(picks):
+        raise AssertionError(f"K5 at the headline's shapes: error {err}, "
+                             f"picks {picks}")
+    bound, by = nms_bound(picks, b, sc.shape[1], m)
+    cases["nms"] = {
+        "headline_ms": time_gpu(nms_launcher(torch, dev, bx, sc, va, thr,
+                                             m)),
+        "headline_plain_ms": time_gpu(
+            lambda: nms_lib.nms_plain(bx, sc, va, thr, m), reps=10,
+            head_start=False),
+        "headline_bound_ms": bound, "headline_bound_by": by,
+        "headline_max_abs_err": err,
+        "headline_shape": f"B={b} N={sc.shape[1]} M={m}, picks {picks}"}
+    # K3 and K2 on the x detector's single-view tables, guarded
+    dets = postprocess_batch(outputs, p, masks=False)
+    table = cropped_prob_table(outputs["proto"], dets["coef"], p.spec)
+    ops = ma.prepare_operands(table, dets["boxes"], dets["det_valid"], H0,
+                              W0, p.mask_threshold)
+    counts = ma.count_above_cuda(ops)
+    ref_counts = ma.count_above_plain(ops)
+    guard = ma.Guard(ref_counts, p.mask_threshold_floor, p.mask_min_pixels)
+    words = ma.assemble_masks_cuda(ops, guard)
+    ref_words = ma.assemble_masks_plain(ops, guard)
+    errs = {"mask_count": int((counts - ref_counts).abs().max()),
+            "mask_assemble": int((words ^ ref_words).ne(0).any())}
+    under = int(((ref_counts < p.mask_min_pixels) & ops.valid).sum())
+    if any(errs.values()) or not bool((words != 0).any()):
+        raise AssertionError(f"K3/K2 at the headline's shapes: {errs}")
+    if not torch.equal(words, det["mask_bits"]):
+        raise AssertionError("K2's words differ from the detector's")
+    out = torch.empty((b, H0, W0), dtype=torch.int32, device=dev)
+    zeros = torch.zeros(ops.table.shape[:2], dtype=torch.int32, device=dev)
+    shape = (f"B={b} D={d} table {tuple(ops.table.shape[2:])}, "
+             f"{int(ops.valid.sum())} valid, guard fires for {under}")
+    for name, launch, plain in (
+            ("mask_count", lambda: ma.launch("mask_count_launch", ops,
+                                             zeros),
+             lambda: ma.count_above_plain(ops)),
+            ("mask_assemble", lambda: ma.launch("mask_assemble_launch", ops,
+                                                out, guard),
+             lambda: ma.assemble_masks_plain(ops, guard))):
+        bound, by = mask_bound(ops, name == "mask_count")
+        cases[name] = {
+            "headline_ms": time_gpu(launch),
+            "headline_plain_ms": time_gpu(plain, reps=10, head_start=False),
+            "headline_bound_ms": bound, "headline_bound_by": by,
+            "headline_max_abs_err": errs[name], "headline_shape": shape}
+    # the same tables with a pixel floor above every valid count, so that
+    # the guard fires for each detection and K2 cuts all at the floor
+    fire = ma.Guard(ref_counts, p.mask_threshold_floor,
+                    int(ref_counts[ops.valid].max()) + 1)
+    fired = ma.assemble_masks_cuda(ops, fire)
+    err = int((fired ^ ma.assemble_masks_plain(ops, fire)).ne(0).any())
+    if err or bool((fired == words).all()):
+        raise AssertionError(f"K2 with the guard firing: error {err}, or "
+                             f"the same words as without it")
+    bound, by = mask_bound(ops, False)
+    fired_ms = time_gpu(
+        lambda: ma.launch("mask_assemble_launch", ops, out, fire))
+    fired_plain_ms = time_gpu(lambda: ma.assemble_masks_plain(ops, fire),
+                              reps=10, head_start=False)
+    cases["mask_assemble"].update({
+        "headline_guarded_ms": fired_ms,
+        "headline_guarded_plain_ms": fired_plain_ms,
+        "headline_guarded_bound_ms": bound,
+        "headline_guarded_max_abs_err": err})
+    print(f"headline mask_assemble, guard firing for all "
+          f"{int(ops.valid.sum())} valid: equal to the twin; {fired_ms:.4f} "
+          f"ms (twin {fired_plain_ms:.4f}, bound {bound:.4g} by {by})",
+          flush=True)
+    for name, case in cases.items():
+        print(f"headline {name}: equal to the twin; {case['headline_ms']:.4f}"
+              f" ms (twin {case['headline_plain_ms']:.4f}, bound "
+              f"{case['headline_bound_ms']:.4g} by "
+              f"{case['headline_bound_by']}) at {case['headline_shape']}",
+              flush=True)
+    print(json.dumps({"headline": {
+        "x_forward_ms": forward_ms, "detect_fuse_ms": step_ms,
+        "detect_fuse_frames_per_s": b / step_ms * 1e3,
+        "stream_frames_per_s": b / times["stream_s"],
+        "stream_warm_frames_per_s": b / times["stream_warm_s"],
+        "stream_many_frames_per_s": n / wall_many,
+        "serial_s": serial_s, **times}}), flush=True)
+    phase("headline on the card", t0)
+    return cases
+
+
 def stage_times(torch, detector, images, points, pvalid, corners, bvalid,
                 calib, params, reps=5):
     """Median host-clock ms of each stage of the main path, the card
@@ -1245,6 +1720,17 @@ def main() -> int:
     csv_launches = csv_eval_phase(torch, dev, smi, images, scenes)
     for k in kernels:
         k["csv_eval_launches"] = csv_launches[k["name"]]
+    del detector
+    headline, _ = load_headline(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, times, operands = headline_stream(
+            torch, dev, np.random.default_rng(1), headline,
+            os.path.join(tmp, "kitti360"))
+        cases = headline_device(torch, dev, smi, headline, operands, times)
+    for k in kernels:
+        k["headline_launches"] = launches[k["name"]]
+        k["headline_launches_4_chunks"] = times["launches_many"][k["name"]]
+        k.update(cases[k["name"]])
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -11,8 +11,9 @@ V1:347-348); here every frame is padded to the static shapes of
 masks.
 
 Images decode through :mod:`..utils.png` (standard library), where the JAX
-package uses PIL.  The threaded native prefetcher of the JAX package
-(``data/native.py``, used by its streaming path) is not ported.
+package uses PIL.  The streaming path reads scans through the threaded
+native prefetcher of :mod:`..data.native` and only the boxes through
+:meth:`Kitti360Dataset.load_boxes`.
 """
 
 from __future__ import annotations
@@ -51,6 +52,13 @@ def load_bounding_boxes(json_path: str) -> List[dict]:
             return json.load(f)
     except FileNotFoundError:
         return []
+
+
+def _corners_of(boxes: List[dict]) -> np.ndarray:
+    """(G, 8, 3) float64 cam0 corners of the boxes that carry them."""
+    return np.asarray(
+        [b["corners_cam0"] for b in boxes if "corners_cam0" in b],
+        dtype=np.float64).reshape(-1, 8, 3)
 
 
 @dataclasses.dataclass
@@ -131,6 +139,9 @@ class Kitti360Dataset:
     def bbox_path(self, frame_id: int) -> str:
         return os.path.join(self.bbox_dir, f"BBoxes_{frame_id}.json")
 
+    def load_bboxes_exists(self, frame_id: int) -> bool:
+        return os.path.isfile(self.bbox_path(frame_id))
+
     def tight_shapes(self, multiple: int = 4096) -> ShapeConfig:
         """ShapeConfig with max_points padded to this dataset's largest
         scan, rounded up to ``multiple`` and capped at the configured
@@ -144,6 +155,15 @@ class Kitti360Dataset:
                                    max_points=min(padded,
                                                   self.shapes.max_points))
 
+    def load_boxes(self, frame_id: int) -> Optional[np.ndarray]:
+        """The frame's GT corners (G, 8, 3) float64 alone, or None when its
+        box JSON is missing or empty: the streaming path's read, whose scans
+        come from the prefetcher and are not read again."""
+        boxes = load_bounding_boxes(self.bbox_path(frame_id))
+        if not boxes:
+            return None
+        return _corners_of(boxes)
+
     def load_frame(self, frame_id: int, require_boxes: bool = True,
                    require_image: bool = True) -> Optional[FrameRecord]:
         """One frame, or None when a skip rule applies."""
@@ -154,9 +174,7 @@ class Kitti360Dataset:
         boxes = load_bounding_boxes(self.bbox_path(frame_id))
         if require_boxes and not boxes:
             return None
-        corners = np.asarray(
-            [b["corners_cam0"] for b in boxes if "corners_cam0" in b],
-            dtype=np.float64).reshape(-1, 8, 3)
+        corners = _corners_of(boxes)
         image_path = self.image_path(frame_id)
         if not os.path.isfile(image_path):
             if require_image:

@@ -9,8 +9,9 @@ Submodule names follow the ultralytics state dict (``cv1``, ``m.0``,
 ``conv`` / ``bn``), so :func:`models.yolo.weights.from_flax_variables`
 yields a state dict with ultralytics' keys.  BatchNorm evaluates with
 running statistics in the Flax form, ``(x - mean) * (gamma *
-rsqrt(var + eps)) + beta``, so folded and unfolded weights round as in
-the JAX package.
+rsqrt(var + eps)) + beta``, the multiplier rounded as the JAX package's
+jitted forward rounds it, so folded and unfolded weights round as the JAX
+package serves them.
 """
 
 from __future__ import annotations
@@ -26,7 +27,17 @@ BN_EPS = 1e-3   # ultralytics' BatchNorm epsilon
 
 
 class BatchNormEval(nn.Module):
-    """Inference BatchNorm with Flax's rounding order."""
+    """Inference BatchNorm with the rounding of Flax's under ``jax.jit``.
+
+    Flax computes the multiplier ``rsqrt(var + eps) * gamma`` in the dtype
+    the checkpoint stores the statistics in (bfloat16 for the x checkpoint
+    and for folded bf16 trees), ``eps`` rounded to it first.  Compiled by
+    XLA, as the JAX detector serves it, the sum and the ``rsqrt`` round to
+    that dtype and the product stays float32; op by op the product rounds
+    too.  Loading a state dict records the dtype, so the multiplier rounds
+    as the jitted forward's whatever dtype the module was cast to.  A
+    folded tree's multiplier is exactly 1 either way.
+    """
 
     def __init__(self, c: int, eps: float = BN_EPS):
         super().__init__()
@@ -35,10 +46,26 @@ class BatchNormEval(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self._set_stats_dtype(torch.float32)
+
+    def _set_stats_dtype(self, dtype: torch.dtype) -> None:
+        self.stats_dtype = dtype
+        self._eps = float(torch.tensor(self.eps, dtype=dtype))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        var = state_dict.get(prefix + "running_var")
+        gamma = state_dict.get(prefix + "weight")
+        if var is not None and gamma is not None:
+            self._set_stats_dtype(torch.promote_types(var.dtype, gamma.dtype))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var.float() + self.eps) \
-            * self.weight.float()
+        # rounded to the statistics' dtype after the sum and after the rsqrt
+        # (taken in float32: PyTorch's bfloat16 rsqrt on the CPU is not
+        # correctly rounded); the product is float32
+        sd = self.stats_dtype
+        r = torch.rsqrt((self.running_var.to(sd) + self._eps).float())
+        mul = r.to(sd).float() * self.weight
         y = (x.float() - self.running_mean.float()[:, None, None]) \
             * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)

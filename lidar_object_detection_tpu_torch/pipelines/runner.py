@@ -6,25 +6,33 @@ without erosion.  A run loads a KITTI-360 directory (``data/``), detects
 (the stub by default, or ``YoloDetector``: kernels K5, K3 and K2 on the
 card), fuses on the device (``fusion/associate.py``: kernel K1 on the
 card), and formats the per-car rows on the host, appending them to the
-master CSV.
+master CSV.  ``FusionPipeline.stream`` runs a whole sequence in fixed-size
+chunks: the native prefetcher (``data/native.py``) reads and, by default,
+culls the scans to the camera frustum, and a producer thread reads boxes
+and decodes PNGs one chunk ahead of the card.
 
 Not ported yet (ROADMAP Queue 1 item 6): the V4 greedy-IoU and V5
-Hungarian matchers, the streaming path, depth maps and the V2 analysis
-cloud.  Asking for them raises ``NotImplementedError``.
+Hungarian matchers, depth maps and the V2 analysis cloud.  Asking for them
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from lidar_object_detection_tpu_torch.config import (
     FusionConfig, FusionParams, MatchStrategy, PipelineVersion)
 from lidar_object_detection_tpu_torch.data.kitti360 import (
-    FrameBatch, Kitti360Dataset)
+    FrameBatch, FrameRecord, Kitti360Dataset)
+from lidar_object_detection_tpu_torch.data.native import (
+    CompactionSpec, ScanPrefetcher)
 from lidar_object_detection_tpu_torch.eval import statistics as stats_lib
 from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
 from lidar_object_detection_tpu_torch.geom.boxes import transform_corners
@@ -108,14 +116,19 @@ class FusionPipeline:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
-    def detect(self, records, batch: FrameBatch) -> Dict[str, torch.Tensor]:
+    def detect(self, records, batch: FrameBatch,
+               images: Optional[np.ndarray] = None
+               ) -> Dict[str, torch.Tensor]:
         """Run the detector: the stub reads the frame records, a
-        ``YoloDetector`` the batch's images.  Returns tensors on the
+        ``YoloDetector`` the batch's images, decoded here unless the caller
+        (the streaming path) passes them decoded.  Returns tensors on the
         pipeline's device."""
         if isinstance(self.detector, StubDetector):
             out = self.detector.detect_records(records)
         else:
-            out = self.detector.detect(self.dataset.load_images(batch))
+            if images is None:
+                images = self.dataset.load_images(batch)
+            out = self.detector.detect(images)
         return {k: torch.as_tensor(v).to(self.device) for k, v in out.items()}
 
     def fuse(self, batch: FrameBatch, detections: Dict[str, torch.Tensor]):
@@ -195,9 +208,160 @@ class FusionPipeline:
         return pairs
 
     # ------------------------------------------------------------------
-    def stream(self, *args, **kwargs):
-        """The streaming full-sequence fusion of the JAX package."""
-        raise NotImplementedError(f"stream: {NOT_PORTED}")
+    def compaction_spec(self) -> CompactionSpec:
+        """The host cull matching this pipeline's device validity test
+        (:class:`~lidar_object_detection_tpu_torch.data.native.CompactionSpec`):
+        points outside the camera frustum or depth range are dropped in
+        the loader threads, and the device's exact test masks the
+        conservative leftovers, so the fusion's outputs are unchanged.  The
+        capacity is half of ``max_points``, rounded down to a multiple of
+        4096 (at least 4096), as in the JAX package."""
+        s = self.config.shapes
+        max_out = max(4096, (s.max_points // 2 // 4096) * 4096)
+        return CompactionSpec.build(
+            self.dataset.transforms.velo_to_rect,
+            self.dataset.camera.intrinsics, s.image_width, s.image_height,
+            self.config.depth_min, self.config.depth_max, max_out)
+
+    def stream(self, frame_ids: Optional[Sequence[int]] = None,
+               chunk: int = 8, store=None, compact: bool = True,
+               num_threads: int = 2, timestamp: Optional[str] = None):
+        """Streaming fusion over a whole sequence, in chunks of ``chunk``
+        frames.
+
+        The native prefetcher's threads read the scans ahead of the card
+        (``data/native.py``), and its buffers feed the device as they are:
+        scans are never read again.  With ``compact=True`` the threads also
+        cull each scan to the camera frustum, into half the padded size
+        (:meth:`compaction_spec`); a scan with more points than that inside
+        raises.  A producer thread reads the boxes and decodes the PNGs one
+        chunk ahead; it does no work on the card.  An error there reaches
+        the caller as the exception it is, never as a short stream.  Rows
+        go into ``store`` (a :class:`~..eval.store.MetricStore`) when given,
+        with ``timestamp`` (default: the time of each write).
+
+        Frames come in the prefetcher's completion order.  Yields
+        ``(frame_id, rows)`` per processed frame.
+        """
+        ids = list(frame_ids) if frame_ids is not None \
+            else self.dataset.frame_ids()
+        # only frames with boxes (the reference's skip rule); a frame whose
+        # box list turns out empty is skipped again after load_boxes
+        ids = [f for f in ids if self.dataset.load_bboxes_exists(f)]
+        s = self.config.shapes
+        paths = [self.dataset.scan_path(f) for f in ids]
+        spec = self.compaction_spec() if compact else None
+        pre = iter(ScanPrefetcher(paths, s.max_points,
+                                  num_threads=num_threads,
+                                  queue_depth=2 * chunk, compaction=spec))
+        stub = isinstance(self.detector, StubDetector)
+
+        def chunks():
+            pending = []
+            done = False
+            while not done:
+                while len(pending) < chunk:
+                    try:
+                        idx, pts, valid, n = next(pre)
+                    except StopIteration:
+                        done = True
+                        break
+                    pending.append((ids[idx], pts, valid, n))
+                if not pending:
+                    break
+                keep = []
+                for fid, pts, valid, n in pending[:chunk]:
+                    corners = self.dataset.load_boxes(fid)
+                    if corners is None:
+                        continue
+                    keep.append((fid, pts, valid, n, corners))
+                del pending[:chunk]
+                if not keep:
+                    continue
+                batch = self._assemble_stream_batch(keep)
+                records = [FrameRecord(frame_id=fid, points=pts[:n],
+                                       corners_cam0=corners,
+                                       image_path=self.dataset.image_path(fid))
+                           for fid, pts, _, n, corners in keep]
+                images = None if stub else self.dataset.load_images(batch)
+                yield keep, batch, records, images
+
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def put_checked(msg) -> bool:
+            """A bounded put that gives up once the consumer is gone, so an
+            abandoned generator never wedges the producer (and with it the
+            prefetcher's buffers) on a full queue."""
+            while not stop.is_set():
+                try:
+                    q.put(msg, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for item in chunks():
+                    if not put_checked(("item", item)):
+                        return
+                put_checked(("done", None))
+            except BaseException as exc:  # noqa: BLE001 -- raised below
+                put_checked(("error", exc))
+
+        threading.Thread(target=producer, daemon=True).start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "done":
+                    break
+                if kind == "error":
+                    raise item
+                keep, batch, records, images = item
+                detections = self.detect(records, batch, images=images)
+                fused = self.fuse(batch, detections)
+                fused_np = {k: fused[k].cpu().numpy() for k in (
+                    "total_points", "best_box", "points_inside", "matched",
+                    "box_visible")}
+                det_valid = detections["det_valid"].cpu().numpy()
+                for i, (fid, *_rest) in enumerate(keep):
+                    rows = stats_lib.frame_statistics(
+                        fid, fused_np["total_points"][i],
+                        fused_np["best_box"][i], fused_np["points_inside"][i],
+                        fused_np["matched"][i], det_valid[i],
+                        fused_np["box_visible"][i])
+                    if store is not None:
+                        store.update_frame(fid, rows, timestamp)
+                    yield fid, rows
+        finally:
+            stop.set()
+            try:                      # unblock a producer mid-put
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+
+    def _assemble_stream_batch(self, keep) -> FrameBatch:
+        """A fixed-shape batch straight from the prefetcher's buffers: the
+        point arrays are stacked as delivered (the loader padded them), and
+        only the corners are padded to ``max_boxes``."""
+        s = self.config.shapes
+        b = len(keep)
+        corners = np.zeros((b, s.max_boxes, 8, 3), np.float32)
+        box_valid = np.zeros((b, s.max_boxes), bool)
+        for i, (_, _, _, _, c) in enumerate(keep):
+            g = c.shape[0]
+            if g > s.max_boxes:
+                raise ValueError(f"{g} boxes exceed max_boxes={s.max_boxes}")
+            corners[i, :g] = c.astype(np.float32)
+            box_valid[i, :g] = True
+        return FrameBatch(
+            frame_ids=np.asarray([k[0] for k in keep], np.int32),
+            points=np.stack([k[1] for k in keep]),
+            point_valid=np.stack([k[2] for k in keep]),
+            corners_cam0=corners, box_valid=box_valid,
+            image_paths=[self.dataset.image_path(k[0]) for k in keep])
 
     def depth_maps(self, *args, **kwargs):
         """Per-car depth maps (seg_with_pointcloud.py)."""

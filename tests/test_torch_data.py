@@ -123,6 +123,27 @@ def test_skip_rules(tree):
     assert ds.load_images(batch).sum() == 0
 
 
+@pytest.mark.parametrize("fid", [3, 5, 8, 9, 11, 12, 13, 42])
+def test_box_reads_match_jax(tree, fid):
+    """``load_bboxes_exists`` and ``load_boxes``, the streaming path's box
+    reads: frame 9 has no box JSON, 12 an empty list, 42 nothing at all;
+    13's boxes read though its scan does not."""
+    ds = Kitti360Dataset(tree, shapes=ShapeConfig(**SHAPES))
+    jds = JDataset(tree, shapes=JShapeConfig(**SHAPES))
+    assert ds.load_bboxes_exists(fid) == jds.load_bboxes_exists(fid)
+    assert ds.load_bboxes_exists(fid) == (fid not in (9, 42))
+    got, want = ds.load_boxes(fid), jds.load_boxes(fid)
+    if fid in (9, 12, 42):
+        assert got is None and want is None
+        return
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    assert got.shape[0] == 30
+    if fid != 13:                     # 13's scan is unreadable
+        np.testing.assert_array_equal(
+            got, ds.load_frame(fid, require_image=False).corners_cam0)
+
+
 def test_image_cache_serves_the_same_pixels(tree, tmp_path):
     ds = Kitti360Dataset(tree, shapes=ShapeConfig(**SHAPES))
     cached = Kitti360Dataset(tree, shapes=ShapeConfig(**SHAPES),

@@ -73,9 +73,9 @@ def _imported_names(path):
 def test_port_imports_nothing_of_jax():
     modules = _port_modules()
     for name in ("ops.mask_assembly", "ops.nms", "utils.png", "data.calib",
-                 "data.kitti360", "models.stub", "eval.erosion_study",
-                 "eval.xlsx", "pipelines.runner", "pipelines.cli",
-                 "__main__"):
+                 "data.kitti360", "data.native", "models.stub",
+                 "eval.erosion_study", "eval.store", "eval.xlsx",
+                 "pipelines.runner", "pipelines.cli", "__main__"):
         assert f"lidar_object_detection_tpu_torch.{name}" in modules
     loaded = _loaded_after(modules)
     assert "torch" in loaded
@@ -110,7 +110,47 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 def test_card_tests_import_nothing_of_jax():
     """The card's test files collect where JAX and Flax are missing."""
-    for name in ("test_torch_cuda.py", "test_torch_cuda_precision.py"):
+    for name in ("test_torch_cuda.py", "test_torch_cuda_precision.py",
+                 "test_torch_cuda_stream.py"):
         names = _imported_names(os.path.join(REPO, "tests", name))
         assert "chip_smoke" in names, name
         assert _forbidden(names) == [], name
+
+
+LOADER_PROBE = """
+import json, os
+import numpy as np
+from lidar_object_detection_tpu_torch.data import native
+path = os.path.join({tmp!r}, "scan.bin")
+np.arange(64, dtype=np.float32).tofile(path)
+spec = native.CompactionSpec.build(np.eye(4), np.eye(3), 8, 8, 0.0, 50.0,
+                                   4096)
+native.load_scan_padded(path, 32)
+native.load_scan_compacted(path, spec)
+list(native.ScanPrefetcher([path], 32))
+maps = [line.split()[-1] for line in open("/proc/self/maps")
+        if line.rstrip().endswith(".so")]
+print(json.dumps(sorted(set(m for m in maps if "lidar_loader" in m))))
+"""
+
+
+def test_port_loads_only_its_own_native_loader(tmp_path):
+    """The port builds its loader from its own copy of the source into its
+    build directory, and never maps the committed
+    ``csrc/liblidar_loader.so`` or names the JAX package's ``csrc``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", LOADER_PROBE.format(tmp=str(tmp_path))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    mapped = json.loads(out.stdout.strip().splitlines()[-1])
+    build = os.path.join(REPO, "lidar_object_detection_tpu_torch", "csrc",
+                         "build")
+    assert len(mapped) == 1 and mapped[0].startswith(build + os.sep)
+    assert os.path.join(REPO, "csrc", "liblidar_loader.so") not in mapped
+    with open(os.path.join(REPO, "lidar_object_detection_tpu_torch", "data",
+                           "native.py")) as f:
+        source = f.read()
+    assert "liblidar_loader.so" in source and "make -C" not in source
+    assert os.path.isfile(os.path.join(
+        REPO, "lidar_object_detection_tpu_torch", "csrc", "lidar_loader.cpp"))
