@@ -42,7 +42,18 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    no global TF32 switch).  Every kernel must launch once in the
    csv_eval run (one batch); its detections and master CSV must equal those of the same run
    with the twin NMS.  The loader's part of the run is timed on its own;
-6. serves the JAX headline (``bench.py``): the committed YOLO11x-seg
+6. runs V4, V5 and the exports through the CLI on the card from that
+   tree (``run --version v4_iou``, ``run --version v5_projected
+   --export-ply --analysis-cloud car_color``, ``depth-maps``), with the
+   launch counters zeroed before each run and read after it: the solver
+   kernel (``csrc/lap.cu``) must launch once per V5 batch.  The card's
+   own detections go through the pipeline on the card and on the CPU:
+   matched pairs equal, the CLI's PLY scenes, analysis clouds and
+   depth-map figures byte-equal to those of the CPU run.  Then the solver
+   is held to its twin on the V5 run's own costs and on seeded V5-shaped
+   costs (B = 4 and 1, dense rows, R = C, R = 1, every column masked), its
+   totals to scipy's, and timed beside the twin and scipy on the host;
+7. serves the JAX headline (``bench.py``): the committed YOLO11x-seg
    checkpoint (its read and load timed), single view, BatchNorm folded,
    bf16, at the sidecar's guarded point, streamed by
    ``FusionPipeline.stream(chunk=8, compact=True)`` through the native
@@ -55,9 +66,10 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (with the loader's and PNG decode's shares) and detect + fuse on the
    card at B = 8, and holds K1 (compacted scans), K5 (single view), K3 and
    K2 (x's tables) to their twins at those shapes;
-7. prints one JSON line of the kernels (times, bounds, launches, errors;
-   ``headline_*`` for the headline's case), the card's name and power
-   limit, and last the ``{"ok": true, ...}`` line.
+8. prints one JSON line of the kernels (times, bounds, launches, errors;
+   ``headline_*`` for the headline's case, ``matching_launches`` of the
+   V4, V5 and depth-map runs), the card's name and power limit, and last
+   the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It imports nothing of JAX and nothing of the JAX package.
@@ -65,16 +77,17 @@ line.  It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -102,6 +115,9 @@ VELO_TO_RECT = np.array([[0.0, -1.0, 0.0, 0.0],
 CAM_TO_VELO = np.linalg.inv(VELO_TO_RECT).astype(np.float32)
 
 P, G, D = 131072, 384, 32
+# the kernels of the serving path (detector and point-count fusion); V5's
+# solver, ``lap``, launches only where a run matches by assignment
+PATH_KERNELS = ("inside_counts", "mask_assemble", "mask_count", "nms")
 H0, W0 = 376, 1408
 # bench.py's tight shapes: the KITTI-360 sample's largest scan (122,183
 # points) padded to a multiple of 4096
@@ -195,55 +211,20 @@ def make_scene(rng, det_boxes, det_valid, num_points=P, num_boxes=G,
     return points, point_valid, corners, box_valid
 
 
-def png_filter_rows(image):
-    """Filter the rows of (H, W, 3) uint8 as libpng's default encoder does:
-    each row takes whichever of the five filters gives the least sum of
-    absolute signed bytes.  Returns the (H, 1 + 3 W) filtered rows."""
-    h, w, _ = image.shape
-    x = image.reshape(h, w * 3).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, 3:] = x[:, :-3]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, 3:] = x[:-1, :-3]
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 0xFF
-    cost = np.minimum(cand, 256 - cand).sum(axis=2)      # (5, H)
-    kinds = cost.argmin(axis=0)
-    rows = cand[kinds, np.arange(h)].astype(np.uint8)
-    return np.concatenate([kinds[:, None].astype(np.uint8), rows], 1)
-
-
-def write_png_rgb(path, image):
-    """Write (H, W, 3) uint8 as an 8-bit RGB PNG with zlib only, the rows
-    filtered adaptively (``png_filter_rows``)."""
-    h, w, _ = image.shape
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(
-                    png_filter_rows(image).tobytes(), 6))
-                + chunk(b"IEND", b""))
-
-
 def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
                         height=H0):
     """A KITTI-360 directory tree (sequence 0, camera 0) under ``root``.
 
     ``frames`` holds ``(frame_id, image, points, corners)``: a (H, W, 3)
-    uint8 image (written by ``write_png_rgb``), the path of a PNG file
+    uint8 image (written by the port's ``utils.png.write_png_rgb``), the
+    path of a PNG file
     (copied as it is), or None (no PNG); (N, 4) float32 velodyne points, and
     (G, 8, 3) cam0 corners or None (no box JSON).  The calibration holds
     ``intrinsics``, the KITTI axis swap (CAM_TO_VELO) and an identity
     cam0 pose.
     """
+    from lidar_object_detection_tpu_torch.utils.png import write_png_rgb
+
     seq = "2013_05_28_drive_0000_sync"
     calib = os.path.join(root, "calibration")
     velo = os.path.join(root, "data_3d_raw", seq, "velodyne_points", "data")
@@ -391,6 +372,18 @@ def mask_cases(rng, h=H0, w=W0, mh=42, mw=160):
         "borders and fractions": borders,
     }
 
+def lap_case(rng, batch, r=D, c=G, row_share=0.4, col_share=0.1):
+    """V5-shaped assignment operands (numpy): costs (B, R, C) float32 of 1
+    - score, scores in [0, 1) (every third frame rounded to quarters, so
+    that many costs tie), and sparse row (B, R) and column (B, C) masks,
+    row 0 of each frame real."""
+    cost = (1.0 - rng.random((batch, r, c))).astype(np.float32)
+    cost[::3] = np.round(cost[::3] * 4) / 4
+    row_mask = rng.random((batch, r)) < row_share
+    row_mask[:, 0] = True
+    col_mask = rng.random((batch, c)) < col_share
+    return cost, row_mask, col_mask
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -417,6 +410,21 @@ def time_gpu(fn, reps=20, warmup=3, head_start=True):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def time_events(torch, fn, iters=10):
+    """(ms per call of ``fn`` back to back, CUDA events around ``iters``
+    calls after one warm-up, and the last call's result)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
 
 
 def bound_ms(n_bytes, n_ops):
@@ -919,6 +927,145 @@ def check_nms(torch, dev, rng, detector, images):
             "library_ms": None}
 
 
+def lap_launcher(torch, dev, cost, row_mask, col_mask):
+    """A call of the solver's C entry point alone, for timing."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    b, r, c = cost.shape
+    out = torch.empty((b, r), dtype=torch.int32, device=dev)
+
+    def run():
+        kernel_lib.check(lib.lap_launch(
+            cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), b, r,
+            c, out.data_ptr(), kernel_lib.stream_handle(dev)), "lap_launch")
+    return run
+
+
+def lap_bound(cost, scans):
+    """The solver's bound on these inputs.  Bytes: the costs, both masks
+    and col4row, each once.  Operations: 6 per column for each column a
+    Dijkstra step scans (the candidate's 3 adds, its compare, the select
+    and the argmin's compare), with each frame's scanned columns from the
+    twin (``lap_plain(..., return_scans=True)``)."""
+    b, r, c = cost.shape
+    n_bytes = b * r * c * 4 + b * r + b * c + b * r * 4
+    return bound_ms(n_bytes, 6 * c * int(scans.sum()))
+
+
+def scipy_total(cost, row_mask, col_mask):
+    """Per frame, scipy's optimal total on the real rows and columns, and
+    the real pairs' total of each given assignment; float64."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = []
+    for b in range(cost.shape[0]):
+        rows = np.nonzero(row_mask[b])[0]
+        cols = np.nonzero(col_mask[b])[0]
+        real = cost[b][np.ix_(rows, cols)].astype(np.float64)
+        sr, sc = linear_sum_assignment(real)
+        out.append(real[sr, sc].sum())
+    return np.asarray(out)
+
+
+def check_lap(torch, dev, rng, path):
+    """The assignment solver against its twin: the V5 run's own costs
+    (``path``: the csv_eval tree's batch of 4, and its first frame) and
+    seeded V5-shaped costs at B = 4 and 1, with dense rows, R = C, R = 1
+    and every column masked (all costs tie).  Every row's column must
+    equal the twin's, and on the real rows and columns the assignment's
+    total must equal scipy's optimum (within 1e-5, float32 costs summed in
+    float64).  Timed at B = 4 and 1 (seeded) and on the path's batch;
+    beside it the twin on the card and scipy on the host."""
+    from lidar_object_detection_tpu_torch.ops import lap as lap_lib
+
+    on_card = lambda arrays: tuple(torch.from_numpy(a).to(dev)
+                                   for a in arrays)
+    seeded = on_card(lap_case(rng, 4))
+    cases = {
+        "V5 path B=4": path,
+        "V5 path B=1": tuple(a[:1] for a in path),
+        "seeded B=4": seeded,
+        "seeded B=1": tuple(a[:1] for a in seeded),
+        "dense rows": on_card(lap_case(rng, 2, row_share=1.0, col_share=0.5)),
+        "R=C=32": on_card(lap_case(rng, 3, D, D, 1.0, 1.0)),
+        "R=1": on_card(lap_case(rng, 3, 1, 7, 1.0, 0.5)),
+        "every column masked": on_card(lap_case(rng, 2, col_share=0.0)),
+    }
+    mismatches, compared, failed, scans_of, gap = 0, 0, [], {}, 0.0
+    for name, (cost, rmask, cmask) in cases.items():
+        got = lap_lib.lap_cuda(cost, rmask, cmask)
+        ref, scans = lap_lib.lap_plain(cost, rmask, cmask, return_scans=True)
+        torch.cuda.synchronize()
+        bad = int((got != ref).sum())
+        mismatches += bad
+        compared += got.numel()
+        scans_of[name] = scans.tolist()
+        if bad:
+            failed.append(f"{name}: {bad}")
+        c_np, r_np, k_np = (a.cpu().numpy() for a in (cost, rmask, cmask))
+        col4row = got.cpu().numpy()
+        for b in range(c_np.shape[0]):
+            pairs = [(i, j) for i, j in enumerate(col4row[b])
+                     if r_np[b, i] and k_np[b, j]]
+            total = sum(float(c_np[b, i, j]) for i, j in pairs)
+            best = scipy_total(c_np[b:b + 1], r_np[b:b + 1], k_np[b:b + 1])
+            gap = max(gap, abs(total - float(best[0])))
+            if len(set(col4row[b].tolist())) != col4row.shape[1]:
+                failed.append(f"{name}: a column assigned twice")
+    if mismatches or failed:
+        raise AssertionError(f"the solver differs from its twin in "
+                             f"{mismatches} of {compared} rows ({failed})")
+    if gap > 1e-5:
+        raise AssertionError(f"the solver's total is {gap} off scipy's")
+    if sum(scans_of["V5 path B=4"]) < 4:
+        raise AssertionError(f"degenerate V5 costs: scans {scans_of}")
+
+    entry = {"name": "lap", "route": "cuda",
+             "source": "lidar_object_detection_tpu_torch/csrc/lap.cu",
+             "replaces": "lidar_object_detection_tpu/ops/lap.py:36",
+             "max_abs_err": 0, "mismatches": mismatches,
+             "compared": compared, "cases": len(cases),
+             "scipy_gap": gap, "library_ms": None}
+    for suffix, name in (("", "V5 path B=4"), ("_b1", "seeded B=1"),
+                         ("_b4", "seeded B=4")):
+        cost, rmask, cmask = cases[name]
+        entry["ms" + suffix] = time_gpu(lap_launcher(torch, dev, *cases[name]))
+        _, scans = lap_lib.lap_plain(cost, rmask, cmask, return_scans=True)
+        bound, by = lap_bound(cost, scans)
+        entry["bound_ms" + suffix] = bound
+        if not suffix:
+            entry["bound_by"] = by
+        # the dependent chain: each frame's scanned columns one after
+        # another, then as many augmentation edges at most
+        entry["chain_steps" + suffix] = int(scans.max())
+    entry["kernel_ms"] = entry["ms"]
+    cost, rmask, cmask = path
+    entry["plain_ms"] = time_gpu(
+        lambda: lap_lib.lap_plain(cost, rmask, cmask), reps=5, warmup=1,
+        head_start=False)
+    host = tuple(a.cpu().numpy() for a in path)
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        scipy_total(*host)
+        times.append((time.perf_counter() - t) * 1e3)
+    entry["scipy_host_ms"] = float(np.median(times))
+    entry["shape"] = (f"B={cost.shape[0]} R={cost.shape[1]} "
+                      f"C={cost.shape[2]}, real rows "
+                      f"{rmask.sum(dim=1).tolist()}, real columns "
+                      f"{cmask.sum(dim=1).tolist()}, scans "
+                      f"{scans_of['V5 path B=4']}")
+    print(f"lap: equal to the twin on {len(cases)} cases ({compared} rows), "
+          f"scipy's total within {gap:.3g}; V5 path B=4 {entry['ms']:.4f} ms "
+          f"(bound {entry['bound_ms']:.3g} by {entry['bound_by']}, chain "
+          f"{entry['chain_steps']} steps), seeded B=4 {entry['ms_b4']:.4f}, "
+          f"B=1 {entry['ms_b1']:.4f}; twin {entry['plain_ms']:.3f} ms, scipy "
+          f"on the host {entry['scipy_host_ms']:.4f} ms; {entry['shape']}; "
+          f"scans {scans_of}", flush=True)
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -984,7 +1131,7 @@ def main_path(torch, dev, smi, detector, images, scenes):
     torch.cuda.synchronize()
     launches = dict(kernel_lib.LAUNCHES)
     print(f"main-path launches: {launches}", flush=True)
-    if any(n != 1 for n in launches.values()):
+    if any(launches[k] != 1 for k in PATH_KERNELS) or launches["lap"]:
         raise AssertionError(f"the main path launched {launches} for one "
                              f"batch, expected each kernel once")
 
@@ -1053,12 +1200,12 @@ def main_path(torch, dev, smi, detector, images, scenes):
     return launches
 
 
-def csv_eval_phase(torch, dev, smi, images, scenes):
-    """The csv_eval entry and the erosion study from a KITTI-360 tree on
-    disk, with the YOLO detector as the CLI serves it (float32, unfolded
-    weights, the sidecar's point), which pins its own precision: nothing
-    here sets a global TF32 switch.  Returns the csv_eval run's
-    launches."""
+def csv_eval_phase(torch, dev, smi, images, scenes, tmp):
+    """The csv_eval entry and the erosion study from a KITTI-360 tree
+    written under ``tmp``, with the YOLO detector as the CLI serves it
+    (float32, unfolded weights, the sidecar's point), which pins its own
+    precision: nothing here sets a global TF32 switch.  Returns the
+    csv_eval run's launches and the tree's root."""
     import copy
 
     from lidar_object_detection_tpu_torch.config import (
@@ -1081,113 +1228,322 @@ def csv_eval_phase(torch, dev, smi, images, scenes):
     detector.forward(images)
     plain = copy.copy(detector)
     plain.params = dataclasses.replace(detector.params, nms_impl="plain")
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "kitti360")
-        # the real frames' PNG files as they are committed (rows filtered
-        # Paeth and Sub, as a camera's encoder writes them); their mirrors
-        # encoded with adaptive filters
-        frames = []
-        for b, (points, pvalid, corners, bvalid) in enumerate(scenes):
-            image = FRAMES[b] if b < len(FRAMES) else images[b]
-            frames.append((100 + b, image, points[pvalid], corners[bvalid]))
-        # a frame without a box JSON, which the loader must skip
-        frames.append((200, FRAMES[0], scenes[0][0][scenes[0][1]], None))
-        write_kitti360_tree(root, frames)
-        ds = Kitti360Dataset(root)
-        records = ds.load_frames()
-        if [r.frame_id for r in records] != [100 + b for b in
-                                              range(len(scenes))]:
-            raise AssertionError(f"the loader kept frames "
-                                 f"{[r.frame_id for r in records]}")
-        phase("write and load the KITTI-360 tree", t0)
+    root = os.path.join(tmp, "kitti360")
+    # the real frames' PNG files as they are committed (rows filtered
+    # Paeth and Sub, as a camera's encoder writes them); their mirrors
+    # encoded with adaptive filters
+    frames = []
+    for b, (points, pvalid, corners, bvalid) in enumerate(scenes):
+        image = FRAMES[b] if b < len(FRAMES) else images[b]
+        frames.append((100 + b, image, points[pvalid], corners[bvalid]))
+    # a frame without a box JSON, which the loader must skip
+    frames.append((200, FRAMES[0], scenes[0][0][scenes[0][1]], None))
+    write_kitti360_tree(root, frames)
+    ds = Kitti360Dataset(root)
+    records = ds.load_frames()
+    if [r.frame_id for r in records] != [100 + b for b in
+                                          range(len(scenes))]:
+        raise AssertionError(f"the loader kept frames "
+                             f"{[r.frame_id for r in records]}")
+    phase("write and load the KITTI-360 tree", t0)
 
-        out = os.path.join(tmp, "out")
-        master = os.path.join(out, "master_car_statistics.csv")
-        stamp = "2026-01-01T00:00:00"
+    out = os.path.join(tmp, "out")
+    master = os.path.join(out, "master_car_statistics.csv")
+    stamp = "2026-01-01T00:00:00"
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    t1 = time.perf_counter()
+    analysis = csv_eval(root, master, detector=detector, device=dev,
+                        timestamp=stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernel_lib.LAUNCHES)
+    print(f"csv_eval launches: {launches}", flush=True)
+    if any(launches[k] != 1 for k in PATH_KERNELS) or launches["lap"]:
+        raise AssertionError(f"csv_eval launched {launches} for its one "
+                             f"batch, expected each kernel once")
+    fps = len(records) / wall
+    # the loader's part of that run, timed again on its own: scans and
+    # boxes, the batch, and the PNG decode
+    t1 = time.perf_counter()
+    batch = ds.make_batch(ds.load_frames())
+    t2 = time.perf_counter()
+    loaded = ds.load_images(batch)
+    t3 = time.perf_counter()
+    if not np.array_equal(loaded, images):
+        raise AssertionError("the loader's frames differ from the "
+                             "committed PNGs and their mirrors")
+    print(f"csv_eval from disk: {fps:.2f} frames/s ({len(records)} "
+          f"frames in {wall:.3f} s, host clock: load, detect, fuse, "
+          f"CSV, analysis) on {smi}; loader {t3 - t1:.3f} s "
+          f"({(t3 - t1) / wall:.3f} of the run: scans and boxes "
+          f"{t2 - t1:.3f} s, PNG decode {t3 - t2:.3f} s); analysis "
+          f"{analysis}", flush=True)
+
+    study_csv = os.path.join(out, "erosion_study.csv")
+    study_xlsx = os.path.join(out, "master_car_statistics.csv.xlsx")
+    study = run_erosion_study(root, detector=detector,
+                              output_csv=study_csv,
+                              output_xlsx=study_xlsx, device=dev)
+    print(f"erosion study: {study.summary()}", flush=True)
+
+    # rows: one per valid detection; the same run with the twin NMS
+    cfg = FusionConfig.for_version(PipelineVersion.CSV_EVAL)
+    dets = FusionPipeline(ds, cfg, detector, device=dev).detect(
+        records, batch)
+    dets_plain = FusionPipeline(ds, cfg, plain, device=dev).detect(
+        records, batch)
+    for key in dets:
+        if not torch.equal(dets[key], dets_plain[key]):
+            raise AssertionError(f"csv_eval detections {key}: K5 and "
+                                 f"the twin NMS differ")
+    master_plain = os.path.join(out, "master_plain.csv")
+    csv_eval(root, master_plain, detector=plain, device=dev,
+             timestamp=stamp)
+    with open(master) as f, open(master_plain) as g:
+        lines, lines_plain = f.read(), g.read()
+    if lines != lines_plain:
+        raise AssertionError("the master CSV differs between K5 and the "
+                             "twin NMS")
+    # the CLI as a user runs it on the card: the same rows
+    cli_out = os.path.join(tmp, "cli")
+    if cli.main(["run", "--dataset", root, "--version", "csv_eval",
+                 "--detector", "yolo", "--weights", CKPT, "--output",
+                 cli_out]) != 0:
+        raise AssertionError("the CLI run failed")
+    with open(os.path.join(cli_out, "master_car_statistics.csv")) as f:
+        cli_lines = f.read()
+    strip = lambda text: [row.rsplit(",", 1)[0]
+                          for row in text.splitlines()]
+    if strip(cli_lines) != strip(lines):
+        raise AssertionError("the CLI's master CSV differs from "
+                             "csv_eval's")
+    n_rows = len(lines.splitlines()) - 1
+    n_valid = int(dets["det_valid"].sum())
+    if n_rows != n_valid or analysis["total_detections"] != n_rows:
+        raise AssertionError(f"master CSV has {n_rows} rows for "
+                             f"{n_valid} valid detections")
+    with open(study_csv) as f:
+        n_study = len(f.read().splitlines()) - 1
+    if n_study != len(study.rows) or not os.path.getsize(study_xlsx):
+        raise AssertionError("erosion-study outputs are incomplete")
+    print(f"master CSV: {n_rows} rows for {n_valid} valid detections, "
+          f"byte-equal with the twin NMS, and the CLI's rows equal; "
+          f"erosion study: {n_study} rows "
+          f"and a {os.path.getsize(study_xlsx)}-byte workbook",
+          flush=True)
+    phase("csv_eval from disk", t0)
+    return launches, root
+
+
+def run_cli(argv):
+    """Run the port's CLI, echo its output, and return the output; a
+    non-zero exit raises."""
+    from lidar_object_detection_tpu_torch.pipelines import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if code != 0:
+        raise AssertionError(f"the CLI exited {code}: {argv}")
+    return text
+
+
+def same_pairs(got, ref, what):
+    """Matched pairs equal key by key, floats and corners exactly."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} pairs against {len(ref)}")
+    for p, q in zip(got, ref):
+        if list(p) != list(q) or any(
+                not np.array_equal(np.asarray(p[k]), np.asarray(q[k]))
+                for k in q):
+            raise AssertionError(f"{what}: pair {p} differs from {q}")
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def matching_phase(torch, dev, smi, root, tmp):
+    """V4, V5 and the exports through the CLI on the card, from the
+    csv_eval phase's KITTI-360 tree (4 frames of 376 x 1408, P = 131072, G
+    = 384 slots, 300 boxes each), with the n checkpoint as the CLI serves
+    it: ``run --version v4_iou``, ``run --version v5_projected
+    --export-ply --analysis-cloud car_color`` and ``depth-maps``.  The
+    launch counters are zeroed before each and read after it: the
+    detector's kernels once per run, K1 once per fusion (the V5 run fuses
+    again for its analysis clouds), the solver once per V5 batch and
+    nowhere else.
+
+    The references are the card's own detections (the detector as the CLI
+    builds it) through the pipeline on the card and on the CPU: V4 and V5
+    matched pairs equal (indices, IoUs and scores exactly), the CLI's
+    printed counts equal the card run's, and the CLI's PLY scenes,
+    analysis clouds and depth-map figures byte-equal to those written from
+    the CPU run.  It times the CLI runs (host clock), the V4 and V5
+    matching of the batch and the batch's depth-map scatter (CUDA events).
+    Returns each run's launches and the V5 run's assignment operands on
+    the card."""
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, PipelineVersion)
+    from lidar_object_detection_tpu_torch.data import Kitti360Dataset
+    from lidar_object_detection_tpu_torch.fusion.associate import (
+        hungarian_cost)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops.masks import unpack_point_bits
+    from lidar_object_detection_tpu_torch.ops.scatter import (
+        scatter_depth_maps)
+    from lidar_object_detection_tpu_torch.pipelines.runner import (
+        FusionPipeline)
+    from lidar_object_detection_tpu_torch.viz.export import (
+        export_fusion_scene, write_ply)
+    from lidar_object_detection_tpu_torch.viz.overlay import depth_map_figure
+
+    t0 = time.perf_counter()
+    base = ["--dataset", root, "--detector", "yolo", "--weights", CKPT]
+    runs = {"v4": ["run", "--version", "v4_iou"],
+            "v5": ["run", "--version", "v5_projected", "--export-ply",
+                   "--analysis-cloud", "car_color"],
+            "depth_maps": ["depth-maps"]}
+    outs, texts, launches, walls = {}, {}, {}, {}
+    for name, argv in runs.items():
+        outs[name] = os.path.join(tmp, f"cli_{name}")
         torch.cuda.synchronize()
         kernel_lib.reset_launches()
-        t1 = time.perf_counter()
-        analysis = csv_eval(root, master, detector=detector, device=dev,
-                            timestamp=stamp)
+        t = time.perf_counter()
+        texts[name] = run_cli(argv[:1] + base + argv[1:]
+                              + ["--output", outs[name]])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = dict(kernel_lib.LAUNCHES)
-        print(f"csv_eval launches: {launches}", flush=True)
-        if any(n != 1 for n in launches.values()):
-            raise AssertionError(f"csv_eval launched {launches} for its one "
-                                 f"batch, expected each kernel once")
-        fps = len(records) / wall
-        # the loader's part of that run, timed again on its own: scans and
-        # boxes, the batch, and the PNG decode
-        t1 = time.perf_counter()
-        batch = ds.make_batch(ds.load_frames())
-        t2 = time.perf_counter()
-        loaded = ds.load_images(batch)
-        t3 = time.perf_counter()
-        if not np.array_equal(loaded, images):
-            raise AssertionError("the loader's frames differ from the "
-                                 "committed PNGs and their mirrors")
-        print(f"csv_eval from disk: {fps:.2f} frames/s ({len(records)} "
-              f"frames in {wall:.3f} s, host clock: load, detect, fuse, "
-              f"CSV, analysis) on {smi}; loader {t3 - t1:.3f} s "
-              f"({(t3 - t1) / wall:.3f} of the run: scans and boxes "
-              f"{t2 - t1:.3f} s, PNG decode {t3 - t2:.3f} s); analysis "
-              f"{analysis}", flush=True)
+        walls[name] = time.perf_counter() - t
+        launches[name] = dict(kernel_lib.LAUNCHES)
+    print(f"matching and export launches: {launches}; CLI wall s "
+          f"{walls}", flush=True)
+    for name, k1, solver in (("v4", 1, 0), ("v5", 2, 1),
+                             ("depth_maps", 1, 0)):
+        want = dict(inside_counts=k1, mask_assemble=1, mask_count=1, nms=1,
+                    lap=solver)
+        if launches[name] != want:
+            raise AssertionError(f"the {name} CLI run launched "
+                                 f"{launches[name]}, expected {want}")
+    phase("matching and exports: the CLI on the card", t0)
 
-        study_csv = os.path.join(out, "erosion_study.csv")
-        study_xlsx = os.path.join(out, "master_car_statistics.csv.xlsx")
-        study = run_erosion_study(root, detector=detector,
-                                  output_csv=study_csv,
-                                  output_xlsx=study_xlsx, device=dev)
-        print(f"erosion study: {study.summary()}", flush=True)
+    detector, _, _ = load_serving_checkpoint(CKPT, (H0, W0),
+                                             default_scale="x", device=dev)
+    line = re.compile(r"^frame (\d+): (\d+) detections, (\d+) visible "
+                      r"boxes, (\d+) matched$", re.M)
+    summary, problem = {}, None
+    for name, version in (("v4", PipelineVersion.V4_IOU),
+                          ("v5", PipelineVersion.V5_PROJECTED)):
+        cfg = FusionConfig.for_version(version)
+        ds = Kitti360Dataset(root, shapes=cfg.shapes)
+        card = FusionPipeline(ds, cfg, detector, device=dev)
+        records = ds.load_frames()
+        batch = ds.make_batch(records)
+        dets = card.detect(records, batch)
+        cpu_dets = {k: v.cpu() for k, v in dets.items()}
+        got = card.run(detections=dets)
+        fused = card.fuse(batch, dets)
+        match_ms, _ = time_events(torch,
+                                  lambda: card.match(batch, dets, fused))
+        cpu = FusionPipeline(ds, cfg, device="cpu")
+        ref = cpu.run(detections=cpu_dets)
+        for a, b in zip(got.frames, ref.frames, strict=True):
+            same_pairs(a.matched_pairs, b.matched_pairs,
+                       f"{name} frame {a.frame_id}, card against CPU")
+        counts = [(str(f.frame_id), str(f.num_detections),
+                   str(f.num_visible_boxes),
+                   str(sum(not p.get("unmatched") for p in f.matched_pairs)))
+                  for f in got.frames]
+        if line.findall(texts[name]) != counts:
+            raise AssertionError(f"the {name} CLI printed "
+                                 f"{line.findall(texts[name])}, the card "
+                                 f"run has {counts}")
+        matched = sum(int(c[3]) for c in counts)
+        grey = sum(bool(p.get("unmatched")) for f in got.frames
+                   for p in f.matched_pairs)
+        summary[name] = {"matched": matched, "unmatched boxes": grey,
+                         "match_ms": match_ms}
+        if matched == 0:
+            raise AssertionError(f"{name}: no detection matched a box")
+        if name != "v5":
+            continue
+        cost, col_mask, *_ = hungarian_cost(
+            dets["boxes"].to(torch.float32), dets["det_valid"],
+            card._gt_corners(batch),
+            torch.from_numpy(batch.box_valid).to(dev), card._intrinsics,
+            cfg.score_weight_iou, cfg.score_weight_center,
+            cfg.score_weight_size, cfg.center_norm)
+        problem = (cost.contiguous(), dets["det_valid"].contiguous(),
+                   col_mask.contiguous())
+        ref_path = os.path.join(tmp, "ref.ply")
+        for fr, rec in zip(ref.frames, records):
+            export_fusion_scene(ref_path, rec.points[:, :3], None,
+                                fr.matched_pairs)
+            cli_path = os.path.join(outs[name],
+                                    f"frame_{fr.frame_id:010d}.ply")
+            if read_bytes(cli_path) != read_bytes(ref_path):
+                raise AssertionError(f"{cli_path} differs from the CPU "
+                                     f"run's scene")
+        clouds = cpu.analysis_clouds(mode="car_color", detections=cpu_dets)
+        colored = 0
+        for frame_id, pts, colors, _ in clouds:
+            write_ply(ref_path, pts, colors)
+            cli_path = os.path.join(outs[name],
+                                    f"analysis_{frame_id:010d}.ply")
+            if read_bytes(cli_path) != read_bytes(ref_path):
+                raise AssertionError(f"{cli_path} differs from the CPU "
+                                     f"run's analysis cloud")
+            colored += int((colors != 0.5).any(axis=1).sum())
+        summary["v5"]["coloured cloud points"] = colored
+        if not colored:
+            raise AssertionError("the analysis clouds colour no point")
 
-        # rows: one per valid detection; the same run with the twin NMS
-        cfg = FusionConfig.for_version(PipelineVersion.CSV_EVAL)
-        dets = FusionPipeline(ds, cfg, detector, device=dev).detect(
-            records, batch)
-        dets_plain = FusionPipeline(ds, cfg, plain, device=dev).detect(
-            records, batch)
-        for key in dets:
-            if not torch.equal(dets[key], dets_plain[key]):
-                raise AssertionError(f"csv_eval detections {key}: K5 and "
-                                     f"the twin NMS differ")
-        master_plain = os.path.join(out, "master_plain.csv")
-        csv_eval(root, master_plain, detector=plain, device=dev,
-                 timestamp=stamp)
-        with open(master) as f, open(master_plain) as g:
-            lines, lines_plain = f.read(), g.read()
-        if lines != lines_plain:
-            raise AssertionError("the master CSV differs between K5 and the "
-                                 "twin NMS")
-        # the CLI as a user runs it on the card: the same rows
-        cli_out = os.path.join(tmp, "cli")
-        if cli.main(["run", "--dataset", root, "--version", "csv_eval",
-                     "--detector", "yolo", "--weights", CKPT, "--output",
-                     cli_out]) != 0:
-            raise AssertionError("the CLI run failed")
-        with open(os.path.join(cli_out, "master_car_statistics.csv")) as f:
-            cli_lines = f.read()
-        strip = lambda text: [row.rsplit(",", 1)[0]
-                              for row in text.splitlines()]
-        if strip(cli_lines) != strip(lines):
-            raise AssertionError("the CLI's master CSV differs from "
-                                 "csv_eval's")
-        n_rows = len(lines.splitlines()) - 1
-        n_valid = int(dets["det_valid"].sum())
-        if n_rows != n_valid or analysis["total_detections"] != n_rows:
-            raise AssertionError(f"master CSV has {n_rows} rows for "
-                                 f"{n_valid} valid detections")
-        with open(study_csv) as f:
-            n_study = len(f.read().splitlines()) - 1
-        if n_study != len(study.rows) or not os.path.getsize(study_xlsx):
-            raise AssertionError("erosion-study outputs are incomplete")
-        print(f"master CSV: {n_rows} rows for {n_valid} valid detections, "
-              f"byte-equal with the twin NMS, and the CLI's rows equal; "
-              f"erosion study: {n_study} rows "
-              f"and a {os.path.getsize(study_xlsx)}-byte workbook",
-              flush=True)
-    phase("csv_eval from disk", t0)
-    return launches
+    cfg = FusionConfig.for_version(PipelineVersion.DEPTH_MAPS)
+    ds = Kitti360Dataset(root, shapes=cfg.shapes)
+    card = FusionPipeline(ds, cfg, detector, device=dev)
+    records = ds.load_frames()
+    batch = ds.make_batch(records)
+    dets = card.detect(records, batch)
+    fused = card.fuse(batch, dets)
+    scatter_ms, _ = time_events(torch, lambda: scatter_depth_maps(
+        fused["u"], fused["v"], fused["depth"],
+        unpack_point_bits(fused["point_bits"], D), fused["point_valid"], H0,
+        W0))
+    got = list(card.depth_maps(detections=dets))
+    ref = list(FusionPipeline(ds, cfg, device="cpu").depth_maps(
+        detections={k: v.cpu() for k, v in dets.items()}))
+    if [(f, c) for f, c, *_ in got] != [(f, c) for f, c, *_ in ref]:
+        raise AssertionError("the card's depth maps are of other cars than "
+                             "the CPU's")
+    for (f, c, dm, seg), (_, _, rdm, rseg) in zip(got, ref):
+        if not (np.array_equal(dm, rdm) and np.array_equal(seg, rseg)):
+            raise AssertionError(f"depth map of frame {f} car {c}: card "
+                                 f"and CPU differ")
+    names = [f"{f:010d},depth_map_car_{c:02d}_.png" for f, c, *_ in ref]
+    if sorted(os.listdir(outs["depth_maps"])) != sorted(names) or not names:
+        raise AssertionError(f"the depth-maps CLI wrote "
+                             f"{sorted(os.listdir(outs['depth_maps']))}")
+    ref_png = os.path.join(tmp, "ref.png")
+    for name, (f, c, dm, seg) in zip(names, ref):
+        depth_map_figure(dm, seg, c, f, ref_png)
+        if read_bytes(os.path.join(outs["depth_maps"], name)) != \
+                read_bytes(ref_png):
+            raise AssertionError(f"{name} differs from the CPU run's")
+    summary["depth_maps"] = {"maps": len(names), "pixels": int(sum(
+        (dm > 0).sum() for *_, dm, _ in ref)), "scatter_ms": scatter_ms}
+    summary["cli_wall_s"] = walls
+    print(f"matching and exports: V4 and V5 pairs equal to the CPU run on "
+          f"the card's detections, the CLI's counts to the card run's; PLY "
+          f"scenes, analysis clouds and depth-map figures byte-equal to the "
+          f"CPU's, on {smi}", flush=True)
+    print(json.dumps({"matching": summary}), flush=True)
+    phase("matching and exports", t0)
+    return launches, problem
 
 
 # ---------------------------------------------------------------------------
@@ -1311,7 +1667,8 @@ def headline_stream(torch, dev, rng, detector, root):
           flush=True)
     if sorted(compact) != ids:
         raise AssertionError(f"the stream gave frames {sorted(compact)}")
-    if dev.type == "cuda" and any(n != chunks for n in launches.values()):
+    if dev.type == "cuda" and any(launches[k] != chunks
+                                  for k in PATH_KERNELS):
         raise AssertionError(f"the headline stream launched {launches}, "
                              f"expected each kernel once per chunk")
     # the same again, timed warm; then the references
@@ -1394,8 +1751,8 @@ def headline_stream(torch, dev, rng, detector, root):
     if sorted(streamed) != sorted(many):
         raise AssertionError(f"the stream of {len(many)} frames gave "
                              f"{sorted(streamed)}")
-    if dev.type == "cuda" and any(n != chunks_many
-                                  for n in launches_many.values()):
+    if dev.type == "cuda" and any(launches_many[k] != chunks_many
+                                  for k in PATH_KERNELS):
         raise AssertionError(f"the stream of {chunks_many} chunks launched "
                              f"{launches_many}")
     # the chunks' composition follows the loader threads' completion order
@@ -1442,18 +1799,7 @@ def headline_device(torch, dev, smi, detector, operands, times):
     corners = pipe._gt_corners(batch)
     calib = (pipe._velo_to_rect, pipe._corners_to_velo, pipe._intrinsics)
 
-    def events(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters, out
-
+    events = lambda fn: time_events(torch, fn)
     forward_ms, outputs = events(lambda: detector.forward(gpu_images))
 
     def step():
@@ -1717,7 +2063,11 @@ def main() -> int:
     launches = main_path(torch, dev, smi, detector, images, scenes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    csv_launches = csv_eval_phase(torch, dev, smi, images, scenes)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_launches, root = csv_eval_phase(torch, dev, smi, images, scenes,
+                                            tmp)
+        match_launches, problem = matching_phase(torch, dev, smi, root, tmp)
+    lap = check_lap(torch, dev, rng, problem)
     for k in kernels:
         k["csv_eval_launches"] = csv_launches[k["name"]]
     del detector
@@ -1731,6 +2081,15 @@ def main() -> int:
         k["headline_launches"] = launches[k["name"]]
         k["headline_launches_4_chunks"] = times["launches_many"][k["name"]]
         k.update(cases[k["name"]])
+    # the solver's main path is the V5 run
+    lap.update(launches=match_launches["v5"]["lap"],
+               csv_eval_launches=csv_launches["lap"],
+               headline_launches=launches["lap"],
+               headline_launches_4_chunks=times["launches_many"]["lap"])
+    kernels.append(lap)
+    for k in kernels:
+        k["matching_launches"] = {run: n[k["name"]]
+                                  for run, n in match_launches.items()}
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -8,7 +8,9 @@ from lidar_object_detection_tpu_torch.geom.boxes import (
     corners_visibility,
     corners_visibility_rich,
     iou_2d_matrix,
+    points_in_aabb,
     points_in_oriented_boxes,
+    project_boxes_to_2d,
     transform_corners,
 )
 
@@ -20,6 +22,8 @@ __all__ = [
     "corners_visibility",
     "corners_visibility_rich",
     "iou_2d_matrix",
+    "points_in_aabb",
     "points_in_oriented_boxes",
+    "project_boxes_to_2d",
     "transform_corners",
 ]

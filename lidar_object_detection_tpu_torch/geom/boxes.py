@@ -8,7 +8,9 @@ Counterpart of ``lidar_object_detection_tpu/geom/boxes.py``:
   [0, 1],
 * ``corners_visibility`` -- ``filter_visible_bboxes`` (V1:96-115), and the
   richer ``is_bbox_in_camera_view`` (secondtest.py:277-359),
-* ``iou_2d_matrix`` -- ``calculate_iou_2d`` (V4:118-137).
+* ``iou_2d_matrix`` -- ``calculate_iou_2d`` (V4:118-137),
+* ``project_boxes_to_2d`` -- ``project_3d_bbox_to_2d`` (V5:215-252), and
+  ``points_in_aabb`` -- ``point_in_bbox`` (V1:118-139).
 
 Corner order (V1:157-158): corners 0-3 bottom face, 4-7 top; edges
 v1 = c1 - c0, v2 = c3 - c0, v3 = c4 - c0.
@@ -92,6 +94,19 @@ def points_in_oriented_boxes(points: torch.Tensor, corners: torch.Tensor,
     return inside
 
 
+def points_in_aabb(points: torch.Tensor, corners: torch.Tensor,
+                   box_mask=None):
+    """Axis-aligned fallback test (``point_in_bbox``, V1:118-139):
+    (P, 3) points x (G, 8, 3) corners -> (P, G) bool."""
+    lo = corners.amin(dim=-2)                                  # (G, 3)
+    hi = corners.amax(dim=-2)
+    p = points[:, None, :]
+    inside = ((p >= lo[None]) & (p <= hi[None])).all(dim=-1)
+    if box_mask is not None:
+        inside = inside & box_mask
+    return inside
+
+
 def corners_visibility(corners_cam0, intrinsics, width: int, height: int,
                        min_corners: int = 2, depth_min: float = 0.1,
                        box_mask=None):
@@ -168,3 +183,38 @@ def iou_2d_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
     union = area_a + area_b - inter
     safe = torch.where(union > 0, union, torch.ones_like(union))
     return torch.where(union > 0, inter / safe, torch.zeros_like(union))
+
+
+def project_boxes_to_2d(corners_cam0: torch.Tensor,
+                        intrinsics: torch.Tensor):
+    """``project_3d_bbox_to_2d`` (V5:215-252) over (..., G, 8, 3) corners.
+
+    Returns a dict of (..., G)-shaped tensors: ``bbox`` (..., G, 4) xyxy
+    of the corners with depth > 0, ``center`` (..., G, 2), ``size`` (...,
+    G, 2), ``area``, ``avg_depth``, and ``valid`` (any corner with depth
+    > 0).  A box with no such corner (the reference returns None there)
+    gets zeros and ``valid=False``: the extremes start from +-inf, which
+    only such a box keeps.
+    """
+    u, v, depth = cam2image(corners_cam0, intrinsics)          # (..., G, 8)
+    pos = depth > 0
+    valid = pos.any(dim=-1)
+    inf = torch.full_like(u, float("inf"))
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    x_min = torch.where(valid, torch.where(pos, u, inf).amin(dim=-1), zero)
+    x_max = torch.where(valid, torch.where(pos, u, -inf).amax(dim=-1), zero)
+    y_min = torch.where(valid, torch.where(pos, v, inf).amin(dim=-1), zero)
+    y_max = torch.where(valid, torch.where(pos, v, -inf).amax(dim=-1), zero)
+    width = x_max - x_min
+    height = y_max - y_min
+    depth_sum = torch.where(pos, depth, zero).sum(dim=-1)
+    depth_cnt = pos.sum(dim=-1).clamp(min=1)
+    return {
+        "bbox": torch.stack([x_min, y_min, x_max, y_max], dim=-1),
+        "center": torch.stack([(x_min + x_max) / 2, (y_min + y_max) / 2],
+                              dim=-1),
+        "size": torch.stack([width, height], dim=-1),
+        "area": width * height,
+        "avg_depth": depth_sum / depth_cnt,
+        "valid": valid,
+    }

@@ -1,3 +1,4 @@
-"""Packed masks, erosion, NMS, resize weights, and the CUDA kernels with
-their plain twins (``inside_counts``, ``mask_assembly``, ``nms``).  The
-kernels are built on first use (``kernel_lib``), never at import."""
+"""Packed masks, erosion, NMS, resize weights, the depth-map scatter, the
+exact assignment solver, and the CUDA kernels with their plain twins
+(``inside_counts``, ``mask_assembly``, ``nms``, ``lap``).  The kernels are
+built on first use (``kernel_lib``), never at import."""

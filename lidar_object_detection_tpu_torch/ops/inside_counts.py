@@ -78,18 +78,6 @@ def inside_counts_plain(points, point_bits, corners, box_mask,
             torch.stack([t for _, t in frames]))
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def inside_counts_cuda(points, point_bits, corners, box_mask, num_det: int):
     """Launch the CUDA inside-count kernel once for one frame or a batch.
 
@@ -112,10 +100,11 @@ def inside_counts_cuda(points, point_bits, corners, box_mask, num_det: int):
         return counts[0], totals[0]
     b, p = points.shape[:2]
     g = corners.shape[1]
-    _check(points, "points", torch.float32, (b, p, 3), device)
-    _check(point_bits, "point_bits", torch.int32, (b, p), device)
-    _check(corners, "corners", torch.float32, (b, g, 8, 3), device)
-    _check(box_mask, "box_mask", torch.bool, (b, g), device)
+    check = kernel_lib.check_operand
+    check(points, "points", torch.float32, (b, p, 3), device)
+    check(point_bits, "point_bits", torch.int32, (b, p), device)
+    check(corners, "corners", torch.float32, (b, g, 8, 3), device)
+    check(box_mask, "box_mask", torch.bool, (b, g), device)
     axes, offsets = masked_box_frame(corners, box_mask)
     frame = torch.cat([axes, offsets[..., None]], dim=-1).reshape(b, g, 12)
     frame = frame.contiguous()

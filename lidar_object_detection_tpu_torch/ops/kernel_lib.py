@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("inside_counts.cu", "mask_assembly.cu", "nms.cu")
+SOURCES = ("inside_counts.cu", "mask_assembly.cu", "nms.cu", "lap.cu")
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -42,6 +42,7 @@ SIGNATURES = {
     "mask_count_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _P, _P),
     "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+    "lap_launch": (_P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -144,6 +145,20 @@ def check(code: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def check_operand(t, name: str, dtype, shape, device) -> None:
+    """Raise unless tensor ``t`` is on ``device``, of ``dtype`` and
+    ``shape``, and contiguous: what a kernel's pointer may be given."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def stream_handle(device) -> int:

@@ -61,9 +61,18 @@ def gather_point_bits(mask_bits: torch.Tensor, u, v, valid) -> torch.Tensor:
 
 
 def unpack_point_bits(bits: torch.Tensor, num_detections: int):
-    """(P,) int32 -> (D, P) bool membership."""
+    """(..., P) int32 -> (..., D, P) bool membership."""
     d = torch.arange(num_detections, dtype=torch.int32, device=bits.device)
-    return ((bits[None, :] >> d[:, None]) & 1).to(torch.bool)
+    return ((bits[..., None, :] >> d[:, None]) & 1).to(torch.bool)
+
+
+def gather_mask_bits(mask_bits: torch.Tensor, u, v, valid,
+                     num_detections: int) -> torch.Tensor:
+    """Per-point mask membership of every detection at once: (..., H, W)
+    int32 words and (..., P) coordinates and validity -> (..., D, P)
+    bool, True where point p is valid and in detection d's mask."""
+    return unpack_point_bits(gather_point_bits(mask_bits, u, v, valid),
+                             num_detections)
 
 
 def detection_word(det_valid: torch.Tensor) -> torch.Tensor:

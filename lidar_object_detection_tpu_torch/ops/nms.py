@@ -74,18 +74,6 @@ def nms_plain(boxes, scores, valid, iou_threshold: float, max_outputs: int):
     return out_idx, out_keep
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def nms_cuda(boxes, scores, valid, iou_threshold: float, max_outputs: int):
     """Launch the CUDA NMS kernel over a batch.
 
@@ -102,9 +90,10 @@ def nms_cuda(boxes, scores, valid, iou_threshold: float, max_outputs: int):
                          f"candidates, got {n}")
     if max_outputs < 1:
         raise ValueError(f"max_outputs must be >= 1, got {max_outputs}")
-    _check(boxes, "boxes", torch.float32, (b, n, 4), device)
-    _check(scores, "scores", torch.float32, (b, n), device)
-    _check(valid, "valid", torch.bool, (b, n), device)
+    check = kernel_lib.check_operand
+    check(boxes, "boxes", torch.float32, (b, n, 4), device)
+    check(scores, "scores", torch.float32, (b, n), device)
+    check(valid, "valid", torch.bool, (b, n), device)
     if device.type != "cuda":
         raise ValueError(f"nms_cuda needs CUDA tensors, got {device}")
     if boxes.data_ptr() % 16:

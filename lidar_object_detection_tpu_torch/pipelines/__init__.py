@@ -9,9 +9,12 @@ from lidar_object_detection_tpu_torch.pipelines.runner import (
     v1_pointwise,
     v2_stats,
     v3_erosion,
+    v4_iou,
+    v5_projected,
 )
 
 __all__ = [
     "FrameResult", "FusionPipeline", "RunResult",
-    "csv_eval", "v1_pointwise", "v2_stats", "v3_erosion",
+    "csv_eval", "v1_pointwise", "v2_stats", "v3_erosion", "v4_iou",
+    "v5_projected",
 ]

@@ -3,19 +3,24 @@
   python -m lidar_object_detection_tpu_torch run --version csv_eval \\
       --dataset /path/to/KITTI360_sample --detector yolo \\
       --weights checkpoints/yolo11n_seg_distill.msgpack --output results/
+  python -m lidar_object_detection_tpu_torch run --version v5_projected \\
+      --dataset /path/to/KITTI360_sample --output results/ \\
+      --export-ply --analysis-cloud car_color
   python -m lidar_object_detection_tpu_torch erosion-study \\
       --dataset /path/to/KITTI360_sample --output results/
+  python -m lidar_object_detection_tpu_torch depth-maps \\
+      --dataset /path/to/KITTI360_sample --output Predictions/
 
 Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py`` for the
-``run`` (V1-V3, csv_eval) and ``erosion-study`` subcommands.  ``--device``
-(default ``cuda``) takes the place of the JAX CLI's ``--platform``;
-``--device cpu`` runs the plain twins on the CPU.  The YOLO detector
-serves a msgpack checkpoint in float32 with unfolded weights, at the
-operating point its sidecar records, as the JAX CLI does.
+``run`` (every version, with ``--export-ply`` and ``--analysis-cloud``),
+``erosion-study`` and ``depth-maps`` subcommands.  ``--device`` (default
+``cuda``) takes the place of the JAX CLI's ``--platform``; ``--device
+cpu`` runs the plain twins on the CPU.  The YOLO detector serves a msgpack
+checkpoint in float32 with unfolded weights, at the operating point its
+sidecar records, as the JAX CLI does.
 
-The other subcommands, weight formats and export options of the JAX CLI
-are not ported yet: they exit non-zero with a message naming their
-ROADMAP item.
+The other subcommands and weight formats of the JAX CLI are not ported
+yet: they exit non-zero with a message naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,14 +34,14 @@ from lidar_object_detection_tpu_torch.config import (
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 UNPORTED_COMMANDS = {
-    "depth-maps": 6,
     "kitti2d": 6,
     "convert-weights": 6,
     "pointpillars-train": 8,
     "pointpillars-infer": 8,
 }
-PORTED_VERSIONS = (PipelineVersion.V1_POINTWISE, PipelineVersion.V2_STATS,
-                   PipelineVersion.V3_EROSION, PipelineVersion.CSV_EVAL)
+# the versions whose run writes the master CSV (as the JAX CLI's)
+CSV_VERSIONS = (PipelineVersion.CSV_EVAL, PipelineVersion.V2_STATS,
+                PipelineVersion.V3_EROSION)
 
 
 def _not_ported(what: str, item: int) -> SystemExit:
@@ -123,12 +128,19 @@ def _parser() -> argparse.ArgumentParser:
                                 if v not in (PipelineVersion.DEPTH_MAPS,
                                              PipelineVersion.KITTI2D_EVAL)])
     run_p.add_argument("--output", default="results",
-                       help="output dir (master CSV)")
+                       help="output dir (master CSV, PLY exports)")
     run_p.add_argument("--export-ply", action="store_true",
-                       help="not ported yet (ROADMAP Queue 1 item 6)")
+                       help="write each frame's scene (points and matched "
+                            "box wireframes) as frame_<id>.ply")
     run_p.add_argument("--analysis-cloud",
                        choices=["inside_outside", "car_color"], default=None,
-                       help="not ported yet (ROADMAP Queue 1 item 6)")
+                       help="write the V2 per-point bbox-analysis cloud "
+                            "(green/red inside-outside labels, or the "
+                            "reference's car colours) as analysis_<id>.ply")
+
+    dm_p = sub.add_parser("depth-maps", help="per-car depth-map export")
+    _add_common(dm_p)
+    dm_p.add_argument("--output", default="Predictions")
 
     es_p = sub.add_parser("erosion-study",
                           help="erosion vs no-erosion comparison (the "
@@ -169,18 +181,36 @@ def main(argv=None) -> int:
         print("erosion study:", res.summary())
         return 0
 
-    # cmd == run
-    version = PipelineVersion(args.version)
-    if version not in PORTED_VERSIONS:
-        raise _not_ported(f"version {version.value}", 6)
-    if args.export_ply:
-        raise _not_ported("--export-ply", 6)
-    if args.analysis_cloud:
-        raise _not_ported("--analysis-cloud", 6)
-    from lidar_object_detection_tpu_torch.eval.statistics import (
-        analyze_master_csv)
     from lidar_object_detection_tpu_torch.pipelines.runner import (
         FusionPipeline)
+
+    if args.cmd == "depth-maps":
+        import numpy as np
+
+        from lidar_object_detection_tpu_torch.viz.overlay import (
+            depth_map_figure)
+
+        cfg = FusionConfig.for_version(PipelineVersion.DEPTH_MAPS)
+        ds = Kitti360Dataset(args.dataset, shapes=cfg.shapes)
+        pipe = FusionPipeline(ds, cfg, _build_detector(args, ds),
+                              device=args.device)
+        os.makedirs(args.output, exist_ok=True)
+        count = 0
+        for frame_id, car_id, dm, seg in pipe.depth_maps(args.frames):
+            path = os.path.join(
+                args.output,
+                f"{frame_id:010d},depth_map_car_{car_id:02d}_.png")
+            if seg is None:
+                seg = np.zeros((*dm.shape, 3), np.uint8)
+            depth_map_figure(dm, seg, car_id, frame_id, path)
+            count += 1
+        print(f"wrote {count} depth maps to {args.output}")
+        return 0
+
+    # cmd == run
+    version = PipelineVersion(args.version)
+    from lidar_object_detection_tpu_torch.eval.statistics import (
+        analyze_master_csv)
 
     cfg = FusionConfig.for_version(version)
     ds = Kitti360Dataset(args.dataset, shapes=cfg.shapes)
@@ -188,7 +218,7 @@ def main(argv=None) -> int:
                           device=args.device)
     os.makedirs(args.output, exist_ok=True)
     master_csv = (os.path.join(args.output, "master_car_statistics.csv")
-                  if version != PipelineVersion.V1_POINTWISE else None)
+                  if version in CSV_VERSIONS else None)
     result = pipe.run(args.frames, master_csv=master_csv)
 
     print(f"processed {len(result.frames)} frames in {result.elapsed_s:.3f}s "
@@ -197,11 +227,31 @@ def main(argv=None) -> int:
     print(f"cars: {s['total_cars']}  matched: {s['matched']}  "
           f"avg inside%: {s['avg_inside_pct']:.2f}")
     for fr in result.frames:
+        n_matched = sum(1 for p in fr.matched_pairs
+                        if not p.get("unmatched"))
         print(f"frame {fr.frame_id}: {fr.num_detections} detections, "
-              f"{fr.num_visible_boxes} visible boxes, "
-              f"{len(fr.matched_pairs)} matched")
+              f"{fr.num_visible_boxes} visible boxes, {n_matched} matched")
     if master_csv:
         print("analysis:", analyze_master_csv(master_csv))
+    if args.export_ply:
+        from lidar_object_detection_tpu_torch.viz.export import (
+            export_fusion_scene)
+        records = ds.load_frames(args.frames)
+        for fr, rec in zip(result.frames, records):
+            path = os.path.join(args.output, f"frame_{fr.frame_id:010d}.ply")
+            export_fusion_scene(path, rec.points[:, :3], None,
+                                fr.matched_pairs)
+        print(f"PLY scenes written to {args.output}")
+    if args.analysis_cloud:
+        from lidar_object_detection_tpu_torch.viz.export import write_ply
+        clouds = pipe.analysis_clouds(
+            [fr.frame_id for fr in result.frames], mode=args.analysis_cloud,
+            detections=result.detections)
+        for frame_id, pts, colors, _ in clouds:
+            write_ply(os.path.join(args.output,
+                                   f"analysis_{frame_id:010d}.ply"),
+                      pts, colors)
+        print(f"analysis clouds written to {args.output}")
     return 0
 
 

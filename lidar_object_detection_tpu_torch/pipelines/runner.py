@@ -1,19 +1,21 @@
 """The fusion pipeline runner: the entry points of the reference scripts.
 
-Counterpart of ``lidar_object_detection_tpu/pipelines/runner.py`` for the
-point-count pipelines: V1-V3 and csv_eval (``cvs_erosion.py``), with or
-without erosion.  A run loads a KITTI-360 directory (``data/``), detects
-(the stub by default, or ``YoloDetector``: kernels K5, K3 and K2 on the
-card), fuses on the device (``fusion/associate.py``: kernel K1 on the
-card), and formats the per-car rows on the host, appending them to the
-master CSV.  ``FusionPipeline.stream`` runs a whole sequence in fixed-size
-chunks: the native prefetcher (``data/native.py``) reads and, by default,
-culls the scans to the camera frustum, and a producer thread reads boxes
-and decodes PNGs one chunk ahead of the card.
+Counterpart of ``lidar_object_detection_tpu/pipelines/runner.py``: V1-V3
+and csv_eval (``cvs_erosion.py``, point-count matching, with or without
+erosion), V4 (greedy 2D IoU) and V5 (Hungarian), and the export paths.  A
+run loads a KITTI-360 directory (``data/``), detects (the stub by default,
+or ``YoloDetector``: kernels K5, K3 and K2 on the card), fuses on the
+device (``fusion/associate.py``: kernel K1 on the card), matches (V4, or
+V5 with the ``lap`` kernel on the card), and formats the per-car rows on
+the host, appending them to the master CSV.  ``FusionPipeline.stream``
+runs a whole sequence in fixed-size chunks: the native prefetcher
+(``data/native.py``) reads and, by default, culls the scans to the camera
+frustum, and a producer thread reads boxes and decodes PNGs one chunk
+ahead of the card.
 
-Not ported yet (ROADMAP Queue 1 item 6): the V4 greedy-IoU and V5
-Hungarian matchers, depth maps and the V2 analysis cloud.  Asking for them
-raises ``NotImplementedError``.
+The exports run on the device a batch at a time: ``depth_maps``
+(seg_with_pointcloud.py; a scatter-max per detection, ``ops/scatter.py``)
+and ``analysis_clouds`` (the V2 per-point bbox-analysis cloud).
 """
 
 from __future__ import annotations
@@ -34,18 +36,23 @@ from lidar_object_detection_tpu_torch.data.kitti360 import (
 from lidar_object_detection_tpu_torch.data.native import (
     CompactionSpec, ScanPrefetcher)
 from lidar_object_detection_tpu_torch.eval import statistics as stats_lib
-from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
+from lidar_object_detection_tpu_torch.fusion.associate import (
+    fuse_batch, greedy_iou_match, hungarian_match, point_inside_labels)
 from lidar_object_detection_tpu_torch.geom.boxes import transform_corners
 from lidar_object_detection_tpu_torch.models.stub import StubDetector
-
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 6)"
+from lidar_object_detection_tpu_torch.ops import masks as masks_lib
+from lidar_object_detection_tpu_torch.ops.scatter import scatter_depth_maps
+from lidar_object_detection_tpu_torch.viz.overlay import (
+    analysis_cloud_colors, overlay_masks)
 
 
 @dataclasses.dataclass
 class FrameResult:
     frame_id: int
     statistics: List[stats_lib.CarStatistics]
-    matched_pairs: List[dict]   # {detection, box_index, corners_velo, ...}
+    # {detection, box_index, corners_velo, ...}; V5 appends its unmatched
+    # boxes (detection -1, "unmatched", a grey "color")
+    matched_pairs: List[dict]
     num_detections: int
     num_visible_boxes: int
 
@@ -53,15 +60,18 @@ class FrameResult:
 @dataclasses.dataclass
 class RunResult:
     """``frames_per_s`` is end to end: detection (when this run performed
-    it) + fusion.  ``fusion_frames_per_s`` covers only the fusion;
-    ``detect_s`` is 0.0 when the caller passed the detections."""
+    it) + fusion + matching.  ``fusion_frames_per_s`` covers only the
+    fusion and matching; ``detect_s`` is 0.0 when the caller passed the
+    detections.  ``detections`` are those the run fused, on the
+    pipeline's device (the exports reuse them)."""
 
     frames: List[FrameResult]
     csv_rows: List[stats_lib.CarStatistics]
-    elapsed_s: float            # detect_s + fusion time
+    elapsed_s: float            # detect_s + fusion and matching time
     frames_per_s: float         # end to end (same window as elapsed_s)
     detect_s: float = 0.0
     fusion_frames_per_s: float = 0.0
+    detections: Optional[Dict[str, torch.Tensor]] = None
 
     def summary(self) -> dict:
         return stats_lib.summarize(self.csv_rows)
@@ -82,9 +92,6 @@ class FusionPipeline:
             raise RuntimeError("device='cuda' was asked for, but CUDA is not "
                                "available; pass device='cpu' to run on the "
                                "CPU")
-        if config.match_strategy != MatchStrategy.POINT_COUNT:
-            raise NotImplementedError(
-                f"match strategy {config.match_strategy.value}: {NOT_PORTED}")
         self.dataset = dataset
         self.config = config
         self.params = FusionParams.from_config(config)
@@ -162,14 +169,19 @@ class FusionPipeline:
             detect_s = time.perf_counter() - td
 
         t0 = time.perf_counter()
+        detections = {k: torch.as_tensor(v).to(self.device)
+                      for k, v in detections.items()}
         fused = self.fuse(batch, detections)
+        match_idx, match_aux = self.match(batch, detections, fused)
         self._sync()
         elapsed = time.perf_counter() - t0
 
         fused_np = {k: fused[k].cpu().numpy() for k in (
             "total_points", "best_box", "points_inside", "matched",
             "box_visible", "corners_velo")}
-        det_valid = torch.as_tensor(detections["det_valid"]).cpu().numpy()
+        match_idx = match_idx.cpu().numpy()
+        match_aux = {k: v.cpu().numpy() for k, v in match_aux.items()}
+        det_valid = detections["det_valid"].cpu().numpy()
         frames: List[FrameResult] = []
         all_rows: List[stats_lib.CarStatistics] = []
         for i, rec in enumerate(records):
@@ -180,7 +192,8 @@ class FusionPipeline:
                 fused_np["box_visible"][i])
             frames.append(FrameResult(
                 frame_id=rec.frame_id, statistics=rows,
-                matched_pairs=self._matched_pairs(i, det_valid, fused_np),
+                matched_pairs=self._matched_pairs(
+                    i, det_valid, match_idx, match_aux, fused_np),
                 num_detections=int(det_valid[i].sum()),
                 num_visible_boxes=int(fused_np["box_visible"][i].sum())))
             all_rows.extend(rows)
@@ -191,20 +204,62 @@ class FusionPipeline:
         fusion_fps = len(records) / elapsed if elapsed > 0 else 0.0
         return RunResult(frames=frames, csv_rows=all_rows,
                          elapsed_s=total, frames_per_s=fps,
-                         detect_s=detect_s, fusion_frames_per_s=fusion_fps)
+                         detect_s=detect_s, fusion_frames_per_s=fusion_fps,
+                         detections=detections)
 
-    def _matched_pairs(self, i, det_valid, fused_np) -> List[dict]:
+    def match(self, batch: FrameBatch, detections: Dict[str, torch.Tensor],
+              fused: Dict[str, torch.Tensor]):
+        """Each detection's GT box under the configured strategy: the
+        fusion's best box (point count), the greedy 2D IoU against the
+        visible boxes (V4), or the Hungarian assignment against every real
+        box (V5, which skips the visibility filter).  Returns (match_idx
+        (B, D) int32, -1 unmatched, and the per-pair values: V4 ``iou``,
+        V5 ``score`` and ``iou``)."""
+        c = self.config
+        if c.match_strategy == MatchStrategy.POINT_COUNT:
+            return fused["best_box"], {}
+        boxes = detections["boxes"].to(torch.float32)
+        corners = self._gt_corners(batch)
+        if c.match_strategy == MatchStrategy.GREEDY_IOU:
+            idx, iou = greedy_iou_match(
+                boxes, detections["det_valid"], corners,
+                fused["box_visible"], self._intrinsics, c.greedy_min_iou)
+            return idx, {"iou": iou}
+        idx, score, iou = hungarian_match(
+            boxes, detections["det_valid"], corners,
+            torch.from_numpy(batch.box_valid).to(self.device),
+            self._intrinsics, c.hungarian_min_score, c.hungarian_min_iou,
+            c.score_weight_iou, c.score_weight_center, c.score_weight_size,
+            c.center_norm)
+        return idx, {"score": score, "iou": iou}
+
+    def _matched_pairs(self, i, det_valid, match_idx, match_aux,
+                       fused_np) -> List[dict]:
         """Each matched detection of frame ``i`` with its box, for
-        wireframe rendering (V1:400-405)."""
+        wireframe rendering (V1:400-405, V4:177-182, V5:553-556); V5 adds
+        every unmatched box in light grey (V5:408-414)."""
         pairs = []
+        corners_velo = fused_np["corners_velo"][i]
         for det in range(self.config.shapes.max_detections):
-            box = int(fused_np["best_box"][i][det])
+            box = int(match_idx[i][det])
             if not det_valid[i][det] or box < 0:
                 continue
-            pairs.append({
-                "detection": det, "box_index": box,
-                "corners_velo": fused_np["corners_velo"][i][box],
-                "point_count": int(fused_np["points_inside"][i][det])})
+            pair = {"detection": det, "box_index": box,
+                    "corners_velo": corners_velo[box]}
+            for k, v in match_aux.items():
+                pair[k] = float(v[i][det])
+            if self.config.match_strategy == MatchStrategy.POINT_COUNT:
+                pair["point_count"] = int(fused_np["points_inside"][i][det])
+            pairs.append(pair)
+        if self.config.match_strategy == MatchStrategy.HUNGARIAN:
+            matched_boxes = {p["box_index"] for p in pairs}
+            box_valid = fused_np["box_visible"][i]
+            for g in range(box_valid.shape[0]):
+                if box_valid[g] and g not in matched_boxes:
+                    pairs.append({"detection": -1, "box_index": g,
+                                  "corners_velo": corners_velo[g],
+                                  "unmatched": True,
+                                  "color": (0.7, 0.7, 0.7)})
         return pairs
 
     # ------------------------------------------------------------------
@@ -363,14 +418,108 @@ class FusionPipeline:
             corners_cam0=corners, box_valid=box_valid,
             image_paths=[self.dataset.image_path(k[0]) for k in keep])
 
-    def depth_maps(self, *args, **kwargs):
-        """Per-car depth maps (seg_with_pointcloud.py)."""
-        raise NotImplementedError(f"depth_maps: {NOT_PORTED}")
+    # ------------------------------------------------------------------
+    def _detections_for(self, records, batch: FrameBatch, detections,
+                        lo: int = 0) -> Dict[str, torch.Tensor]:
+        """The batch's detections on the device: frames ``lo`` onward of
+        the given ``detections``, or the detector's."""
+        if detections is None:
+            return self.detect(records, batch)
+        n = len(records)
+        return {k: torch.as_tensor(v)[lo:lo + n].to(self.device)
+                for k, v in detections.items()}
 
-    def analysis_cloud(self, *args, **kwargs):
-        """The V2 per-point bbox-analysis cloud."""
-        raise NotImplementedError(f"analysis_cloud: {NOT_PORTED}")
+    def analysis_clouds(self, frame_ids: Optional[Sequence[int]] = None,
+                        mode: str = "inside_outside",
+                        detections: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> List[tuple]:
+        """The V2 per-point bbox-analysis cloud of each frame
+        (V2_point_cloud_without_erosion.py:446-491): each matched car's
+        points labelled inside or outside its matched GT box (point-count
+        match), on the device, one batch for all frames.  ``detections``
+        (e.g. a run's) skip the detector; they must cover the frames.
 
+        Returns a list of (frame_id, points (N, 3), colours (N, 3) in
+        [0, 1], matched corners list) over each frame's real points.
+        """
+        records = self.dataset.load_frames(frame_ids)
+        if not records:
+            return []
+        batch = self.dataset.make_batch(records)
+        dets = self._detections_for(records, batch, detections)
+        fused = self.fuse(batch, dets)
+        d = self.config.shapes.max_detections
+        inside = point_inside_labels(
+            torch.from_numpy(batch.points).to(self.device),
+            fused["point_bits"], fused["corners_velo"], fused["best_box"],
+            fused["matched"], d)
+        bits = fused["point_bits"].cpu().numpy()
+        inside = inside.cpu().numpy()
+        best_box = fused["best_box"].cpu().numpy()
+        matched = fused["matched"].cpu().numpy()
+        corners_velo = fused["corners_velo"].cpu().numpy()
+        out = []
+        for i, rec in enumerate(records):
+            valid = batch.point_valid[i]       # real (non-pad) points
+            colors = analysis_cloud_colors(bits[i][valid], inside[i][valid],
+                                           d, mode=mode)
+            corners = [corners_velo[i][int(b)]
+                       for b, m in zip(best_box[i], matched[i]) if m]
+            out.append((rec.frame_id, batch.points[i][valid][:, :3], colors,
+                        corners))
+        return out
+
+    def analysis_cloud(self, frame_id: int, mode: str = "inside_outside"):
+        """One frame's analysis cloud: (points, colours, matched corners),
+        as the JAX package's ``analysis_cloud`` returns it."""
+        clouds = self.analysis_clouds([frame_id], mode)
+        if not clouds:
+            raise ValueError(f"frame {frame_id} not loadable")
+        return clouds[0][1:]
+
+    def depth_maps(self, frame_ids: Optional[Sequence[int]] = None,
+                   with_seg_images: bool = True,
+                   detections: Optional[Dict[str, torch.Tensor]] = None,
+                   chunk: int = 8):
+        """Per-car depth maps (seg_with_pointcloud.py:160-170), on the
+        device, ``chunk`` frames at a time (each frame's maps take D x H x
+        W float32, 68 MB at full size).
+
+        Yields (frame_id, car_id, depth_map (H, W) float32, seg_image) for
+        each valid detection with points, car ids from 1.  ``seg_image``
+        is the frame with the detection masks blended over it (the
+        reference draws the depth over the segmented image, :173-194);
+        with ``with_seg_images=False`` it is None and no image is read.
+        ``detections`` (e.g. a run's) skip the detector; they must cover
+        the frames.
+        """
+        records = self.dataset.load_frames(frame_ids)
+        s = self.config.shapes
+        d = s.max_detections
+        for lo in range(0, len(records), chunk):
+            part = records[lo:lo + chunk]
+            batch = self.dataset.make_batch(part)
+            dets = self._detections_for(part, batch, detections, lo)
+            fused = self.fuse(batch, dets)
+            maps = scatter_depth_maps(
+                fused["u"], fused["v"], fused["depth"],
+                masks_lib.unpack_point_bits(fused["point_bits"], d),
+                fused["point_valid"], s.image_height, s.image_width)
+            # the reference skips empty maps (:174-175)
+            keep = dets["det_valid"] & (maps.amax(dim=(-2, -1)) > 0)
+            kept = keep.nonzero().cpu().tolist()
+            kept_maps = maps[keep].cpu().numpy()
+            del maps
+            images = self.dataset.load_images(batch) if with_seg_images \
+                else None
+            mask_bits = dets["mask_bits"].cpu()
+            det_valid = dets["det_valid"].cpu().numpy()
+            seg = {}
+            for (i, det), dm in zip(kept, kept_maps):
+                if images is not None and i not in seg:
+                    masks = masks_lib.unpack_masks(mask_bits[i], d).numpy()
+                    seg[i] = overlay_masks(images[i], masks[det_valid[i]])
+                yield part[i].frame_id, det + 1, dm, seg.get(i)
 
 # ---------------------------------------------------------------------------
 # Version entry points (reference script equivalents)
@@ -404,6 +553,20 @@ def v3_erosion(dataset_root: str, detector=None, device="cuda",
     """V3_point_cloud_with_erosion.py equivalent."""
     return _make(dataset_root, PipelineVersion.V3_EROSION, detector, device,
                  **kw)
+
+
+def v4_iou(dataset_root: str, detector=None, device="cuda",
+           **kw) -> FusionPipeline:
+    """V4_BBox_IoU_filtering.py equivalent (greedy IoU, depth < 30)."""
+    return _make(dataset_root, PipelineVersion.V4_IOU, detector, device,
+                 **kw)
+
+
+def v5_projected(dataset_root: str, detector=None, device="cuda",
+                 **kw) -> FusionPipeline:
+    """V5_ProjectingBBoxes.py equivalent (Hungarian matching)."""
+    return _make(dataset_root, PipelineVersion.V5_PROJECTED, detector,
+                 device, **kw)
 
 
 def csv_eval(dataset_root: str, master_csv: str, detector=None,

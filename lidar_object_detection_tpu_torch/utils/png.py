@@ -1,4 +1,4 @@
-"""PNG decoding with the standard library and numpy.
+"""PNG decoding and encoding with the standard library and numpy.
 
 The JAX package decodes camera frames with PIL, as
 ``Image.open(path).convert("RGB")`` (``data/kitti360.py``), which the
@@ -13,6 +13,11 @@ The reductions to 8-bit RGB are Pillow's: grey of 1, 2 and 4 bits is
 scaled to 0-255 (x 255, x 85, x 17); 16-bit grey is clipped to 255;
 16-bit RGB, RGBA and grey-and-alpha samples keep their high byte; a palette
 index past the PLTE entries is black; alpha and tRNS are dropped.
+
+The writer, :func:`write_png_rgb`, stores 8-bit RGB with each row's filter
+chosen as libpng's default encoder chooses it.  It is the port's image
+writer (depth-map figures, segmentation overlays), where the JAX package
+draws with matplotlib and saves with PIL.
 """
 
 from __future__ import annotations
@@ -81,6 +86,45 @@ def read_png_rgb(path: str) -> np.ndarray:
         raise ValueError(f"{path}: {len(raw)} bytes of pixel data, expected "
                          f"{used}")
     return _to_rgb(samples, color, depth, palette)
+
+
+def png_filter_rows(image: np.ndarray) -> np.ndarray:
+    """Filter the rows of (H, W, 3) uint8 as libpng's default encoder does:
+    each row takes whichever of the five filters gives the least sum of
+    absolute signed bytes.  Returns the (H, 1 + 3 W) filtered rows."""
+    h, w, _ = image.shape
+    x = image.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 0xFF
+    cost = np.minimum(cand, 256 - cand).sum(axis=2)      # (5, H)
+    kinds = cost.argmin(axis=0)
+    rows = cand[kinds, np.arange(h)].astype(np.uint8)
+    return np.concatenate([kinds[:, None].astype(np.uint8), rows], 1)
+
+
+def write_png_rgb(path: str, image: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 as an 8-bit RGB PNG with zlib only, the rows
+    filtered adaptively (:func:`png_filter_rows`)."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w, _ = image.shape
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(
+                    png_filter_rows(image).tobytes(), 6))
+                + chunk(b"IEND", b""))
 
 
 def _decode_pass(raw: np.ndarray, width: int, height: int, channels: int,

@@ -116,6 +116,48 @@ def test_k5_frame_with_nothing_alive(dev):
     assert bool(keep[[0, 1, 3]].any(dim=1).all())
 
 
+@pytest.mark.parametrize("batch,r,c,rows,cols", [
+    (4, 32, 384, 0.4, 0.1), (3, 8, 48, 1.0, 0.5), (3, 32, 32, 1.0, 1.0),
+    (2, 1, 7, 1.0, 0.5), (2, 32, 384, 0.4, 0.0)])
+def test_lap_kernel_equals_twin(dev, batch, r, c, rows, cols):
+    """The assignment solver's kernel against its twin, every row (padded
+    ones too), in one launch per batch; ``lap`` on CUDA tensors launches
+    it, one frame or a batch."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import lap as lap_lib
+
+    cost, row_mask, col_mask = (torch.from_numpy(a).to(dev)
+                                for a in chip_smoke.lap_case(
+                                    np.random.default_rng(r + c), batch, r,
+                                    c, rows, cols))
+    before = kernel_lib.LAUNCHES["lap"]
+    got = lap_lib.lap_cuda(cost, row_mask, col_mask)
+    assert kernel_lib.LAUNCHES["lap"] == before + 1
+    ref = lap_lib.lap_plain(cost, row_mask, col_mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert torch.equal(lap_lib.lap(cost[0], row_mask[0], col_mask[0]), ref[0])
+    assert kernel_lib.LAUNCHES["lap"] == before + 2
+
+
+def test_lap_kernel_refuses_what_it_does_not_take(dev):
+    from lidar_object_detection_tpu_torch.ops import lap as lap_lib
+
+    cost = torch.rand((2, 4, 6), device=dev)
+    rows = torch.ones((2, 4), dtype=torch.bool, device=dev)
+    cols = torch.ones((2, 6), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        lap_lib.lap_cuda(cost.double(), rows, cols)
+    with pytest.raises(ValueError, match="rows <= cols"):
+        lap_lib.lap_cuda(cost.transpose(1, 2).contiguous(), cols, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        lap_lib.lap_cuda(cost.cpu(), rows.cpu(), cols.cpu())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        big = torch.rand((1, 32, 4096), device=dev)   # over shared memory
+        lap_lib.lap_cuda(big, rows[:1].new_ones((1, 32)),
+                         cols[:1].new_ones((1, 4096)))
+
+
 def test_k1_batch_edge_cases_equal_twin(dev):
     """K1 in one launch on the edge cases of the smoke: P not a multiple of
     the kernel's rounds, D < 32, no active point, one box, every box

@@ -24,7 +24,8 @@ from lidar_object_detection_tpu_torch.config import ShapeConfig
 from lidar_object_detection_tpu_torch.data import calib
 from lidar_object_detection_tpu_torch.data import Kitti360Dataset
 from lidar_object_detection_tpu_torch.models.stub import StubDetector
-from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+from lidar_object_detection_tpu_torch.utils.png import (
+    png_filter_rows, read_png_rgb, write_png_rgb)
 
 H, W = 96, 320
 K = np.array([[140.0, 0.0, 160.0], [0.0, 140.0, 48.0], [0.0, 0.0, 1.0]])
@@ -293,10 +294,10 @@ def test_png_mixed_row_filters_match_pil(tmp_path, source):
     else:
         image = np.ascontiguousarray(read_png_rgb(chip_smoke.FRAMES[0])
                                      [:, ::-1])
-    kinds = set(chip_smoke.png_filter_rows(image)[:, 0].tolist())
+    kinds = set(png_filter_rows(image)[:, 0].tolist())
     assert len(kinds) >= 3
     path = tmp_path / "mixed.png"
-    chip_smoke.write_png_rgb(str(path), image)
+    write_png_rgb(str(path), image)
     got = read_png_rgb(str(path))
     np.testing.assert_array_equal(got, image)
     np.testing.assert_array_equal(

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port and of ``chip_smoke.py``.
 
-Neither may import JAX, Flax, ``msgpack``, PIL, pandas or anything of the
-JAX package: the card's machine serves without them.  The import checks
+Neither may import JAX, Flax, ``msgpack``, PIL, pandas, matplotlib,
+Open3D, OpenCV or anything of the JAX package: the card's machine serves
+without them.  The import checks
 run in a fresh interpreter; the source check reads every import statement
 of the port, those inside functions too.  Module names are matched exactly
 (or as a parent package), since the port's own name starts with the JAX
@@ -17,7 +18,7 @@ import sys
 import pytest
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "pandas",
-             "lidar_object_detection_tpu")
+             "matplotlib", "open3d", "cv2", "lidar_object_detection_tpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
@@ -75,7 +76,9 @@ def test_port_imports_nothing_of_jax():
     for name in ("ops.mask_assembly", "ops.nms", "utils.png", "data.calib",
                  "data.kitti360", "data.native", "models.stub",
                  "eval.erosion_study", "eval.store", "eval.xlsx",
-                 "pipelines.runner", "pipelines.cli", "__main__"):
+                 "pipelines.runner", "pipelines.cli", "pipelines.overlay",
+                 "ops.lap", "ops.hungarian", "ops.scatter", "viz.overlay",
+                 "viz.export", "__main__"):
         assert f"lidar_object_detection_tpu_torch.{name}" in modules
     loaded = _loaded_after(modules)
     assert "torch" in loaded

@@ -195,14 +195,16 @@ def test_cli_writes_what_the_function_api_writes(tree, tmp_path, pinned):
 
 
 @pytest.mark.parametrize("argv", [
-    ["depth-maps", "--dataset", "x", "--output", "y"],
+    ["pointpillars-infer", "--dataset", "x", "--ckpt", "c.msgpack"],
     ["pointpillars-train", "--dataset", "x", "--steps", "2"],
     ["kitti2d", "--dataset", "x"],
     ["convert-weights", "--state-dict", "w.pt", "--output", "o"],
-    ["run", "--dataset", "TREE", "--version", "v4_iou", "--device", "cpu"],
-    ["run", "--dataset", "TREE", "--export-ply", "--device", "cpu"],
-    ["run", "--dataset", "TREE", "--analysis-cloud", "car_color",
-     "--device", "cpu"],
+    ["run", "--dataset", "TREE", "--version", "v4_iou", "--detector",
+     "yolo", "--weights", "w.pt", "--device", "cpu"],
+    ["depth-maps", "--dataset", "TREE", "--detector", "yolo", "--weights",
+     "orbax_dir", "--device", "cpu"],
+    ["erosion-study", "--dataset", "TREE", "--detector", "yolo",
+     "--weights", "w.safetensors", "--device", "cpu"],
     ["run", "--dataset", "TREE", "--detector", "yolo", "--weights",
      "w.safetensors", "--device", "cpu"],
 ])
@@ -220,10 +222,13 @@ def test_pipeline_runs_on_cuda_by_default_or_refuses(tree):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         runner.FusionPipeline(ds, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         runner.FusionPipeline(
-            ds, FusionConfig.for_version(PipelineVersion.V5_PROJECTED),
-            device="cpu")
+            ds, FusionConfig.for_version(PipelineVersion.V5_PROJECTED))
+    v5 = runner.FusionPipeline(
+        ds, FusionConfig.for_version(PipelineVersion.V5_PROJECTED),
+        device="cpu")
+    assert v5.device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
