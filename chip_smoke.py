@@ -66,10 +66,27 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (with the loader's and PNG decode's shares) and detect + fuse on the
    card at B = 8, and holds K1 (compacted scans), K5 (single view), K3 and
    K2 (x's tables) to their twins at those shapes;
-8. prints one JSON line of the kernels (times, bounds, launches, errors;
+8. runs PointPillars inference at the surround grid (640 x 640 pillars,
+   the committed ``pp_ssd_surround`` and ``pp_center_surround``
+   checkpoints at full width, 131072 points a frame) from a KITTI-360
+   tree of 4 frames with pose files, each frame's sweep a different half
+   of one synthetic street seen from its own pose: the CLI's
+   ``pointpillars-infer --surround --aggregate-sweeps --export-ply`` with
+   ``--head ssd`` (rotated-NMS decode) and ``--head center``, and
+   ``infer_pointpillars(..., rotated_nms=False)`` (K5), counters zeroed
+   before each: the rotated-NMS kernel (``csrc/rotated_nms.cu``) once a
+   frame in the SSD run, K5 once a frame in the AABB run.  The card's
+   heads are held to a CPU forward, its decodes to CPU decodes of the
+   same heads, the CLI's JSON and PLY files to those written from them.
+   Then the rotated NMS is held to its twin on the SSD path's own 512
+   candidates of each frame and on seeded cases (B = 4, N = 512, M = 64:
+   heavy overlap, all invalid, NaN scores, equal scores), IoU rows within
+   1e-5, and timed; K5 on the AABB path's candidates;
+9. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
-   V4, V5 and depth-map runs), the card's name and power limit, and last
-   the ``{"ok": true, ...}`` line.
+   V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
+   PointPillars runs), the card's name and power limit, and last the
+   ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It imports nothing of JAX and nothing of the JAX package.
@@ -118,6 +135,9 @@ P, G, D = 131072, 384, 32
 # the kernels of the serving path (detector and point-count fusion); V5's
 # solver, ``lap``, launches only where a run matches by assignment
 PATH_KERNELS = ("inside_counts", "mask_assemble", "mask_count", "nms")
+# kernels that the serving path never launches: V5's solver and the
+# PointPillars decode's rotated NMS
+OFF_PATH_KERNELS = ("lap", "rotated_nms")
 H0, W0 = 376, 1408
 # bench.py's tight shapes: the KITTI-360 sample's largest scan (122,183
 # points) padded to a multiple of 4096
@@ -211,6 +231,18 @@ def make_scene(rng, det_boxes, det_valid, num_points=P, num_boxes=G,
     return points, point_valid, corners, box_valid
 
 
+def ego_pose(k):
+    """The rectified-cam0 -> world pose of the k-th frame of a tree: the
+    ego drives forward (+z) 1.5 m a frame, drifting right, and turns
+    0.02 rad a frame about the camera's vertical axis."""
+    a = 0.02 * k
+    pose = np.eye(4)
+    pose[:3, :3] = [[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                    [-np.sin(a), 0.0, np.cos(a)]]
+    pose[:3, 3] = [0.3 * k, 0.0, 1.5 * k]
+    return pose
+
+
 def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
                         height=H0):
     """A KITTI-360 directory tree (sequence 0, camera 0) under ``root``.
@@ -221,7 +253,9 @@ def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
     (copied as it is), or None (no PNG); (N, 4) float32 velodyne points, and
     (G, 8, 3) cam0 corners or None (no box JSON).  The calibration holds
     ``intrinsics``, the KITTI axis swap (CAM_TO_VELO) and an identity
-    cam0 pose.
+    cam0 pose.  The pose files (``data_poses/<seq>/cam0_to_world.txt`` and
+    ``poses.txt``, which sweep aggregation reads) give the k-th frame
+    ``ego_pose(k)``.
     """
     from lidar_object_detection_tpu_torch.utils.png import write_png_rgb
 
@@ -241,6 +275,15 @@ def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
         f.write(fmt(CAM_TO_VELO[:3]) + "\n")
     with open(os.path.join(calib, "calib_cam_to_pose.txt"), "w") as f:
         f.write(f"image_00: {fmt(np.eye(4)[:3])}\n")
+    poses = os.path.join(root, "data_poses", seq)
+    os.makedirs(poses, exist_ok=True)
+    ids = [frame_id for frame_id, *_ in frames]
+    with open(os.path.join(poses, "cam0_to_world.txt"), "w") as f:
+        f.writelines(f"{i} {fmt(ego_pose(k))}\n" for k, i in enumerate(ids))
+    # camera 0 is the pose frame here (identity cam_to_pose and R_rect)
+    with open(os.path.join(poses, "poses.txt"), "w") as f:
+        f.writelines(f"{i} {fmt(ego_pose(k)[:3])}\n"
+                     for k, i in enumerate(ids))
     for frame_id, image, points, corners in frames:
         points.astype(np.float32).tofile(
             os.path.join(velo, "%010d.bin" % frame_id))
@@ -1131,7 +1174,8 @@ def main_path(torch, dev, smi, detector, images, scenes):
     torch.cuda.synchronize()
     launches = dict(kernel_lib.LAUNCHES)
     print(f"main-path launches: {launches}", flush=True)
-    if any(launches[k] != 1 for k in PATH_KERNELS) or launches["lap"]:
+    if any(launches[k] != 1 for k in PATH_KERNELS) or any(
+            launches[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"the main path launched {launches} for one "
                              f"batch, expected each kernel once")
 
@@ -1259,7 +1303,8 @@ def csv_eval_phase(torch, dev, smi, images, scenes, tmp):
     wall = time.perf_counter() - t1
     launches = dict(kernel_lib.LAUNCHES)
     print(f"csv_eval launches: {launches}", flush=True)
-    if any(launches[k] != 1 for k in PATH_KERNELS) or launches["lap"]:
+    if any(launches[k] != 1 for k in PATH_KERNELS) or any(
+            launches[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"csv_eval launched {launches} for its one "
                              f"batch, expected each kernel once")
     fps = len(records) / wall
@@ -1426,7 +1471,7 @@ def matching_phase(torch, dev, smi, root, tmp):
     for name, k1, solver in (("v4", 1, 0), ("v5", 2, 1),
                              ("depth_maps", 1, 0)):
         want = dict(inside_counts=k1, mask_assemble=1, mask_count=1, nms=1,
-                    lap=solver)
+                    lap=solver, rotated_nms=0)
         if launches[name] != want:
             raise AssertionError(f"the {name} CLI run launched "
                                  f"{launches[name]}, expected {want}")
@@ -1544,6 +1589,552 @@ def matching_phase(torch, dev, smi, root, tmp):
     print(json.dumps({"matching": summary}), flush=True)
     phase("matching and exports", t0)
     return launches, problem
+
+
+# ---------------------------------------------------------------------------
+# PointPillars inference (the pure-LiDAR detector) and its rotated NMS
+# ---------------------------------------------------------------------------
+
+PP_CKPTS = {head: os.path.join(REPO, "checkpoints",
+                               f"pp_{head}_surround.msgpack")
+            for head in ("ssd", "center")}
+PP_FRAMES = (200, 201, 202, 203)
+# The SSD runs' score threshold.  The SSD checkpoint scores the synthetic
+# street's cars below the default 0.3 (sigmoid of logits up to about -1.2
+# on the CPU), the center checkpoint above it; at 0.1 the SSD decode has
+# candidates to suppress.
+PP_SSD_THRESHOLD = 0.1
+PP_IOU_THRESHOLD, PP_MAX_DETECTIONS = 0.5, 64
+# rotated IoU rows of kernel and twin agree within this; picks must be
+# equal up to the first step with a deciding IoU this close to 0.5
+PP_IOU_TOL = 1e-5
+# fp32 operations of the clip of one (pick, alive candidate) pair: per
+# clip edge its direction (2) and per vertex of a 4-vertex ring the
+# offset (2), the cross product (3) and the inside test (1); the shoelace
+# over 4 vertices (3 each); the union, the division and the threshold (4)
+PP_CLIP_OPS = 4 * (2 + 4 * 6) + 4 * 3 + 4
+
+
+def pillars_world(rng, n_points=2 * P):
+    """A street in frame 0's velodyne coordinates (x forward, y left, z
+    up, the sensor 1.73 m over the road): parked cars on both sides,
+    their sensor-facing sides and roofs sampled densely near the sensor
+    and sparsely far away (in proportion to ``n_points``), the road
+    surface, and building fronts at +-12 m.  Returns points (n_points, 4)
+    float32 and the cars' boxes7."""
+    cars = []
+    for side in (-1, 1):
+        for x in np.arange(-45.0, 45.0, 6.5):
+            if rng.uniform() < 0.3:
+                continue
+            cars.append([x + rng.uniform(-0.5, 0.5),
+                         side * (4.5 + rng.uniform(-0.3, 0.3)), -0.95,
+                         1.8, 4.3, 1.5, rng.uniform(-0.1, 0.1)])
+    cars = np.asarray(cars, np.float32)
+    chunks = []
+    density = n_points / (2 * P)
+    for x, y, z, w, l, h, yaw in cars:
+        n = int(density * np.clip(90000 / max(np.hypot(x, y), 3) ** 1.2,
+                                  80, 9000))
+        u = rng.uniform(-0.5, 0.5, (n, 3))
+        face = rng.integers(0, 3, n)
+        u[face == 0, 1] = -0.5 * np.sign(y)
+        u[face == 1, 0] = -0.5 * np.sign(x)
+        u[face == 2, 2] = 0.5
+        c, s = np.cos(yaw), np.sin(yaw)
+        lx, ly = u[:, 0] * l, u[:, 1] * w
+        chunks.append(np.stack([x + lx * c - ly * s, y + lx * s + ly * c,
+                                z + u[:, 2] * h], 1))
+    used = sum(len(c) for c in chunks)
+    n_ground = (n_points - used) * 2 // 3
+    r = np.sqrt(rng.uniform(2.0 ** 2, 60.0 ** 2, n_ground))
+    a = rng.uniform(-np.pi, np.pi, n_ground)
+    chunks.append(np.stack([r * np.cos(a), r * np.sin(a),
+                            np.full(n_ground, -1.73)], 1))
+    n_wall = n_points - used - n_ground
+    chunks.append(np.stack([rng.uniform(-60, 60, n_wall),
+                            np.where(rng.uniform(size=n_wall) < 0.5, -12.0,
+                                     12.0),
+                            rng.uniform(-1.7, 3.0, n_wall)], 1))
+    xyz = np.concatenate(chunks).astype(np.float32)
+    refl = rng.uniform(0, 1, (len(xyz), 1)).astype(np.float32)
+    return np.concatenate([xyz, refl], 1), cars
+
+
+def pillars_tree(root, rng):
+    """A KITTI-360 tree of PP_FRAMES: each frame's scan a different half of
+    one street (``pillars_world``), seen from the ego pose of its frame
+    (``ego_pose``, as the tree's pose files say), and its cars' cam0
+    corners; no images.  Aggregating the sweeps puts the street back
+    together in the target frame's coordinates."""
+    import torch
+
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        boxes7_to_corners)
+
+    world, cars = pillars_world(rng)
+    v2r = VELO_TO_RECT.astype(np.float64)
+    corners0 = boxes7_to_corners(torch.from_numpy(cars)).numpy()
+    frames = []
+    for k, fid in enumerate(PP_FRAMES):
+        pose = ego_pose(k)
+        # frame 0's velodyne -> world -> frame k's velodyne (pose 0 is I)
+        to_k = np.linalg.inv(pose @ v2r) @ v2r
+        sel = np.sort(rng.choice(len(world), P, replace=False))
+        pts = world[sel].copy()
+        pts[:, :3] = pts[:, :3] @ to_k[:3, :3].T + to_k[:3, 3]
+        # world -> frame k's cam0
+        to_cam = np.linalg.inv(pose) @ v2r
+        cam = corners0 @ to_cam[:3, :3].T + to_cam[:3, 3]
+        frames.append((fid, None, pts.astype(np.float32),
+                       cam.astype(np.float32)))
+    write_kitti360_tree(root, frames)
+    return len(cars)
+
+
+def rotated_nms_cases(rng, batch=4, n=512):
+    """Seeded rotated-NMS operands on the host, (B, N, 7) boxes7, (B, N)
+    scores and validity: car-sized boxes of any yaw, with heavy overlap
+    (in a 12 m square), every candidate invalid, a quarter of the scores
+    NaN (and some infinite), and scores that tie in groups."""
+    def boxes(spread):
+        b = np.zeros((batch, n, 7), np.float32)
+        b[..., 0] = rng.uniform(-spread, spread, (batch, n))
+        b[..., 1] = rng.uniform(-spread, spread, (batch, n))
+        b[..., 2] = rng.uniform(-2, 0, (batch, n))
+        b[..., 3] = rng.uniform(1.4, 2.2, (batch, n))
+        b[..., 4] = rng.uniform(3.2, 5.0, (batch, n))
+        b[..., 5] = rng.uniform(1.3, 1.8, (batch, n))
+        b[..., 6] = rng.uniform(-np.pi, np.pi, (batch, n))
+        b[:, 1::7] = b[:, 0::7][:, :b[:, 1::7].shape[1]]    # exact copies
+        return b
+
+    def scores():
+        return rng.uniform(0, 1, (batch, n)).astype(np.float32)
+
+    cases = {}
+    s = scores()
+    cases["heavy overlap"] = (boxes(6.0), s, s > 0.1)
+    s = scores()
+    cases["all invalid"] = (boxes(6.0), s, np.zeros((batch, n), bool))
+    s = scores()
+    s[rng.uniform(size=(batch, n)) < 0.25] = np.nan
+    s[:, 3] = np.inf
+    s[:, 5] = -np.inf
+    cases["NaN scores"] = (boxes(10.0), s, np.ones((batch, n), bool))
+    s = np.round(scores() * 8).astype(np.float32) / 8
+    cases["equal scores"] = (boxes(10.0), s, s > 0.2)
+    return cases
+
+
+def rotated_nms_launcher(torch, dev, bx, sc, va, thr, m):
+    """A call of the rotated-NMS C entry point alone, for timing."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    b, n = sc.shape
+    out_idx = torch.empty((b, m), dtype=torch.int32, device=dev)
+    out_keep = torch.empty((b, m), dtype=torch.bool, device=dev)
+
+    def run():
+        kernel_lib.check(lib.rotated_nms_launch(
+            bx.data_ptr(), sc.data_ptr(), va.data_ptr(), b, n, m, thr,
+            out_idx.data_ptr(), out_keep.data_ptr(), None,
+            kernel_lib.stream_handle(dev)), "rotated_nms_launch")
+    return run
+
+
+def rotated_nms_bound(pairs, b, n, m, steps):
+    """The rotated NMS's bound on these inputs.  Bytes: the boxes7, scores
+    and validity once, and the M slots' indices and flags.  Operations:
+    PP_CLIP_OPS per (pick, alive candidate) pair, the pairs counted by the
+    twin (``rotated_nms_plain(..., return_pairs=True)``), and N compares
+    per argmax step."""
+    n_bytes = b * n * (7 * 4 + 4 + 1) + b * m * (4 + 1)
+    return bound_ms(n_bytes, PP_CLIP_OPS * pairs + n * steps)
+
+
+def replay_rotated_nms(rows, idx, keep, scores, valid, thr):
+    """Per frame, the smallest |IoU - thr| among the IoUs that decided a
+    step (the pick's row at the candidates still alive then), replayed
+    from the kernel's own rows and picks; and the step at which that gap
+    first fell to PP_IOU_TOL or below (M if never)."""
+    b, m, n = rows.shape
+    gaps, first_close = [], []
+    for f in range(b):
+        alive = valid[f] & np.isfinite(scores[f])
+        gap, close = np.inf, m
+        for s in range(m):
+            if not keep[f, s]:
+                break
+            p = idx[f, s]
+            deciding = alive.copy()
+            deciding[p] = False
+            if deciding.any():
+                step_gap = float(np.abs(rows[f, s][deciding] - thr).min())
+                gap = min(gap, step_gap)
+                if step_gap <= PP_IOU_TOL and close == m:
+                    close = s
+            alive &= ~(rows[f, s] > thr)
+            alive[p] = False
+        gaps.append(gap)
+        first_close.append(close)
+    return gaps, first_close
+
+
+def check_rotated_nms(torch, dev, rng, path):
+    """The rotated-NMS kernel against its twin on the card: the SSD
+    path's own candidates (``path``: each frame's 512 top boxes7, scores
+    and validity from the card's heads, (4, 512, ...)), the same with
+    every candidate valid, and seeded cases at B = 4, N = 512, M = 64
+    (heavy overlap, all invalid, NaN scores, equal scores).  The kernel's
+    IoU rows (each step's pick against every candidate) must agree with
+    the twin's matrix rows within PP_IOU_TOL, and its picks with the
+    twin's up to the first step with a deciding IoU within PP_IOU_TOL of
+    the threshold (the smallest such gap is printed).  Timed at B = 1 on
+    each path frame (the launch the decode makes per frame) and at B = 4
+    on the seeded overlap; the twin on the card beside it."""
+    from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
+    from lidar_object_detection_tpu_torch.ops.rotated_iou import (
+        rotated_iou_matrix)
+
+    thr, m = PP_IOU_THRESHOLD, PP_MAX_DETECTIONS
+    on_card = lambda arrays: tuple(torch.from_numpy(a).to(dev)
+                                   for a in arrays)
+    boxes, scores, valid = path
+    cases = {"SSD path B=4": path,
+             "SSD path, all valid": (boxes, scores, torch.ones_like(valid))}
+    cases.update({name: on_card(c)
+                  for name, c in rotated_nms_cases(rng).items()})
+    stats, max_err, min_gap, failed, pairs_of = {}, 0.0, np.inf, [], {}
+    for name, (bx, sc, va) in cases.items():
+        idx, keep, rows = rn.rotated_nms_cuda(bx, sc, va, thr, m,
+                                              iou_rows=True)
+        ref_idx, ref_keep, pairs = rn.rotated_nms_plain(
+            bx, sc, va, thr, m, return_pairs=True)
+        torch.cuda.synchronize()
+        pairs_of[name] = pairs.tolist()
+        idx_h, keep_h, rows_h = (t.cpu().numpy() for t in (idx, keep, rows))
+        ref_idx_h, ref_keep_h = ref_idx.cpu().numpy(), ref_keep.cpu().numpy()
+        gaps, close = replay_rotated_nms(rows_h, idx_h, keep_h,
+                                         sc.cpu().numpy(), va.cpu().numpy(),
+                                         thr)
+        min_gap = min(min_gap, *gaps)
+        bad = 0
+        for f in range(bx.shape[0]):
+            c = close[f]
+            bad += int((idx_h[f, :c + 1] != ref_idx_h[f, :c + 1]).sum()
+                       + (keep_h[f, :c + 1] != ref_keep_h[f, :c + 1]).sum())
+            # rows of the steps both took: the kernel's against the
+            # twin's matrix at the same pick
+            steps = int(min(c + 1, keep_h[f].sum()))
+            if steps:
+                iou = rotated_iou_matrix(bx[f], bx[f])
+                picks = torch.from_numpy(idx_h[f, :steps]).long().to(dev)
+                err = float((rows[f, :steps] - iou[picks]).abs().max())
+                max_err = max(max_err, err)
+        if bad:
+            failed.append(f"{name}: {bad} slots")
+        stats[name] = {"picks": keep_h.sum(axis=1).tolist(),
+                       "min_gap": min(gaps), "close_step": close}
+    print(f"rotated NMS cases: {stats}", flush=True)
+    if failed or max_err > PP_IOU_TOL:
+        raise AssertionError(f"the rotated NMS differs from its twin: "
+                             f"{failed}, IoU rows off by up to {max_err}")
+    if sum(stats["SSD path, all valid"]["picks"]) == 0 \
+            or sum(stats["heavy overlap"]["picks"]) < 8 \
+            or sum(stats["all invalid"]["picks"]) != 0:
+        raise AssertionError(f"degenerate rotated NMS cases: {stats}")
+
+    entry = {"name": "rotated_nms", "route": "cuda",
+             "source": "lidar_object_detection_tpu_torch/csrc/"
+                       "rotated_nms.cu",
+             "replaces": "lidar_object_detection_tpu/models/pointpillars/"
+                         "decode.py:146",
+             "max_abs_err": max_err, "min_gap": min_gap,
+             "mismatches": 0, "cases": len(cases), "library_ms": None,
+             "pairs": pairs_of}
+    per_frame, bounds = [], []
+    for f in range(boxes.shape[0]):
+        one = tuple(t[f:f + 1].contiguous() for t in path)
+        per_frame.append(time_gpu(rotated_nms_launcher(torch, dev, *one, thr,
+                                                       m)))
+        _, keep, pairs = rn.rotated_nms_plain(*one, thr, m,
+                                              return_pairs=True)
+        steps = min(m, int(keep.sum()) + 1)
+        bounds.append(rotated_nms_bound(int(pairs.sum()), 1, 512, m, steps))
+    entry["ms_per_frame"] = per_frame
+    entry["ms"] = float(np.median(per_frame))
+    entry["bound_ms"], entry["bound_by"] = bounds[int(np.argsort(
+        per_frame)[len(per_frame) // 2])]
+    bx, sc, va = cases["heavy overlap"]
+    entry["ms_b4"] = time_gpu(rotated_nms_launcher(torch, dev, bx, sc, va,
+                                                   thr, m))
+    _, keep, pairs = rn.rotated_nms_plain(bx, sc, va, thr, m,
+                                          return_pairs=True)
+    steps = int(np.minimum(keep.sum(dim=1).cpu().numpy() + 1, m).sum())
+    entry["bound_ms_b4"], _ = rotated_nms_bound(int(pairs.sum()), 4, 512, m,
+                                                steps)
+    one = tuple(t[:1].contiguous() for t in path)
+    entry["plain_ms"] = time_gpu(lambda: rn.rotated_nms_plain(*one, thr, m),
+                                 reps=5, warmup=1, head_start=False)
+    print(f"rotated NMS: equal to the twin on {len(cases)} cases (IoU rows "
+          f"within {max_err:.3g}, smallest deciding gap {min_gap:.3g}); "
+          f"SSD path B=1 {entry['ms']:.4f} ms per frame ({per_frame}; bound "
+          f"{entry['bound_ms']:.3g} by {entry['bound_by']}), seeded B=4 "
+          f"{entry['ms_b4']:.4f} (bound {entry['bound_ms_b4']:.3g}); twin "
+          f"{entry['plain_ms']:.3f} ms; pairs {pairs_of}", flush=True)
+    return entry
+
+
+def check_pp_aabb(torch, dev, operands):
+    """K5 on the PointPillars AABB decode's operands (the first frame's 512
+    candidates' BEV extents, B = 1, M = 64): equal to its twin, timed,
+    with its bound."""
+    from lidar_object_detection_tpu_torch.ops import nms as nms_lib
+
+    bx, sc, va = operands
+    thr, m = PP_IOU_THRESHOLD, PP_MAX_DETECTIONS
+    idx, keep = nms_lib.nms_cuda(bx, sc, va, thr, m)
+    ref_idx, ref_keep = nms_lib.nms_plain(bx, sc, va, thr, m)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)):
+        raise AssertionError("K5 differs from its twin on the PointPillars "
+                             "AABB candidates")
+    picks = keep.sum(dim=1).tolist()
+    ms = time_gpu(nms_launcher(torch, dev, bx, sc, va, thr, m))
+    bound, _ = nms_bound(picks, 1, bx.shape[1], m)
+    print(f"K5 on the PointPillars AABB path: {ms:.4f} ms for 1 x "
+          f"{bx.shape[1]} candidates, {picks} picks (bound {bound:.3g})",
+          flush=True)
+    return {"pointpillars_aabb_ms": ms, "pointpillars_aabb_bound_ms": bound,
+            "pointpillars_aabb_picks": picks}
+
+
+def same_detections(got, ref, what, box_atol, score_atol):
+    """Two decodes of one frame: validity, classes exact; boxes7 and
+    scores within the tolerances."""
+    import torch
+
+    ok = ref["valid"].cpu()
+    if not torch.equal(got["valid"].cpu(), ok) or not torch.equal(
+            got["classes"].cpu()[ok], ref["classes"].cpu()[ok]):
+        raise AssertionError(f"{what}: detections differ: "
+                             f"{got['valid'].sum()} vs {ok.sum()}")
+    box_err = float((got["boxes7"].cpu()[ok] - ref["boxes7"].cpu()[ok])
+                    .abs().max()) if ok.any() else 0.0
+    score_err = float((got["scores"].cpu() - ref["scores"].cpu())
+                      .abs().max())
+    if box_err > box_atol or score_err > score_atol:
+        raise AssertionError(f"{what}: boxes7 off by {box_err}, scores by "
+                             f"{score_err}")
+    return box_err, score_err
+
+
+def same_pillars_outputs(got_dir, ref_dir, frames, box_atol, score_atol):
+    """The CLI's detections_*.json and scene_*.ply against those written
+    from a reference decode: keys, frames, classes, steps and counts
+    exact; boxes7, scores and PLY coordinates within the tolerances; PLY
+    headers, colours and edges exact.  Returns the detection count."""
+    total = 0
+    for frame in frames:
+        with open(os.path.join(got_dir, f"detections_{frame:010d}.json")) \
+                as f:
+            got = json.load(f)
+        with open(os.path.join(ref_dir, f"detections_{frame:010d}.json")) \
+                as f:
+            ref = json.load(f)
+        if sorted(got) != sorted(ref) or any(
+                got[k] != ref[k] for k in ("frame", "classes", "ckpt_step")):
+            raise AssertionError(f"detections_{frame:010d}.json differs: "
+                                 f"{got} vs {ref}")
+        gb = np.asarray(got["boxes7"]).reshape(-1, 7)
+        rb = np.asarray(ref["boxes7"]).reshape(-1, 7)
+        if gb.shape != rb.shape or (len(rb) and (
+                np.abs(gb - rb).max() > box_atol or np.abs(
+                    np.asarray(got["scores"]) - ref["scores"]).max()
+                > score_atol)):
+            raise AssertionError(f"detections_{frame:010d}.json: boxes7 or "
+                                 f"scores beyond the tolerance")
+        total += len(rb)
+        with open(os.path.join(got_dir, f"scene_{frame:010d}.ply")) as f:
+            g_lines = f.read().splitlines()
+        with open(os.path.join(ref_dir, f"scene_{frame:010d}.ply")) as f:
+            r_lines = f.read().splitlines()
+        end = r_lines.index("end_header")
+        n = int(r_lines[2].split()[-1])
+        gv = np.array([ln.split() for ln in g_lines[end + 1:end + 1 + n]],
+                      float)
+        rv = np.array([ln.split() for ln in r_lines[end + 1:end + 1 + n]],
+                      float)
+        if g_lines[:end + 1] != r_lines[:end + 1] \
+                or g_lines[end + 1 + n:] != r_lines[end + 1 + n:] \
+                or not np.array_equal(gv[:, 3:], rv[:, 3:]) \
+                or np.abs(gv[:, :3] - rv[:, :3]).max() > box_atol:
+            raise AssertionError(f"scene_{frame:010d}.ply differs beyond "
+                                 f"the tolerance")
+    return total
+
+
+def pointpillars_phase(torch, dev, smi, tmp):
+    """PointPillars inference on the card at the surround grid (640 x 640
+    pillars, the committed checkpoints at full width, P = 131072 points a
+    frame, one frame a forward), from a KITTI-360 tree of 4 frames whose
+    sweeps are aggregated (``pillars_tree``):
+
+    * the CLI ``pointpillars-infer --surround --aggregate-sweeps
+      --export-ply`` with ``--head ssd`` (its default rotated-NMS decode,
+      at PP_SSD_THRESHOLD) and ``--head center``, counters zeroed before
+      each: the rotated NMS once per frame in the SSD run, no kernel in the
+      center run;
+    * ``infer_pointpillars(..., rotated_nms=False)`` through the Python
+      API: K5 once per frame;
+    * references: the card's heads against a CPU forward of the port
+      (first frame of each head, within 2e-3); each frame's card decode
+      against the CPU decode of the card's own heads (validity and
+      classes exact, boxes7 within 1e-4, scores within 1e-6); the CLI's
+      JSON and PLY files against those written from the CPU decode
+      (counts and classes exact, boxes7 and coordinates within 2e-3,
+      scores within 2e-4: the CLI's forward is another run, and the
+      pillar sums are float atomics);
+    * CUDA-event times of the forward and the decodes, and a traced frame.
+
+    Returns each run's launches, the SSD path's candidates on the card
+    (4, 512, ...) and AABB operands of its first frame, and a summary."""
+    from lidar_object_detection_tpu_torch.config import ShapeConfig
+    from lidar_object_detection_tpu_torch.data import Kitti360Dataset
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, bev_aabb, decode_predictions)
+    from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
+        decode_candidates)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "pp_kitti360")
+    n_cars = pillars_tree(root, np.random.default_rng(2))
+    n = len(PP_FRAMES)
+    base = ["pointpillars-infer", "--dataset", root, "--surround",
+            "--aggregate-sweeps", "--export-ply", "--device", str(dev)]
+    thresholds = {"ssd": PP_SSD_THRESHOLD, "center": 0.3}
+    launches, outs, texts, walls = {}, {}, {}, {}
+    for head in ("ssd", "center"):
+        outs[head] = os.path.join(tmp, f"pp_cli_{head}")
+        argv = base + ["--ckpt", PP_CKPTS[head], "--head", head,
+                       "--output", outs[head]]
+        if head == "ssd":
+            argv += ["--score-threshold", str(PP_SSD_THRESHOLD)]
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        t = time.perf_counter()
+        texts[head] = run_cli(argv)
+        torch.cuda.synchronize()
+        walls[head] = time.perf_counter() - t
+        launches[head] = dict(kernel_lib.LAUNCHES)
+    cfgs = {head: dataclasses.replace(PillarsConfig.kitti360_surround(),
+                                      head=head) for head in ("ssd", "center")}
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    t = time.perf_counter()
+    aabb_dets = pp.infer_pointpillars(
+        root, PP_CKPTS["ssd"], cfg=cfgs["ssd"], aggregate=True,
+        score_threshold=PP_SSD_THRESHOLD, rotated_nms=False, device=dev)
+    torch.cuda.synchronize()
+    walls["ssd_aabb"] = time.perf_counter() - t
+    launches["ssd_aabb"] = dict(kernel_lib.LAUNCHES)
+    print(f"PointPillars launches: {launches}; wall s {walls}", flush=True)
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    for run, want in (("ssd", dict(zero, rotated_nms=n)), ("center", zero),
+                      ("ssd_aabb", dict(zero, nms=n))):
+        if launches[run] != want:
+            raise AssertionError(f"the PointPillars {run} run launched "
+                                 f"{launches[run]}, expected {want}")
+    if len(aabb_dets) != n:
+        raise AssertionError(f"the AABB run gave {len(aabb_dets)} frames")
+    phase("PointPillars: the CLI and the API on the card", t0)
+
+    ds = Kitti360Dataset(root)
+    p_max = ShapeConfig().max_points
+    clouds = list(pp.pillars_clouds(ds, PP_FRAMES, cfgs["ssd"], True, p_max))
+    summary = {"cars in the street": n_cars, "cli_wall_s": walls,
+               "points": [len(c) for c in clouds]}
+    path, aabb = None, None
+    for head in ("ssd", "center"):
+        cfg, thr = cfgs[head], thresholds[head]
+        card, step = pp.load_pillars_model(PP_CKPTS[head], cfg, dev)
+        ref_dir = os.path.join(tmp, f"pp_ref_{head}")
+        os.makedirs(ref_dir)
+        cands, errs = [], []
+        for i, (frame, pts) in enumerate(zip(PP_FRAMES, clouds)):
+            points, pv = pp.padded_cloud(pts, p_max, dev)
+            with torch.inference_mode():
+                raw = card(points, pv)
+                one = {k: v[0] for k, v in raw.items()}
+                det = decode_predictions(one, cfg, score_threshold=thr,
+                                         rotated_nms=True)
+                one_cpu = {k: v.cpu() for k, v in one.items()}
+                ref = decode_predictions(one_cpu, cfg, score_threshold=thr,
+                                         rotated_nms=True)
+                if i == 0:
+                    cpu_model, _ = pp.load_pillars_model(PP_CKPTS[head], cfg,
+                                                         "cpu")
+                    raw_cpu = cpu_model(points.cpu(), pv.cpu())
+                    head_err = max(float((raw[k].cpu() - raw_cpu[k]).abs()
+                                         .max()) for k in raw)
+                    if head_err > 2e-3:
+                        raise AssertionError(f"{head} heads: card and CPU "
+                                             f"differ by {head_err}")
+                    summary[f"{head}_head_err"] = head_err
+                if head == "ssd":
+                    boxes7, _, top_idx, top_scores, valid = \
+                        decode_candidates(one, cfg, thr)
+                    cands.append((boxes7[top_idx], top_scores, valid))
+                    if i == 0:
+                        aabb = (bev_aabb(boxes7[top_idx])[None].contiguous(),
+                                top_scores[None].contiguous(),
+                                valid[None].contiguous())
+            errs.append(same_detections(det, ref, f"{head} frame {frame}",
+                                        1e-4, 1e-6))
+            pp.write_detections(pp.detection_record(frame, ref, step), pts,
+                                ref_dir, export_ply=True)
+        total = same_pillars_outputs(outs[head], ref_dir, PP_FRAMES, 2e-3,
+                                     2e-4)
+        line = re.search(r"(\d+) frames, (\d+) detections", texts[head])
+        if not line or (int(line[1]), int(line[2])) != (n, total):
+            raise AssertionError(f"the {head} CLI printed {texts[head]!r}, "
+                                 f"the reference has {total} detections")
+        summary[head] = {"detections": total,
+                         "decode_err_boxes_scores": errs}
+        if head == "ssd":
+            path = tuple(torch.stack(t).contiguous() for t in zip(*cands))
+
+        # times: forward and decode of the first frame, CUDA events
+        points, pv = pp.padded_cloud(clouds[0], p_max, dev)
+        with torch.inference_mode():
+            fwd_ms, raw = time_events(torch, lambda: card(points, pv), 5)
+            one = {k: v[0] for k, v in raw.items()}
+            modes = {"rotated": True, "aabb": False} if head == "ssd" \
+                else {"peaks": False}
+            for mode, rot in modes.items():
+                ms, _ = time_events(torch, lambda: decode_predictions(
+                    one, cfg, score_threshold=thr, rotated_nms=rot), 5)
+                summary[head][f"decode_{mode}_ms"] = ms
+            summary[head]["forward_ms"] = fwd_ms
+            if head == "ssd":
+                print("traced SSD frame (forward + rotated decode):",
+                      flush=True)
+                profile_once(torch, lambda: decode_predictions(
+                    {k: v[0] for k, v in card(points, pv).items()}, cfg,
+                    score_threshold=thr, rotated_nms=True))
+        del card
+    if sum(summary[h]["detections"] for h in ("ssd", "center")) == 0:
+        raise AssertionError("PointPillars found nothing in the street")
+    print(f"PointPillars: card decodes equal the CPU's on the card's heads, "
+          f"the CLI's JSON and PLY files the reference's, on {smi}",
+          flush=True)
+    print(json.dumps({"pointpillars": summary}), flush=True)
+    phase("PointPillars", t0)
+    return launches, path, aabb
 
 
 # ---------------------------------------------------------------------------
@@ -2081,15 +2672,32 @@ def main() -> int:
         k["headline_launches"] = launches[k["name"]]
         k["headline_launches_4_chunks"] = times["launches_many"][k["name"]]
         k.update(cases[k["name"]])
+    del headline
+    with tempfile.TemporaryDirectory() as tmp:
+        pp_launches, pp_path, pp_aabb = pointpillars_phase(torch, dev, smi,
+                                                           tmp)
+    rotated = check_rotated_nms(torch, dev, rng, pp_path)
+    next(k for k in kernels if k["name"] == "nms").update(
+        check_pp_aabb(torch, dev, pp_aabb))
+    phase("PointPillars kernels against twins", t0)
     # the solver's main path is the V5 run
     lap.update(launches=match_launches["v5"]["lap"],
                csv_eval_launches=csv_launches["lap"],
                headline_launches=launches["lap"],
                headline_launches_4_chunks=times["launches_many"]["lap"])
     kernels.append(lap)
+    # the rotated NMS's main path is the SSD head's CLI run
+    rotated.update(launches=pp_launches["ssd"]["rotated_nms"],
+                   csv_eval_launches=csv_launches["rotated_nms"],
+                   headline_launches=launches["rotated_nms"],
+                   headline_launches_4_chunks=times["launches_many"][
+                       "rotated_nms"])
+    kernels.append(rotated)
     for k in kernels:
         k["matching_launches"] = {run: n[k["name"]]
                                   for run, n in match_launches.items()}
+        k["pointpillars_launches"] = {run: n[k["name"]]
+                                      for run, n in pp_launches.items()}
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

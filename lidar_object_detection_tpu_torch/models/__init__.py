@@ -1,1 +1,2 @@
-"""Detector models of the port."""
+"""Detector models of the port: the stub, YOLO11-seg (``models.yolo``)
+and the pure-LiDAR PointPillars (``models.pointpillars``)."""

@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("inside_counts.cu", "mask_assembly.cu", "nms.cu", "lap.cu")
+SOURCES = ("inside_counts.cu", "mask_assembly.cu", "nms.cu", "lap.cu",
+           "rotated_nms.cu")
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -43,6 +44,7 @@ SIGNATURES = {
                           _P, _P, _I, _I, _P, _P),
     "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "lap_launch": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "rotated_nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -10,14 +10,18 @@
       --dataset /path/to/KITTI360_sample --output results/
   python -m lidar_object_detection_tpu_torch depth-maps \\
       --dataset /path/to/KITTI360_sample --output Predictions/
+  python -m lidar_object_detection_tpu_torch pointpillars-infer \\
+      --dataset /path/to/KITTI360_sample \\
+      --ckpt checkpoints/pp_ssd_surround.msgpack --surround \\
+      --aggregate-sweeps --head ssd --export-ply
 
 Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py`` for the
 ``run`` (every version, with ``--export-ply`` and ``--analysis-cloud``),
-``erosion-study`` and ``depth-maps`` subcommands.  ``--device`` (default
-``cuda``) takes the place of the JAX CLI's ``--platform``; ``--device
-cpu`` runs the plain twins on the CPU.  The YOLO detector serves a msgpack
-checkpoint in float32 with unfolded weights, at the operating point its
-sidecar records, as the JAX CLI does.
+``erosion-study``, ``depth-maps`` and ``pointpillars-infer`` subcommands.
+``--device`` (default ``cuda``) takes the place of the JAX CLI's
+``--platform``; ``--device cpu`` runs the plain twins on the CPU.  The
+YOLO detector serves a msgpack checkpoint in float32 with unfolded
+weights, at the operating point its sidecar records, as the JAX CLI does.
 
 The other subcommands and weight formats of the JAX CLI are not ported
 yet: they exit non-zero with a message naming their ROADMAP item.
@@ -36,8 +40,7 @@ from lidar_object_detection_tpu_torch.config import (
 UNPORTED_COMMANDS = {
     "kitti2d": 6,
     "convert-weights": 6,
-    "pointpillars-train": 8,
-    "pointpillars-infer": 8,
+    "pointpillars-train": 7,
 }
 # the versions whose run writes the master CSV (as the JAX CLI's)
 CSV_VERSIONS = (PipelineVersion.CSV_EVAL, PipelineVersion.V2_STATS,
@@ -49,7 +52,7 @@ def _not_ported(what: str, item: int) -> SystemExit:
                       f"{item})")
 
 
-def _add_common(p) -> None:
+def _add_common(p, detector: bool = True) -> None:
     p.add_argument("--dataset", required=True,
                    help="KITTI-360 root (holds calibration/, data_3d_raw/, "
                         "data_2d_raw/, bboxes_3D_cam0/)")
@@ -58,6 +61,8 @@ def _add_common(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the plain twins)")
+    if not detector:
+        return
     p.add_argument("--detector", choices=["stub", "yolo"], default="stub",
                    help="stub = GT-derived synthetic detections; yolo = "
                         "YOLO11-seg (random weights without --weights)")
@@ -148,6 +153,22 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(es_p)
     es_p.add_argument("--output", default="results")
 
+    pi_p = sub.add_parser("pointpillars-infer",
+                          help="run a trained PointPillars checkpoint over "
+                               "dataset frames (detections JSON + optional "
+                               "PLY scenes)")
+    _add_common(pi_p, detector=False)
+    pi_p.add_argument("--ckpt", required=True,
+                      help="checkpoint from the surround training runner "
+                           "(flax msgpack of (variables, opt_state, step))")
+    pi_p.add_argument("--output", default="pp_detections")
+    pi_p.add_argument("--surround", action="store_true")
+    pi_p.add_argument("--aggregate-sweeps", action="store_true")
+    pi_p.add_argument("--head", default="ssd", choices=("ssd", "center"))
+    pi_p.add_argument("--score-threshold", type=float, default=0.3)
+    pi_p.add_argument("--max-points", type=int, default=None)
+    pi_p.add_argument("--export-ply", action="store_true")
+
     for name, item in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP Queue 1 item "
                                   f"{item})")
@@ -162,6 +183,19 @@ def main(argv=None) -> int:
                           UNPORTED_COMMANDS[args.cmd])
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+
+    if args.cmd == "pointpillars-infer":
+        from lidar_object_detection_tpu_torch.pipelines.pointpillars import (
+            infer_pointpillars)
+        dets = infer_pointpillars(
+            args.dataset, args.ckpt, frame_ids=args.frames,
+            surround=args.surround, aggregate=args.aggregate_sweeps,
+            head=args.head, max_points=args.max_points,
+            score_threshold=args.score_threshold, output_dir=args.output,
+            export_ply=args.export_ply, device=args.device)
+        total = sum(len(d["boxes7"]) for d in dets)
+        print(f"{len(dets)} frames, {total} detections -> {args.output}")
+        return 0
 
     from lidar_object_detection_tpu_torch.data.kitti360 import (
         Kitti360Dataset)

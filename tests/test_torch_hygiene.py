@@ -78,7 +78,12 @@ def test_port_imports_nothing_of_jax():
                  "eval.erosion_study", "eval.store", "eval.xlsx",
                  "pipelines.runner", "pipelines.cli", "pipelines.overlay",
                  "ops.lap", "ops.hungarian", "ops.scatter", "viz.overlay",
-                 "viz.export", "__main__"):
+                 "viz.export", "__main__", "data.poses", "ops.rotated_iou",
+                 "ops.rotated_nms", "models.pointpillars",
+                 "models.pointpillars.model", "models.pointpillars.voxelize",
+                 "models.pointpillars.center", "models.pointpillars.decode",
+                 "models.pointpillars.augment",
+                 "models.pointpillars.weights", "pipelines.pointpillars"):
         assert f"lidar_object_detection_tpu_torch.{name}" in modules
     loaded = _loaded_after(modules)
     assert "torch" in loaded
@@ -114,7 +119,8 @@ def test_chip_smoke_imports_nothing_of_jax():
 def test_card_tests_import_nothing_of_jax():
     """The card's test files collect where JAX and Flax are missing."""
     for name in ("test_torch_cuda.py", "test_torch_cuda_precision.py",
-                 "test_torch_cuda_stream.py"):
+                 "test_torch_cuda_stream.py",
+                 "test_torch_cuda_pointpillars.py"):
         names = _imported_names(os.path.join(REPO, "tests", name))
         assert "chip_smoke" in names, name
         assert _forbidden(names) == [], name

@@ -195,7 +195,8 @@ def test_cli_writes_what_the_function_api_writes(tree, tmp_path, pinned):
 
 
 @pytest.mark.parametrize("argv", [
-    ["pointpillars-infer", "--dataset", "x", "--ckpt", "c.msgpack"],
+    ["pointpillars-train", "--dataset", "x", "--head", "center",
+     "--aggregate-sweeps"],
     ["pointpillars-train", "--dataset", "x", "--steps", "2"],
     ["kitti2d", "--dataset", "x"],
     ["convert-weights", "--state-dict", "w.pt", "--output", "o"],
