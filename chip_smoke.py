@@ -75,13 +75,17 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``--head ssd`` (rotated-NMS decode) and ``--head center``, and
    ``infer_pointpillars(..., rotated_nms=False)`` (K5), counters zeroed
    before each: the rotated-NMS kernel (``csrc/rotated_nms.cu``) once a
-   frame in the SSD run, K5 once a frame in the AABB run.  The card's
-   heads are held to a CPU forward, its decodes to CPU decodes of the
-   same heads, the CLI's JSON and PLY files to those written from them.
-   Then the rotated NMS is held to its twin on the SSD path's own 512
-   candidates of each frame and on seeded cases (B = 4, N = 512, M = 64:
-   heavy overlap, all invalid, NaN scores, equal scores), IoU rows within
-   1e-5, and timed; K5 on the AABB path's candidates;
+   frame in the SSD run, K5 once a frame in the AABB run.  Each CLI run is
+   made twice, and the second must write the first's bytes.  The card's
+   heads are held to a CPU forward and to a second forward on the card
+   (bit for bit), its decodes to CPU decodes of the same heads, the CLI's
+   JSON and PLY files to those written from the card's decode (byte for
+   byte) and from the CPU's (within the decode's tolerances).  Then the
+   rotated NMS is held to its twin on the SSD path's own 512 candidates
+   of each frame and on seeded cases (B = 4, N = 512, M = 64: heavy
+   overlap, all invalid, NaN scores, equal scores; B = 64 of degenerate
+   boxes, some of whose pairs must take the kernel's ring routine), IoU
+   rows within 1e-5, and timed; K5 on the AABB path's candidates;
 9. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
@@ -1082,6 +1086,8 @@ def check_lap(torch, dev, rng, path):
         # the dependent chain: each frame's scanned columns one after
         # another, then as many augmentation edges at most
         entry["chain_steps" + suffix] = int(scans.max())
+        entry["us_per_step" + suffix] = (entry["ms" + suffix] * 1e3
+                                         / entry["chain_steps" + suffix])
     entry["kernel_ms"] = entry["ms"]
     cost, rmask, cmask = path
     entry["plain_ms"] = time_gpu(
@@ -1102,7 +1108,8 @@ def check_lap(torch, dev, rng, path):
     print(f"lap: equal to the twin on {len(cases)} cases ({compared} rows), "
           f"scipy's total within {gap:.3g}; V5 path B=4 {entry['ms']:.4f} ms "
           f"(bound {entry['bound_ms']:.3g} by {entry['bound_by']}, chain "
-          f"{entry['chain_steps']} steps), seeded B=4 {entry['ms_b4']:.4f}, "
+          f"{entry['chain_steps']} steps, {entry['us_per_step']:.3f} us a "
+          f"step), seeded B=4 {entry['ms_b4']:.4f}, "
           f"B=1 {entry['ms_b1']:.4f}; twin {entry['plain_ms']:.3f} ms, scipy "
           f"on the host {entry['scipy_host_ms']:.4f} ms; {entry['shape']}; "
           f"scans {scans_of}", flush=True)
@@ -1696,7 +1703,8 @@ def rotated_nms_cases(rng, batch=4, n=512):
     """Seeded rotated-NMS operands on the host, (B, N, 7) boxes7, (B, N)
     scores and validity: car-sized boxes of any yaw, with heavy overlap
     (in a 12 m square), every candidate invalid, a quarter of the scores
-    NaN (and some infinite), and scores that tie in groups."""
+    NaN (and some infinite), scores that tie in groups, and degenerate
+    boxes (``degenerate_boxes``, 16 B frames)."""
     def boxes(spread):
         b = np.zeros((batch, n, 7), np.float32)
         b[..., 0] = rng.uniform(-spread, spread, (batch, n))
@@ -1724,7 +1732,45 @@ def rotated_nms_cases(rng, batch=4, n=512):
     cases["NaN scores"] = (boxes(10.0), s, np.ones((batch, n), bool))
     s = np.round(scores() * 8).astype(np.float32) / 8
     cases["equal scores"] = (boxes(10.0), s, s > 0.2)
+    cases["degenerate"] = degenerate_boxes(rng, 16 * batch, n)
     return cases
+
+
+def degenerate_boxes(rng, frames, n):
+    """Rotated-NMS operands of degenerate boxes, all valid: per frame,
+    copies of one car-sized box near the origin with x, y, w and l moved
+    by up to 3 ulps (coincident edges and corners, up to rounding), n / 32
+    boxes of width 0 or 1e-10 (areas under the IoU's 1e-9 union cut), and
+    the rest in a row along one edge line, ends touching.  The copies'
+    rings, clipped by a pick's edges, can flip sides more than twice where
+    three vertices lie on a clip line up to rounding, and then outgrow the
+    kernel's register slots.  Few pairs do, and which depends on the box's
+    bits, so the case has many frames."""
+    b = np.zeros((frames, n, 7), np.float32)
+    b[..., 2], b[..., 5] = -1.0, 1.5
+    m = max(n // 32, 1)
+    g = n - 2 * m
+    near = lambda: (rng.uniform(0.2, 0.8, (frames, 1))
+                    * rng.choice([-1.0, 1.0], (frames, 1)))
+    b[:, :g, 0], b[:, :g, 1] = near(), near()
+    b[:, :g, 3] = rng.uniform(1.4, 2.2, (frames, 1))
+    b[:, :g, 4] = rng.uniform(3.2, 5.0, (frames, 1))
+    b[:, :g, 6] = rng.uniform(-np.pi, np.pi, (frames, 1))
+    for f in (0, 1, 3, 4):
+        ulps = rng.integers(-3, 4, (frames, g)).astype(np.int32)
+        b[:, :g, f] = (b[:, :g, f].view(np.int32) + ulps).view(np.float32)
+    thin = slice(g, g + m)
+    b[:, thin, 0] = rng.uniform(-12, 12, (frames, m))
+    b[:, thin, 1] = rng.uniform(-8, 8, (frames, m))
+    b[:, thin, 3] = np.where(rng.uniform(size=(frames, m)) < 0.5, 0.0, 1e-10)
+    b[:, thin, 4] = rng.uniform(3.0, 5.0, (frames, m))
+    b[:, thin, 6] = rng.uniform(-np.pi, np.pi, (frames, m))
+    row = slice(g + m, n)
+    b[:, row, 0] = -16.0 + 4.0 * np.arange(n - g - m)
+    b[:, row, 1] = 14.0
+    b[:, row, 3], b[:, row, 4], b[:, row, 6] = 2.0, 4.0, 0.0
+    s = rng.uniform(0, 1, (frames, n)).astype(np.float32)
+    return b, s, np.ones((frames, n), bool)
 
 
 def rotated_nms_launcher(torch, dev, bx, sc, va, thr, m):
@@ -1739,7 +1785,7 @@ def rotated_nms_launcher(torch, dev, bx, sc, va, thr, m):
     def run():
         kernel_lib.check(lib.rotated_nms_launch(
             bx.data_ptr(), sc.data_ptr(), va.data_ptr(), b, n, m, thr,
-            out_idx.data_ptr(), out_keep.data_ptr(), None,
+            out_idx.data_ptr(), out_keep.data_ptr(), None, None,
             kernel_lib.stream_handle(dev)), "rotated_nms_launch")
     return run
 
@@ -1787,13 +1833,16 @@ def check_rotated_nms(torch, dev, rng, path):
     path's own candidates (``path``: each frame's 512 top boxes7, scores
     and validity from the card's heads, (4, 512, ...)), the same with
     every candidate valid, and seeded cases at B = 4, N = 512, M = 64
-    (heavy overlap, all invalid, NaN scores, equal scores).  The kernel's
-    IoU rows (each step's pick against every candidate) must agree with
-    the twin's matrix rows within PP_IOU_TOL, and its picks with the
-    twin's up to the first step with a deciding IoU within PP_IOU_TOL of
-    the threshold (the smallest such gap is printed).  Timed at B = 1 on
-    each path frame (the launch the decode makes per frame) and at B = 4
-    on the seeded overlap; the twin on the card beside it."""
+    (heavy overlap, all invalid, NaN scores, equal scores) and B = 64
+    (degenerate boxes).  The kernel's IoU rows (each step's pick against
+    every candidate) must agree with the twin's matrix rows within
+    PP_IOU_TOL, and its picks with the twin's up to the first step with a
+    deciding IoU within PP_IOU_TOL of the threshold (the smallest such gap
+    is printed).  The degenerate case must send some pairs through the
+    kernel's ring routine (counted by the kernel).  Timed at B = 1 on each
+    path frame (the launch the decode makes per frame) and at B = 4 on the
+    seeded overlap, also per step of the longest frame's chain of picks;
+    the twin on the card beside it."""
     from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
     from lidar_object_detection_tpu_torch.ops.rotated_iou import (
         rotated_iou_matrix)
@@ -1807,20 +1856,22 @@ def check_rotated_nms(torch, dev, rng, path):
     cases.update({name: on_card(c)
                   for name, c in rotated_nms_cases(rng).items()})
     stats, max_err, min_gap, failed, pairs_of = {}, 0.0, np.inf, [], {}
+    slow_of = {}
     for name, (bx, sc, va) in cases.items():
-        idx, keep, rows = rn.rotated_nms_cuda(bx, sc, va, thr, m,
-                                              iou_rows=True)
+        idx, keep, rows, slow = rn.rotated_nms_cuda(bx, sc, va, thr, m,
+                                                    iou_rows=True)
         ref_idx, ref_keep, pairs = rn.rotated_nms_plain(
             bx, sc, va, thr, m, return_pairs=True)
         torch.cuda.synchronize()
-        pairs_of[name] = pairs.tolist()
+        pairs_of[name] = int(pairs.sum())
+        slow_of[name] = int(slow.sum())
         idx_h, keep_h, rows_h = (t.cpu().numpy() for t in (idx, keep, rows))
         ref_idx_h, ref_keep_h = ref_idx.cpu().numpy(), ref_keep.cpu().numpy()
         gaps, close = replay_rotated_nms(rows_h, idx_h, keep_h,
                                          sc.cpu().numpy(), va.cpu().numpy(),
                                          thr)
         min_gap = min(min_gap, *gaps)
-        bad = 0
+        bad, case_err = 0, 0.0
         for f in range(bx.shape[0]):
             c = close[f]
             bad += int((idx_h[f, :c + 1] != ref_idx_h[f, :c + 1]).sum()
@@ -1831,20 +1882,25 @@ def check_rotated_nms(torch, dev, rng, path):
             if steps:
                 iou = rotated_iou_matrix(bx[f], bx[f])
                 picks = torch.from_numpy(idx_h[f, :steps]).long().to(dev)
-                err = float((rows[f, :steps] - iou[picks]).abs().max())
-                max_err = max(max_err, err)
+                case_err = max(case_err, float(
+                    (rows[f, :steps] - iou[picks]).abs().max()))
+        max_err = max(max_err, case_err)
         if bad:
             failed.append(f"{name}: {bad} slots")
         stats[name] = {"picks": keep_h.sum(axis=1).tolist(),
-                       "min_gap": min(gaps), "close_step": close}
-    print(f"rotated NMS cases: {stats}", flush=True)
+                       "min_gap": min(gaps), "close_step": close,
+                       "max_abs_err": case_err}
+    print(f"rotated NMS cases: {stats}; pairs through the ring routine "
+          f"{slow_of}", flush=True)
     if failed or max_err > PP_IOU_TOL:
         raise AssertionError(f"the rotated NMS differs from its twin: "
                              f"{failed}, IoU rows off by up to {max_err}")
     if sum(stats["SSD path, all valid"]["picks"]) == 0 \
             or sum(stats["heavy overlap"]["picks"]) < 8 \
-            or sum(stats["all invalid"]["picks"]) != 0:
-        raise AssertionError(f"degenerate rotated NMS cases: {stats}")
+            or sum(stats["all invalid"]["picks"]) != 0 \
+            or slow_of["degenerate"] == 0:
+        raise AssertionError(f"degenerate rotated NMS cases: {stats}, "
+                             f"ring routine {slow_of}")
 
     entry = {"name": "rotated_nms", "route": "cuda",
              "source": "lidar_object_detection_tpu_torch/csrc/"
@@ -1853,7 +1909,7 @@ def check_rotated_nms(torch, dev, rng, path):
                          "decode.py:146",
              "max_abs_err": max_err, "min_gap": min_gap,
              "mismatches": 0, "cases": len(cases), "library_ms": None,
-             "pairs": pairs_of}
+             "pairs": pairs_of, "ring_routine_pairs": slow_of}
     per_frame, bounds = [], []
     for f in range(boxes.shape[0]):
         one = tuple(t[f:f + 1].contiguous() for t in path)
@@ -1872,9 +1928,13 @@ def check_rotated_nms(torch, dev, rng, path):
                                                    thr, m))
     _, keep, pairs = rn.rotated_nms_plain(bx, sc, va, thr, m,
                                           return_pairs=True)
-    steps = int(np.minimum(keep.sum(dim=1).cpu().numpy() + 1, m).sum())
+    picks = keep.sum(dim=1).cpu().numpy()
+    steps = int(np.minimum(picks + 1, m).sum())
     entry["bound_ms_b4"], _ = rotated_nms_bound(int(pairs.sum()), 4, 512, m,
                                                 steps)
+    # the frames run side by side: the chain is the longest frame's steps
+    entry["chain_steps_b4"] = int(min(picks.max() + 1, m))
+    entry["us_per_step_b4"] = entry["ms_b4"] * 1e3 / entry["chain_steps_b4"]
     one = tuple(t[:1].contiguous() for t in path)
     entry["plain_ms"] = time_gpu(lambda: rn.rotated_nms_plain(*one, thr, m),
                                  reps=5, warmup=1, head_start=False)
@@ -1882,8 +1942,10 @@ def check_rotated_nms(torch, dev, rng, path):
           f"within {max_err:.3g}, smallest deciding gap {min_gap:.3g}); "
           f"SSD path B=1 {entry['ms']:.4f} ms per frame ({per_frame}; bound "
           f"{entry['bound_ms']:.3g} by {entry['bound_by']}), seeded B=4 "
-          f"{entry['ms_b4']:.4f} (bound {entry['bound_ms_b4']:.3g}); twin "
-          f"{entry['plain_ms']:.3f} ms; pairs {pairs_of}", flush=True)
+          f"{entry['ms_b4']:.4f} (bound {entry['bound_ms_b4']:.3g}; "
+          f"{entry['us_per_step_b4']:.3f} us a step over "
+          f"{entry['chain_steps_b4']}); twin {entry['plain_ms']:.3f} ms; "
+          f"pairs {pairs_of}, through the ring routine {slow_of}", flush=True)
     return entry
 
 
@@ -1935,8 +1997,9 @@ def same_pillars_outputs(got_dir, ref_dir, frames, box_atol, score_atol):
     """The CLI's detections_*.json and scene_*.ply against those written
     from a reference decode: keys, frames, classes, steps and counts
     exact; boxes7, scores and PLY coordinates within the tolerances; PLY
-    headers, colours and edges exact.  Returns the detection count."""
-    total = 0
+    headers, colours and edges exact.  Returns the detection count and the
+    worst boxes7, score and PLY coordinate errors."""
+    total, box_err, score_err, ply_err = 0, 0.0, 0.0, 0.0
     for frame in frames:
         with open(os.path.join(got_dir, f"detections_{frame:010d}.json")) \
                 as f:
@@ -1950,12 +2013,13 @@ def same_pillars_outputs(got_dir, ref_dir, frames, box_atol, score_atol):
                                  f"{got} vs {ref}")
         gb = np.asarray(got["boxes7"]).reshape(-1, 7)
         rb = np.asarray(ref["boxes7"]).reshape(-1, 7)
-        if gb.shape != rb.shape or (len(rb) and (
-                np.abs(gb - rb).max() > box_atol or np.abs(
-                    np.asarray(got["scores"]) - ref["scores"]).max()
-                > score_atol)):
-            raise AssertionError(f"detections_{frame:010d}.json: boxes7 or "
-                                 f"scores beyond the tolerance")
+        if gb.shape != rb.shape:
+            raise AssertionError(f"detections_{frame:010d}.json: "
+                                 f"{len(gb)} boxes, the reference {len(rb)}")
+        if len(rb):
+            box_err = max(box_err, float(np.abs(gb - rb).max()))
+            score_err = max(score_err, float(np.abs(
+                np.asarray(got["scores"]) - ref["scores"]).max()))
         total += len(rb)
         with open(os.path.join(got_dir, f"scene_{frame:010d}.ply")) as f:
             g_lines = f.read().splitlines()
@@ -1969,11 +2033,26 @@ def same_pillars_outputs(got_dir, ref_dir, frames, box_atol, score_atol):
                       float)
         if g_lines[:end + 1] != r_lines[:end + 1] \
                 or g_lines[end + 1 + n:] != r_lines[end + 1 + n:] \
-                or not np.array_equal(gv[:, 3:], rv[:, 3:]) \
-                or np.abs(gv[:, :3] - rv[:, :3]).max() > box_atol:
-            raise AssertionError(f"scene_{frame:010d}.ply differs beyond "
-                                 f"the tolerance")
-    return total
+                or not np.array_equal(gv[:, 3:], rv[:, 3:]):
+            raise AssertionError(f"scene_{frame:010d}.ply differs")
+        ply_err = max(ply_err, float(np.abs(gv[:, :3] - rv[:, :3]).max()))
+    if box_err > box_atol or ply_err > box_atol or score_err > score_atol:
+        raise AssertionError(f"the CLI's files are off by {box_err} "
+                             f"(boxes7), {ply_err} (PLY), {score_err} "
+                             f"(scores)")
+    return total, box_err, score_err, ply_err
+
+
+def same_files(got_dir, ref_dir, what):
+    """Every file of two output directories, byte for byte."""
+    names = sorted(os.listdir(ref_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"{what}: the files differ: {names}")
+    for name in names:
+        if read_bytes(os.path.join(got_dir, name)) != read_bytes(
+                os.path.join(ref_dir, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    return len(names)
 
 
 def pointpillars_phase(torch, dev, smi, tmp):
@@ -1984,19 +2063,21 @@ def pointpillars_phase(torch, dev, smi, tmp):
 
     * the CLI ``pointpillars-infer --surround --aggregate-sweeps
       --export-ply`` with ``--head ssd`` (its default rotated-NMS decode,
-      at PP_SSD_THRESHOLD) and ``--head center``, counters zeroed before
-      each: the rotated NMS once per frame in the SSD run, no kernel in the
-      center run;
+      at PP_SSD_THRESHOLD) and ``--head center``, each run twice, counters
+      zeroed before each: the rotated NMS once per frame in the SSD runs,
+      no kernel in the center runs; the second run's JSON and PLY files
+      byte-equal to the first's;
     * ``infer_pointpillars(..., rotated_nms=False)`` through the Python
       API: K5 once per frame;
     * references: the card's heads against a CPU forward of the port
-      (first frame of each head, within 2e-3); each frame's card decode
-      against the CPU decode of the card's own heads (validity and
-      classes exact, boxes7 within 1e-4, scores within 1e-6); the CLI's
-      JSON and PLY files against those written from the CPU decode
-      (counts and classes exact, boxes7 and coordinates within 2e-3,
-      scores within 2e-4: the CLI's forward is another run, and the
-      pillar sums are float atomics);
+      (first frame of each head, within 2e-3), and against a second
+      forward on the card (bit for bit); each frame's card decode against
+      the CPU decode of the card's own heads (validity and classes exact,
+      boxes7 within 1e-4, scores within 1e-6); the CLI's JSON and PLY
+      files byte-equal to those written from the card decode, and against
+      those written from the CPU decode (counts and classes exact, boxes7
+      and coordinates within 1e-4, scores within 1e-6; the worst errors
+      printed);
     * CUDA-event times of the forward and the decodes, and a traced frame.
 
     Returns each run's launches, the SSD path's candidates on the card
@@ -2007,6 +2088,8 @@ def pointpillars_phase(torch, dev, smi, tmp):
         PillarsConfig, bev_aabb, decode_predictions)
     from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
         decode_candidates)
+    from lidar_object_detection_tpu_torch.models.pointpillars.voxelize import (
+        pillar_ids)
     from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
 
@@ -2017,20 +2100,26 @@ def pointpillars_phase(torch, dev, smi, tmp):
     base = ["pointpillars-infer", "--dataset", root, "--surround",
             "--aggregate-sweeps", "--export-ply", "--device", str(dev)]
     thresholds = {"ssd": PP_SSD_THRESHOLD, "center": 0.3}
-    launches, outs, texts, walls = {}, {}, {}, {}
+    launches, outs, texts, walls, repeated = {}, {}, {}, {}, {}
     for head in ("ssd", "center"):
-        outs[head] = os.path.join(tmp, f"pp_cli_{head}")
-        argv = base + ["--ckpt", PP_CKPTS[head], "--head", head,
-                       "--output", outs[head]]
-        if head == "ssd":
-            argv += ["--score-threshold", str(PP_SSD_THRESHOLD)]
-        torch.cuda.synchronize()
-        kernel_lib.reset_launches()
-        t = time.perf_counter()
-        texts[head] = run_cli(argv)
-        torch.cuda.synchronize()
-        walls[head] = time.perf_counter() - t
-        launches[head] = dict(kernel_lib.LAUNCHES)
+        # twice: the second run must write the first run's bytes
+        for run in ("", "_again"):
+            outs[head + run] = os.path.join(tmp, f"pp_cli_{head}{run}")
+            argv = base + ["--ckpt", PP_CKPTS[head], "--head", head,
+                           "--output", outs[head + run]]
+            if head == "ssd":
+                argv += ["--score-threshold", str(PP_SSD_THRESHOLD)]
+            torch.cuda.synchronize()
+            kernel_lib.reset_launches()
+            t = time.perf_counter()
+            texts[head + run] = run_cli(argv)
+            torch.cuda.synchronize()
+            walls[head + run] = time.perf_counter() - t
+            launches[head + run] = dict(kernel_lib.LAUNCHES)
+        repeated[head] = same_files(outs[head + "_again"], outs[head],
+                                    f"the {head} CLI's second run")
+    print(f"PointPillars CLI: a second run wrote the first run's bytes "
+          f"({repeated} files)", flush=True)
     cfgs = {head: dataclasses.replace(PillarsConfig.kitti360_surround(),
                                       head=head) for head in ("ssd", "center")}
     torch.cuda.synchronize()
@@ -2044,7 +2133,9 @@ def pointpillars_phase(torch, dev, smi, tmp):
     launches["ssd_aabb"] = dict(kernel_lib.LAUNCHES)
     print(f"PointPillars launches: {launches}; wall s {walls}", flush=True)
     zero = {k: 0 for k in kernel_lib.LAUNCHES}
-    for run, want in (("ssd", dict(zero, rotated_nms=n)), ("center", zero),
+    for run, want in (("ssd", dict(zero, rotated_nms=n)),
+                      ("ssd_again", dict(zero, rotated_nms=n)),
+                      ("center", zero), ("center_again", zero),
                       ("ssd_aabb", dict(zero, nms=n))):
         if launches[run] != want:
             raise AssertionError(f"the PointPillars {run} run launched "
@@ -2057,14 +2148,27 @@ def pointpillars_phase(torch, dev, smi, tmp):
     p_max = ShapeConfig().max_points
     clouds = list(pp.pillars_clouds(ds, PP_FRAMES, cfgs["ssd"], True, p_max))
     summary = {"cars in the street": n_cars, "cli_wall_s": walls,
-               "points": [len(c) for c in clouds]}
+               "points": [len(c) for c in clouds],
+               "cli_repeat_files_equal": repeated}
+    # what the deterministic scope repairs: the first cloud's pillar sums
+    # as plain float atomics, three times (reported, not required)
+    points, pv = pp.padded_cloud(clouds[0], p_max, dev)
+    grid = cfgs["ssd"].grid
+    ids, ok = pillar_ids(points[0], pv[0], grid)
+    atomic = [torch.zeros((grid.nx * grid.ny, 3), device=dev)
+              .index_add_(0, ids, points[0, :, :3] * ok[:, None])
+              for _ in range(3)]
+    summary["atomic_sums_repeat"] = all(torch.equal(a, atomic[0])
+                                        for a in atomic)
     path, aabb = None, None
     for head in ("ssd", "center"):
         cfg, thr = cfgs[head], thresholds[head]
         card, step = pp.load_pillars_model(PP_CKPTS[head], cfg, dev)
         ref_dir = os.path.join(tmp, f"pp_ref_{head}")
+        card_dir = os.path.join(tmp, f"pp_card_{head}")
         os.makedirs(ref_dir)
-        cands, errs = [], []
+        os.makedirs(card_dir)
+        cands, errs, first = [], [], None
         for i, (frame, pts) in enumerate(zip(PP_FRAMES, clouds)):
             points, pv = pp.padded_cloud(pts, p_max, dev)
             with torch.inference_mode():
@@ -2076,6 +2180,7 @@ def pointpillars_phase(torch, dev, smi, tmp):
                 ref = decode_predictions(one_cpu, cfg, score_threshold=thr,
                                          rotated_nms=True)
                 if i == 0:
+                    first = raw
                     cpu_model, _ = pp.load_pillars_model(PP_CKPTS[head], cfg,
                                                          "cpu")
                     raw_cpu = cpu_model(points.cpu(), pv.cpu())
@@ -2097,8 +2202,16 @@ def pointpillars_phase(torch, dev, smi, tmp):
                                         1e-4, 1e-6))
             pp.write_detections(pp.detection_record(frame, ref, step), pts,
                                 ref_dir, export_ply=True)
-        total = same_pillars_outputs(outs[head], ref_dir, PP_FRAMES, 2e-3,
-                                     2e-4)
+            pp.write_detections(pp.detection_record(frame, det, step), pts,
+                                card_dir, export_ply=True)
+        # the CLI's forward and decode are another run of the same
+        # computation: its files are those of this decode, byte for byte,
+        # and within the decode's tolerances of the CPU decode's
+        same_files(outs[head], card_dir, f"the {head} CLI against the API")
+        total, box_err, score_err, ply_err = same_pillars_outputs(
+            outs[head], ref_dir, PP_FRAMES, 1e-4, 1e-6)
+        summary[f"{head}_cli_vs_cpu_decode_err"] = {
+            "boxes7": box_err, "scores": score_err, "ply": ply_err}
         line = re.search(r"(\d+) frames, (\d+) detections", texts[head])
         if not line or (int(line[1]), int(line[2])) != (n, total):
             raise AssertionError(f"the {head} CLI printed {texts[head]!r}, "
@@ -2112,6 +2225,9 @@ def pointpillars_phase(torch, dev, smi, tmp):
         points, pv = pp.padded_cloud(clouds[0], p_max, dev)
         with torch.inference_mode():
             fwd_ms, raw = time_events(torch, lambda: card(points, pv), 5)
+            if not all(torch.equal(raw[k], first[k]) for k in raw):
+                raise AssertionError(f"the {head} heads differ between two "
+                                     f"forwards of one frame")
             one = {k: v[0] for k, v in raw.items()}
             modes = {"rotated": True, "aabb": False} if head == "ssd" \
                 else {"peaks": False}

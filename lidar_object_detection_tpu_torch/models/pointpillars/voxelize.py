@@ -13,9 +13,13 @@ ny * nx), so one scatter serves the batch.  An invalid or out-of-grid point
 gets id 0 and contributes zeros: to pillar 0's sums (nothing), and to its
 max (nothing, over a zero fill, since embeddings are ReLU outputs).
 
-The sums are ``index_add_``: on the card a float atomic whose order varies
-from run to run, so the pillar means, and what follows them, may differ
-from JAX's and between runs in their last bits.
+The sums and counts are ``index_add_`` under PyTorch's deterministic
+algorithms (:func:`deterministic_algorithms`, a scope as narrow as the two
+calls): on the card that is a sort of the pillar ids and a sum in their
+order, the same bits on every run, where the default is a float atomic
+whose order varies.  The order is not JAX's, so the pillar means may
+differ from JAX's in their last bits.  The max of :func:`scatter_bev`
+does not depend on order and stays atomic.
 
 Memory at the surround grid (640 x 640) and B = 1: the image and the
 scatter's fill are 640 * 640 * 64 * 4 B = 105 MB each, the scatter's
@@ -24,6 +28,7 @@ index 131072 * 64 * 8 B = 67 MB.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -48,6 +53,21 @@ class PillarGridConfig:
     def ny(self) -> int:
         return int(round((self.y_range[1] - self.y_range[0])
                          / self.pillar_size))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` inside the scope; the
+    caller's setting and its ``warn_only`` are restored after it.  The
+    setting is the process's, so keep the scope to the calls that need
+    it."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
 
 
 def pillar_ids(points, valid, cfg: PillarGridConfig):
@@ -86,8 +106,9 @@ def point_features(points, valid, cfg: PillarGridConfig, batch: int = 1):
     w = in_grid.to(torch.float32)
 
     xyz = points[:, :3] * w[:, None]
-    sums = points.new_zeros((n_pillars, 3)).index_add_(0, ids, xyz)
-    counts = points.new_zeros((n_pillars,)).index_add_(0, ids, w)
+    with deterministic_algorithms():
+        sums = points.new_zeros((n_pillars, 3)).index_add_(0, ids, xyz)
+        counts = points.new_zeros((n_pillars,)).index_add_(0, ids, w)
     means = sums[ids] / torch.clamp(counts[ids], min=1.0)[:, None]
 
     cx = (torch.floor((points[:, 0] - cfg.x_range[0]) / cfg.pillar_size)

@@ -44,7 +44,8 @@ SIGNATURES = {
                           _P, _P, _I, _I, _P, _P),
     "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "lap_launch": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "rotated_nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    "rotated_nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
+                           _P),
 }
 
 _lib = None

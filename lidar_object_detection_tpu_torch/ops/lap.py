@@ -12,9 +12,9 @@ batch at V5's 32 x 384; the kernel does the whole solve in one launch.
   frozen by ``done`` once the phase reaches an unassigned column, and R
   augmentation steps.  It is the CPU path and the kernel's oracle on the
   card.
-* :func:`lap_cuda` launches ``csrc/lap.cu`` on CUDA tensors, one thread
-  block per frame, all frames of a batch in one launch, and raises on
-  anything else.  Its loops stop at the phase's first unassigned column,
+* :func:`lap_cuda` launches ``csrc/lap.cu`` on CUDA tensors, one warp
+  per frame, all frames of a batch in one launch, and raises on anything
+  else.  Its loops stop at the phase's first unassigned column,
   as :func:`.hungarian.hungarian` does: the pops and dual updates are
   those of the fixed-trip form, so the result is the same.
 * :func:`lap` takes the twin for a CPU tensor and the kernel for a CUDA

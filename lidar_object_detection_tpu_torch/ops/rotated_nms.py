@@ -12,8 +12,8 @@ the 262,144 pairs, per frame.
   :func:`.rotated_iou.rotated_iou_matrix`, frames side by side on a
   leading axis.  It is the CPU path and the kernel's oracle on the card.
 * :func:`rotated_nms_cuda` launches ``csrc/rotated_nms.cu`` on CUDA
-  tensors, one thread block per frame and one thread per candidate, all
-  frames in one launch, and raises on anything else.
+  tensors, one thread block per frame that keeps a thread per alive
+  candidate, all frames in one launch, and raises on anything else.
 * :func:`rotated_nms` takes the twin for a CPU tensor and the kernel for a
   CUDA tensor.
 
@@ -34,7 +34,7 @@ from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_matrix)
 
-# the kernel's limit: one thread per candidate in one block
+# the kernel's limit: every candidate in one block's shared memory
 MAX_CANDIDATES = 1024
 
 
@@ -84,9 +84,12 @@ def rotated_nms_cuda(boxes7, scores, valid, iou_threshold: float,
 
     Takes float32 boxes7 (B, N, 7), float32 scores (B, N) and a bool
     candidate mask (B, N), all contiguous on one CUDA device, 1 <= N <=
-    1024.  Returns (indices (B, M) int32, keep (B, M) bool); with
-    ``iou_rows`` also each slot's IoU of its pick with every candidate,
-    (B, M, N) float32 (zeros after the last pick), for checks.
+    1024.  Returns (indices (B, M) int32, keep (B, M) bool).  With
+    ``iou_rows``, for checks, it also returns each slot's IoU of its pick
+    with every candidate, (B, M, N) float32 (zeros after the last pick),
+    and per frame the (pick, alive candidate) pairs whose clipped rings
+    outgrew the kernel's register slots and took its ring routine, (B,)
+    int32.
     """
     device = boxes7.device
     if device.type != "cuda":
@@ -106,17 +109,23 @@ def rotated_nms_cuda(boxes7, scores, valid, iou_threshold: float,
     check(valid, "valid", torch.bool, (b, n), device)
     out_idx = torch.empty((b, max_outputs), dtype=torch.int32, device=device)
     out_keep = torch.empty((b, max_outputs), dtype=torch.bool, device=device)
-    rows = (torch.zeros((b, max_outputs, n), dtype=torch.float32,
-                        device=device) if iou_rows else None)
+    rows = slow = None
+    if iou_rows:
+        rows = torch.zeros((b, max_outputs, n), dtype=torch.float32,
+                           device=device)
+        slow = torch.zeros(b, dtype=torch.int32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = kernel_lib.library()
     code = lib.rotated_nms_launch(
         boxes7.data_ptr(), scores.data_ptr(), valid.data_ptr(), b, n,
         max_outputs, float(iou_threshold), out_idx.data_ptr(),
-        out_keep.data_ptr(), None if rows is None else rows.data_ptr(),
+        out_keep.data_ptr(), ptr(rows), ptr(slow),
         kernel_lib.stream_handle(device))
     kernel_lib.check(code, "rotated_nms_launch")
     kernel_lib.LAUNCHES["rotated_nms"] += 1
-    return (out_idx, out_keep, rows) if iou_rows else (out_idx, out_keep)
+    if iou_rows:
+        return out_idx, out_keep, rows, slow
+    return out_idx, out_keep
 
 
 def rotated_nms(boxes7, scores, valid, iou_threshold: float,

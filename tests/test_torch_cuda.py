@@ -118,11 +118,17 @@ def test_k5_frame_with_nothing_alive(dev):
 
 @pytest.mark.parametrize("batch,r,c,rows,cols", [
     (4, 32, 384, 0.4, 0.1), (3, 8, 48, 1.0, 0.5), (3, 32, 32, 1.0, 1.0),
-    (2, 1, 7, 1.0, 0.5), (2, 32, 384, 0.4, 0.0)])
+    (2, 1, 7, 1.0, 0.5), (2, 32, 384, 0.4, 0.0), (2, 16, 100, 0.8, 0.5),
+    (2, 32, 200, 0.6, 0.3), (2, 32, 500, 0.5, 0.2), (2, 32, 700, 0.5, 0.1),
+    (2, 32, 1000, 0.5, 0.1), (2, 32, 1600, 0.5, 0.1),
+    (2, 4, 3000, 1.0, 0.05)])
 def test_lap_kernel_equals_twin(dev, batch, r, c, rows, cols):
     """The assignment solver's kernel against its twin, every row (padded
     ones too), in one launch per batch; ``lap`` on CUDA tensors launches
-    it, one frame or a batch."""
+    it, one frame or a batch.  The widths cover every columns-per-lane
+    instantiation of ``csrc/lap.cu`` (1, 2, 4, 8, 12, 16, 24, 32 in
+    registers; shared memory past C = 1024, up to the widest C it takes at
+    R = 32)."""
     from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.ops import lap as lap_lib
 
@@ -138,6 +144,36 @@ def test_lap_kernel_equals_twin(dev, batch, r, c, rows, cols):
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert torch.equal(lap_lib.lap(cost[0], row_mask[0], col_mask[0]), ref[0])
     assert kernel_lib.LAUNCHES["lap"] == before + 2
+
+
+@pytest.mark.parametrize("c", [6, 70, 1100])
+def test_lap_signed_zero_ties_go_to_the_lowest_column(dev, c):
+    """Costs of -0.0 and +0.0 tie (as jnp.argmin has them): kernel and twin
+    give each row the lowest free column among its tied zeros, whichever
+    sign comes first.  A candidate is ((min_val + cost) - u) - v with
+    min_val +0.0 at a phase's start, so a -0.0 cost becomes a +0.0
+    candidate; the kernel keys every value as v + 0.0 besides."""
+    from lidar_object_detection_tpu_torch.ops import lap as lap_lib
+
+    r = 5
+    cost = np.ones((2, r, c), np.float32)
+    for i in range(r):
+        cost[0, i, i::r] = 0.0
+        cost[0, i, i::2 * r] = -0.0        # -0.0 first in every row
+        cost[1, i, i::r] = 0.0             # +0.0 first in every row
+        cost[1, i, i + r::2 * r] = -0.0
+    cost, rows, cols = (torch.from_numpy(a).to(dev) for a in (
+        cost, np.ones((2, r), bool), np.ones((2, c), bool)))
+    got = lap_lib.lap_cuda(cost, rows, cols)
+    ref = lap_lib.lap_plain(cost, rows, cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    want = torch.arange(r, dtype=torch.int32, device=dev)
+    assert torch.equal(got, torch.stack([want, want]))
+    assert bool(torch.signbit(cost[0, 0, 0])) and not bool(
+        torch.signbit(cost[0, 0, r]))
+    assert not bool(torch.signbit(cost[1, 0, 0])) and bool(
+        torch.signbit(cost[1, 0, r]))
 
 
 def test_lap_kernel_refuses_what_it_does_not_take(dev):

@@ -1,6 +1,9 @@
 """The rotated-NMS kernel (``csrc/rotated_nms.cu``) and the PointPillars
-decode on a card, against their plain twins.  Every test here is marked
-``cuda`` and skips where ``torch.cuda.is_available()`` is False.
+decode on a card, against their plain twins, and PointPillars inference
+repeating its bits on the card (the pillar sums, the heads, and the
+``pointpillars-infer`` CLI's JSON and PLY files byte for byte).  Every
+test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is False.
 
 This file imports nothing of JAX, Flax or the JAX package, so that it
 collects on the card's machine:
@@ -14,6 +17,8 @@ threshold (checked); decodes on the card against the CPU decode of the
 same heads: validity and classes exact, boxes7 within 1e-4, scores within
 1e-6.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -42,8 +47,8 @@ def test_rotated_nms_kernel_equals_twin(dev):
     for name, case in chip_smoke.rotated_nms_cases(rng).items():
         bx, sc, va = (torch.from_numpy(a).to(dev) for a in case)
         before = kernel_lib.LAUNCHES["rotated_nms"]
-        idx, keep, rows = rn.rotated_nms_cuda(bx, sc, va, thr, m,
-                                              iou_rows=True)
+        idx, keep, rows, slow = rn.rotated_nms_cuda(bx, sc, va, thr, m,
+                                                    iou_rows=True)
         assert kernel_lib.LAUNCHES["rotated_nms"] == before + 1
         ref_idx, ref_keep = rn.rotated_nms_plain(bx, sc, va, thr, m)
         torch.cuda.synchronize()
@@ -63,6 +68,10 @@ def test_rotated_nms_kernel_equals_twin(dev):
             assert not keep.any()
         else:
             assert int(keep.sum()) >= 4, name
+        # the ring routine: only degenerate boxes outgrow the slots
+        if name == "degenerate":
+            assert int(slow.sum()) > 0
+        print(f"{name}: {int(slow.sum())} pairs through the ring routine")
 
 
 def test_rotated_nms_dispatch_and_refusals(dev):
@@ -86,6 +95,80 @@ def test_rotated_nms_dispatch_and_refusals(dev):
     with pytest.raises(ValueError, match="CUDA"):
         rn.rotated_nms_cuda(bx[None].cpu(), sc[None].cpu(), va[None].cpu(),
                             0.5, 4)
+
+
+def test_rotated_nms_signed_zero_scores_tie(dev):
+    """Scores of -0.0 and +0.0 tie, as in jnp.argmax: apart boxes are
+    picked in index order, whichever sign comes first."""
+    from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
+
+    n = 40
+    boxes = np.zeros((2, n, 7), np.float32)
+    boxes[..., 0] = np.arange(n) * 10.0
+    boxes[..., 3:6] = (1.8, 4.0, 1.5)
+    scores = np.zeros((2, n), np.float32)
+    scores[0, 0::2] = -0.0
+    scores[1, 1::2] = -0.0
+    bx, sc, va = (torch.from_numpy(a).to(dev) for a in (
+        boxes, scores, np.ones((2, n), bool)))
+    idx, keep = rn.rotated_nms_cuda(bx, sc, va, 0.5, n)
+    ref_idx, ref_keep = rn.rotated_nms_plain(bx, sc, va, 0.5, n)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+    assert torch.equal(idx, torch.stack([order, order])) and bool(keep.all())
+
+
+def test_pillar_sums_and_heads_repeat_on_card(dev):
+    """The pillar sums (``index_add_`` in the deterministic scope) and the
+    committed SSD checkpoint's heads at the surround grid give the same
+    bits on every run on the card; the caller's determinism setting is
+    left as it was."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, point_features)
+    from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
+
+    cfg = PillarsConfig.kitti360_surround()
+    pts, _ = chip_smoke.pillars_world(np.random.default_rng(4), 131072)
+    points, pv = pp.padded_cloud(pts, 131072, dev)
+    setting = torch.are_deterministic_algorithms_enabled()
+    feats = [point_features(points[0], pv[0], cfg.grid)[0]
+             for _ in range(3)]
+    assert torch.are_deterministic_algorithms_enabled() == setting
+    assert all(torch.equal(f, feats[0]) for f in feats)
+    model, _ = pp.load_pillars_model(chip_smoke.PP_CKPTS["ssd"], cfg, dev)
+    with torch.inference_mode():
+        heads = [model(points, pv) for _ in range(3)]
+    for h in heads[1:]:
+        assert all(torch.equal(h[k], heads[0][k]) for k in h)
+    assert torch.are_deterministic_algorithms_enabled() == setting
+
+
+@pytest.mark.parametrize("head", ["ssd", "center"])
+def test_pointpillars_cli_repeats_its_bytes(dev, tmp_path, head):
+    """``pointpillars-infer`` run twice on the card over one tree (two
+    frames of ``chip_smoke.pillars_tree``, sweeps aggregated) writes
+    byte-equal JSON and PLY files."""
+    root = str(tmp_path / "kitti360")
+    chip_smoke.pillars_tree(root, np.random.default_rng(2))
+    outs = []
+    for run in range(2):
+        out = str(tmp_path / f"run{run}")
+        argv = ["pointpillars-infer", "--dataset", root, "--surround",
+                "--aggregate-sweeps", "--export-ply", "--device", "cuda",
+                "--ckpt", chip_smoke.PP_CKPTS[head], "--head", head,
+                "--output", out, "--frames", "200", "201"]
+        if head == "ssd":
+            argv += ["--score-threshold", str(chip_smoke.PP_SSD_THRESHOLD)]
+        chip_smoke.run_cli(argv)
+        outs.append(out)
+    names = sorted(os.listdir(outs[0]))
+    assert names == sorted(os.listdir(outs[1]))
+    assert sum(n.endswith(".json") for n in names) == 2
+    assert sum(n.endswith(".ply") for n in names) == 2
+    for name in names:
+        assert chip_smoke.read_bytes(os.path.join(outs[0], name)) == \
+            chip_smoke.read_bytes(os.path.join(outs[1], name)), name
 
 
 @pytest.mark.parametrize("head", ["ssd", "center"])

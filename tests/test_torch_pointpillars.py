@@ -187,6 +187,48 @@ def test_point_features_and_scatter_match_jax(rng):
     np.testing.assert_array_equal(bev.numpy(), np.asarray(rbev))
 
 
+@pytest.mark.parametrize("mode,warn_only", [(False, False), (True, False),
+                                             (True, True)])
+def test_deterministic_sums_restore_the_callers_setting(rng, mode,
+                                                        warn_only):
+    """The pillar sums run under torch's deterministic algorithms (one
+    scope around the two ``index_add_`` calls), which leaves the caller's
+    setting, its ``warn_only`` and cuDNN's flag as they were, also when
+    the scope raises; the features still equal JAX's."""
+    from lidar_object_detection_tpu_torch.models.pointpillars.voxelize \
+        import deterministic_algorithms
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn = torch.backends.cudnn.deterministic
+    jcfg, tcfg = configs(TINY_GRID)
+    pts, valid = random_points(rng, 1, 2000, TINY_GRID)
+    torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+    try:
+        feats, _, _ = tpp.point_features(torch.from_numpy(pts[0]),
+                                         torch.from_numpy(valid[0]),
+                                         tcfg.grid)
+        assert torch.are_deterministic_algorithms_enabled() == mode
+        assert torch.is_deterministic_algorithms_warn_only_enabled() == \
+            warn_only
+        with pytest.raises(KeyError):
+            with deterministic_algorithms():
+                assert torch.are_deterministic_algorithms_enabled()
+                assert not (
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+                raise KeyError("inside the scope")
+        assert torch.are_deterministic_algorithms_enabled() == mode
+        assert torch.is_deterministic_algorithms_warn_only_enabled() == \
+            warn_only
+        assert torch.backends.cudnn.deterministic == cudnn
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    rfeats, _, _ = jpp.point_features(jnp.asarray(pts[0]),
+                                      jnp.asarray(valid[0]), jcfg.grid)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(rfeats), rtol=0,
+                               atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the network
 # ---------------------------------------------------------------------------
