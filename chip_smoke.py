@@ -86,11 +86,33 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    overlap, all invalid, NaN scores, equal scores; B = 64 of degenerate
    boxes, some of whose pairs must take the kernel's ring routine), IoU
    rows within 1e-5, and timed; K5 on the AABB path's candidates;
-9. prints one JSON line of the kernels (times, bounds, launches, errors;
+9. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
+   images cut from the committed frames at KITTI's shapes (375 x 1242,
+   370 x 1224, 376 x 1241), labelled with the n checkpoint's cars and a
+   KITTI-like calib: the CLI's ``kitti2d`` on the card (YOLO11x's
+   detection head at full width, 224 x 640 after the letterbox, random
+   weights from seed 0, as the JAX CLI's) and with ``--device cpu``, TP /
+   FP / FN equal, K5 once per image and no other kernel; the default
+   detector's boxes on the card against the CPU's and the result lines
+   where both truncations agree; then ``run_kitti2d_eval`` with a
+   ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
+   the per-image forward and decode times (CUDA events) and the CLI's
+   host seconds;
+10. decodes the n float32 detector's raw outputs on the committed frames
+   (B = 4) in the modes the serving path does not run -- logit at 0.9,
+   relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
+   ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
+   detection-only decode, each on the card and on the CPU: mask words
+   equal bit for bit.  The relative cut's peak pass
+   (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
+   twin, float bits equal, on those tables and on ``mask_cases``, and
+   timed over 20 launches;
+11. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
-   PointPillars runs), the card's name and power limit, and last the
-   ``{"ok": true, ...}`` line.
+   PointPillars runs, ``kitti2d_launches`` of the card's ``kitti2d`` run
+   and ``relative_decode_launches``), the card's name and power limit,
+   and last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It imports nothing of JAX and nothing of the JAX package.
@@ -139,9 +161,9 @@ P, G, D = 131072, 384, 32
 # the kernels of the serving path (detector and point-count fusion); V5's
 # solver, ``lap``, launches only where a run matches by assignment
 PATH_KERNELS = ("inside_counts", "mask_assemble", "mask_count", "nms")
-# kernels that the serving path never launches: V5's solver and the
-# PointPillars decode's rotated NMS
-OFF_PATH_KERNELS = ("lap", "rotated_nms")
+# kernels that the serving path never launches: V5's solver, the
+# PointPillars decode's rotated NMS and the relative cut's peak pass
+OFF_PATH_KERNELS = ("lap", "rotated_nms", "mask_peak")
 H0, W0 = 376, 1408
 # bench.py's tight shapes: the KITTI-360 sample's largest scan (122,183
 # points) padded to a multiple of 4096
@@ -301,6 +323,33 @@ def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
                       "w") as f:
                 json.dump([{"index": g, "corners_cam0": c.tolist()}
                            for g, c in enumerate(corners)], f)
+
+
+# KITTI's image shapes vary a little; these three exercise the KITTI 2D
+# evaluation's per-shape detector cache
+KITTI2D_SHAPES = ((375, 1242), (370, 1224), (376, 1241))
+
+
+def write_kitti2d_tree(root, samples):
+    """A KITTI_Selection tree under ``root``: for each ``(name, image,
+    labels, calib)`` of ``samples``, ``images/<name>.png`` (a (H, W, 3)
+    uint8 array, written by ``utils.png.write_png_rgb``), and, unless None,
+    ``labels/<name>.txt`` (rows ``class x1 y1 x2 y2 distance``) and
+    ``calib/<name>.txt`` (a 3 x 3 or 3 x 4 camera matrix)."""
+    from lidar_object_detection_tpu_torch.utils.png import write_png_rgb
+
+    for d in ("images", "labels", "calib"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for name, image, labels, calib in samples:
+        write_png_rgb(os.path.join(root, "images", name + ".png"), image)
+        if labels is not None:
+            with open(os.path.join(root, "labels", name + ".txt"), "w") as f:
+                f.writelines(f"{row[0]} " + " ".join(repr(float(v))
+                                                     for v in row[1:]) + "\n"
+                             for row in labels)
+        if calib is not None:
+            np.savetxt(os.path.join(root, "calib", name + ".txt"),
+                       np.asarray(calib, np.float64))
 
 
 def nms_case(rng, batch, n, iou_threshold=0.7):
@@ -1478,7 +1527,7 @@ def matching_phase(torch, dev, smi, root, tmp):
     for name, k1, solver in (("v4", 1, 0), ("v5", 2, 1),
                              ("depth_maps", 1, 0)):
         want = dict(inside_counts=k1, mask_assemble=1, mask_count=1, nms=1,
-                    lap=solver, rotated_nms=0)
+                    lap=solver, rotated_nms=0, mask_peak=0)
         if launches[name] != want:
             raise AssertionError(f"the {name} CLI run launched "
                                  f"{launches[name]}, expected {want}")
@@ -2254,6 +2303,370 @@ def pointpillars_phase(torch, dev, smi, tmp):
 
 
 # ---------------------------------------------------------------------------
+# KITTI 2D evaluation and the decode modes
+# ---------------------------------------------------------------------------
+
+# card vs CPU boxes of the same float32 network: its convolutions sum in
+# another order on each device (pixels; the boxes span up to 1242)
+KITTI2D_BOX_TOL = 1e-2
+
+
+def n_detect_fn(torch, device):
+    """A KITTI 2D ``detect_fn`` on the committed n checkpoint (float32,
+    single view, the sidecar's confidence) on ``device``: one detector per
+    image shape, the valid boxes truncated to int64 as the default
+    detector's.  It decodes no masks (the evaluation reads boxes only)."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        postprocess_batch)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+
+    cache = {}
+
+    def detect(image):
+        shape = image.shape[:2]
+        if shape not in cache:
+            cache[shape] = load_serving_checkpoint(
+                CKPT, shape, tta="none", device=device)[0]
+        det = cache[shape]
+        out = postprocess_batch(det.forward(image[None]), det.params,
+                                masks=False)
+        valid = out["det_valid"][0].cpu().numpy()
+        return out["boxes"][0].cpu().numpy()[valid].astype(np.int64)
+
+    return detect
+
+
+def kitti2d_tree(torch, dev, root):
+    """A KITTI_Selection tree of three images cut from the committed frames
+    at KITTI's shapes, labelled with the n checkpoint's cars on the card
+    (shifted a pixel) and one car it does not see; a 3 x 3, a 3 x 4 and a
+    3 x 3 calib.  Returns the images."""
+    from lidar_object_detection_tpu_torch.eval.kitti2d import (
+        monocular_distance)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    detect = n_detect_fn(torch, dev)
+    frames = [read_png_rgb(path) for path in FRAMES]
+    p2 = np.concatenate([INTRINSICS, [[44.857], [0.2163], [0.0027]]], 1)
+    samples, images = [], []
+    for i, (h, w) in enumerate(KITTI2D_SHAPES):
+        image = np.ascontiguousarray(frames[i % 2][:h, :w])
+        boxes = detect(image).astype(np.float64) + 1.0
+        boxes = np.concatenate([boxes, [[20.0, 200.0, 140.0, 300.0]]])
+        dist = monocular_distance(INTRINSICS, boxes) + 0.5
+        labels = [("Car", *b, d) for b, d in zip(boxes, dist)]
+        samples.append((f"{i:06d}", image, labels,
+                        p2 if i == 1 else INTRINSICS))
+        images.append(image)
+    write_kitti2d_tree(root, samples)
+    return images
+
+
+def totals_of(text):
+    """(TP, FP, FN) from the kitti2d CLI's output."""
+    m = re.search(r"TP: (\d+)  FP: (\d+)  FN: (\d+)", text)
+    if m is None:
+        raise AssertionError(f"no totals in the CLI's output: {text!r}")
+    return tuple(int(v) for v in m.groups())
+
+
+def same_result_lines(card_dir, cpu_dir, n):
+    """The ``results_*.txt`` of a card and a CPU run: as many lines, and
+    equal lines wherever both truncated detection boxes agree.  Returns
+    the lines compared."""
+    compared = 0
+    for i in range(n):
+        name = f"results_{i:06d}.png.txt"
+        with open(os.path.join(card_dir, name)) as f:
+            card_lines = f.read().splitlines()
+        with open(os.path.join(cpu_dir, name)) as f:
+            cpu_lines = f.read().splitlines()
+        if len(card_lines) != len(cpu_lines):
+            raise AssertionError(f"{name}: {len(card_lines)} lines on the "
+                                 f"card, {len(cpu_lines)} on the CPU")
+        for a, b in zip(card_lines, cpu_lines):
+            box = lambda line: line.split("YoloBB ")[1].split(" and")[0]
+            if box(a) == box(b):
+                compared += 1
+                if a != b:
+                    raise AssertionError(f"{name}: {a!r} != {b!r}")
+    return compared
+
+
+def kitti2d_phase(torch, dev, smi, tmp):
+    """The KITTI 2D evaluation: the CLI's ``kitti2d`` on the card (YOLO11x's
+    detection head at full width, 224 x 640 after the letterbox, random
+    weights from seed 0, as the JAX CLI's) and with ``--device cpu``, then
+    ``run_kitti2d_eval`` with a ``detect_fn`` on the n checkpoint on the
+    card and on the CPU.  K5 must launch once per image and no other
+    kernel; TP / FP / FN equal on both devices; the default detector's
+    boxes on the card within KITTI2D_BOX_TOL of the CPU's, and the result
+    lines equal wherever both truncations agree.  Returns the card CLI
+    run's launches."""
+    from lidar_object_detection_tpu_torch.models.yolo.detector import (
+        YoloDetector)
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
+        run_kitti2d_eval)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "kitti2d")
+    images = kitti2d_tree(torch, dev, root)
+    out = {name: os.path.join(tmp, f"kitti2d_{name}")
+           for name in ("card", "cpu", "api", "api_cpu")}
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    t1 = time.perf_counter()
+    card_text = run_cli(["kitti2d", "--dataset", root, "--output",
+                         out["card"]])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    launches = dict(kernel_lib.LAUNCHES)
+    expected = {k: len(images) if k == "nms" else 0 for k in launches}
+    if launches != expected:
+        raise AssertionError(f"kitti2d launched {launches}, expected "
+                             f"{expected}")
+    t1 = time.perf_counter()
+    cpu_text = run_cli(["kitti2d", "--dataset", root, "--output", out["cpu"],
+                        "--device", "cpu"])
+    cpu_s = time.perf_counter() - t1
+    if totals_of(card_text) != totals_of(cpu_text):
+        raise AssertionError(f"kitti2d TP/FP/FN: card {totals_of(card_text)}"
+                             f", CPU {totals_of(cpu_text)}")
+
+    # the default detector on both devices, and its times on the card
+    box_err, forward_ms, decode_ms = 0.0, [], []
+    for i, image in enumerate(images):
+        dets = {d: YoloDetector(image.shape[:2], YoloConfig(segment=False),
+                                conf=0.5, device=d) for d in (dev, "cpu")}
+        got, ref = (dets[d].detect(image[None]) for d in (dev, "cpu"))
+        if not torch.equal(got["det_valid"].cpu(), ref["det_valid"]):
+            raise AssertionError(f"image {i}: det_valid differs")
+        v = ref["det_valid"]
+        box_err = max(box_err, float((got["boxes"].cpu()[v]
+                                      - ref["boxes"][v]).abs().max()))
+        ms, outputs = time_events(torch, lambda: dets[dev].forward(
+            image[None]))
+        forward_ms.append(ms)
+        decode_ms.append(time_events(torch, lambda: dets[dev].decode(
+            outputs))[0])
+        del dets
+    if box_err > KITTI2D_BOX_TOL:
+        raise AssertionError(f"kitti2d boxes: card vs CPU {box_err} px")
+    compared = same_result_lines(out["card"], out["cpu"], len(images))
+
+    api = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, dev),
+                           output_dir=out["api"], device=dev)
+    api_cpu = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, "cpu"),
+                               output_dir=out["api_cpu"], device="cpu")
+    totals = api.totals
+    if totals["tp"] == 0:
+        raise AssertionError(f"the n checkpoint matched no car: {totals}")
+    if totals != api_cpu.totals:
+        raise AssertionError(f"n checkpoint totals: card {totals}, CPU "
+                             f"{api_cpu.totals}")
+    compared_api = same_result_lines(out["api"], out["api_cpu"],
+                                     len(images))
+    for i, image in enumerate(images):
+        annotated = read_png_rgb(os.path.join(out["api"], f"{i:06d}.png"))
+        if annotated.shape != image.shape or np.array_equal(annotated,
+                                                            image):
+            raise AssertionError(f"annotated image {i} is not drawn")
+    summary = {
+        "images": len(images), "shapes": [list(s) for s in KITTI2D_SHAPES],
+        "letterbox": [224, 640],
+        "nms_launches_per_image": launches["nms"] / len(images),
+        "forward_ms": forward_ms, "decode_ms": decode_ms,
+        "cli_card_host_s": card_s, "cli_cpu_host_s": cpu_s,
+        "totals_card": totals_of(card_text), "totals_cpu": totals_of(cpu_text),
+        "box_err_card_vs_cpu": box_err, "result_lines_compared": compared,
+        "api_n_checkpoint_totals": totals,
+        "api_result_lines_compared": compared_api, "card": smi}
+    print(json.dumps({"kitti2d": summary}), flush=True)
+    phase("KITTI 2D evaluation", t0)
+    return launches
+
+
+def check_peak(torch, dev, rng, tables):
+    """The peak pass against its twin, float bits equal, on ``tables``
+    (the relative decode's (B, D, mh, mw) tables with their boxes and
+    validity) and on ``mask_cases``; timed over 20 launches on the
+    tables at B = 4 and on the dense case, beside the twin."""
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    cases = {name: tuple(torch.from_numpy(a).to(dev) for a in arrays)
+             for name, arrays in mask_cases(rng).items()}
+    cases["decode B=4"] = tables
+    ops_of = {name: ma.prepare_operands(*args, H0, W0, 0.0)
+              for name, args in cases.items()}
+    compared, positive, err = 0, {}, 0.0
+    for name, ops in ops_of.items():
+        got = ma.peak_cuda(ops)
+        ref = ma.peak_plain(ops)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            raise AssertionError(f"peak pass: {name}: {bad} peaks differ "
+                                 "from the twin")
+        err = max(err, float((got - ref).abs().max()))
+        compared += got.numel()
+        positive[name] = int((got > 0).sum())
+    if positive["decode B=4"] == 0 or positive["dense B=4"] == 0:
+        raise AssertionError(f"peak check is degenerate: {positive}")
+
+    def timer(ops):
+        out = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
+                          device=dev)
+        return lambda: ma.launch("mask_peak_launch", ops, out)
+
+    main_ops, dense_ops = ops_of["decode B=4"], ops_of["dense B=4"]
+    entry = {"name": "mask_peak", "route": "cuda",
+             "source": "lidar_object_detection_tpu_torch/csrc/"
+                       "mask_assembly.cu",
+             "replaces": "lidar_object_detection_tpu/models/yolo/"
+                         "postprocess.py:442",
+             "max_abs_err": err, "compared": compared, "cases": len(ops_of),
+             "ms": time_gpu(timer(main_ops), reps=20),
+             "ms_synthetic": time_gpu(timer(dense_ops), reps=20),
+             "plain_ms": time_gpu(lambda: ma.peak_plain(main_ops), reps=10,
+                                  head_start=False),
+             "library_ms": None}
+    entry["bound_ms"], entry["bound_by"] = mask_bound(main_ops, True)
+    entry["bound_ms_synthetic"], _ = mask_bound(dense_ops, True)
+    entry["kernel_ms"] = entry["ms"]
+    print(f"mask_peak: float bits equal to the twin on {len(ops_of)} cases "
+          f"({compared} peaks, positive {positive}); decode B=4 "
+          f"{entry['ms']:.4f} ms (bound {entry['bound_ms']:.4g} by "
+          f"{entry['bound_by']}), dense B=4 {entry['ms_synthetic']:.4f} "
+          f"(bound {entry['bound_ms_synthetic']:.4g}); twin "
+          f"{entry['plain_ms']:.4f}", flush=True)
+    return entry
+
+
+def decode_modes_phase(torch, dev, smi, rng):
+    """The decode modes the serving path does not run, on the raw outputs
+    of the n float32 detector on the committed frames (B = 4, computed
+    once on the card): logit at 0.9, relative at 0.5, ``emit_coef`` with
+    ``mask_prob_fields`` and ``pack_thresholded_masks``, and the x
+    detection-only decode, each decoded on the card and on the CPU: mask
+    words equal bit for bit.  The relative decode launches the peak pass
+    and K2 once each, and K5; the peak pass is then held to its twin and
+    timed (``check_peak``).  Returns (the relative decode's launches, the
+    peak pass's entry)."""
+    from lidar_object_detection_tpu_torch.models.yolo.detector import (
+        YoloDetector)
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        PostprocessParams, cropped_prob_table, mask_prob_fields,
+        pack_thresholded_masks, postprocess_batch)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    t0 = time.perf_counter()
+    real = [read_png_rgb(path) for path in FRAMES]
+    images = np.ascontiguousarray(np.stack(real + [im[:, ::-1]
+                                                   for im in real]))
+    det, _, _ = load_serving_checkpoint(CKPT, (H0, W0), tta="none",
+                                        device=dev)
+    outputs = det.forward(images)
+    to_cpu = lambda out: {k: [x.cpu() for x in v] if isinstance(v, list)
+                          else v.cpu() for k, v in out.items()}
+    cpu = to_cpu(outputs)
+    modes = {"logit 0.9": dict(mask_upsample="logit", mask_threshold=0.9),
+             "relative 0.5": dict(mask_threshold_mode="relative",
+                                  mask_threshold=0.5),
+             "emit_coef": dict(mask_threshold=0.5, emit_coef=True)}
+    expected = {"logit 0.9": {"nms": 1, "mask_assemble": 1},
+                "relative 0.5": {"nms": 1, "mask_assemble": 1,
+                                 "mask_peak": 1},
+                "emit_coef": {"nms": 1, "mask_assemble": 1}}
+    stats, launches = {}, {}
+    for name, kw in modes.items():
+        params = PostprocessParams(spec=det.spec, **kw)
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        got = postprocess_batch(outputs, params)
+        torch.cuda.synchronize()
+        launches[name] = dict(kernel_lib.LAUNCHES)
+        want = {k: expected[name].get(k, 0) for k in launches[name]}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launched {launches[name]}, "
+                                 f"expected {want}")
+        ref = postprocess_batch(cpu, params)
+        if not torch.equal(got["det_valid"].cpu(), ref["det_valid"]):
+            raise AssertionError(f"{name}: det_valid differs")
+        words = got["mask_bits"].cpu()
+        bad = int((words != ref["mask_bits"]).sum())
+        if bad:
+            raise AssertionError(f"{name}: {bad} mask words differ between "
+                                 "the card and the CPU")
+        stats[name] = {"words_set": int((words != 0).sum()),
+                       "detections": int(ref["det_valid"].sum())}
+        if name == "emit_coef":
+            if not torch.equal(got["coef"].cpu(), ref["coef"]):
+                raise AssertionError("emit_coef: coefficients differ")
+            b = 0
+            fields = mask_prob_fields(outputs["proto"][b], got["coef"][b],
+                                      det.spec)
+            fields_cpu = mask_prob_fields(cpu["proto"][b], ref["coef"][b],
+                                          det.spec)
+            field_err = float((fields.cpu() - fields_cpu).abs().max())
+            if field_err > 1e-5:
+                raise AssertionError(f"mask_prob_fields: card vs CPU "
+                                     f"{field_err}")
+            packed = pack_thresholded_masks(fields, got["boxes"][b],
+                                            got["det_valid"][b], 0.5)
+            packed_cpu = pack_thresholded_masks(fields.cpu(),
+                                                ref["boxes"][b],
+                                                ref["det_valid"][b], 0.5)
+            if not torch.equal(packed.cpu(), packed_cpu):
+                raise AssertionError("pack_thresholded_masks: card and CPU "
+                                     "differ on the same fields")
+            stats[name].update(
+                fields_err=field_err,
+                dense_vs_kernel_words=int((packed.cpu() != words[b]).sum()))
+    if stats["relative 0.5"]["words_set"] == 0 \
+            or stats["logit 0.9"]["words_set"] == 0:
+        raise AssertionError(f"decode modes are degenerate: {stats}")
+
+    # the x detection-only decode: YOLO11x's detection head at full width
+    x_det = YoloDetector((H0, W0), YoloConfig(segment=False), device=dev)
+    x_out = x_det.forward(images)
+    if sorted(x_out) != ["box", "cls"]:
+        raise AssertionError(f"detection head outputs {sorted(x_out)}")
+    got = x_det.decode(x_out)
+    ref = x_det.decode(to_cpu(x_out))
+    if not torch.equal(got["det_valid"].cpu(), ref["det_valid"]) \
+            or bool(got["mask_bits"].any()) or bool(ref["mask_bits"].any()):
+        raise AssertionError("the x detection-only decode differs")
+    x_box_err = float((got["boxes"].cpu() - ref["boxes"]).abs().max())
+    if x_box_err > 1e-2:
+        raise AssertionError(f"x detection-only boxes: card vs CPU "
+                             f"{x_box_err} px")
+    stats["x detection-only"] = {"detections": int(ref["det_valid"].sum()),
+                                 "box_err": x_box_err}
+    del x_det, x_out
+
+    kept = postprocess_batch(outputs, PostprocessParams(spec=det.spec,
+                                                         emit_coef=True))
+    tables = (cropped_prob_table(outputs["proto"], kept["coef"], det.spec),
+              kept["boxes"], kept["det_valid"])
+    entry = check_peak(torch, dev, rng, tables)
+    print(json.dumps({"decode_modes": {"modes": stats, "launches": launches,
+                                       "card": smi}}), flush=True)
+    phase("decode modes", t0)
+    return launches["relative 0.5"], entry
+
+
+# ---------------------------------------------------------------------------
 # the JAX headline's serving path, streamed from disk
 # ---------------------------------------------------------------------------
 
@@ -2796,6 +3209,9 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "nms").update(
         check_pp_aabb(torch, dev, pp_aabb))
     phase("PointPillars kernels against twins", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
+    peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
     # the solver's main path is the V5 run
     lap.update(launches=match_launches["v5"]["lap"],
                csv_eval_launches=csv_launches["lap"],
@@ -2809,11 +3225,20 @@ def main() -> int:
                    headline_launches_4_chunks=times["launches_many"][
                        "rotated_nms"])
     kernels.append(rotated)
+    # the peak pass's main path is the relative decode
+    peak.update(launches=peak_launches["mask_peak"],
+                csv_eval_launches=csv_launches["mask_peak"],
+                headline_launches=launches["mask_peak"],
+                headline_launches_4_chunks=times["launches_many"][
+                    "mask_peak"])
+    kernels.append(peak)
     for k in kernels:
         k["matching_launches"] = {run: n[k["name"]]
                                   for run, n in match_launches.items()}
         k["pointpillars_launches"] = {run: n[k["name"]]
                                       for run, n in pp_launches.items()}
+        k["kitti2d_launches"] = k2d_launches[k["name"]]
+        k["relative_decode_launches"] = peak_launches[k["name"]]
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,9 +1,14 @@
-// Stack-free mask assembly kernels (K2, K3) of the YOLO-seg decode, for
-// sm_90a, over a batch of frames: one launch each per batch.
+// Stack-free mask assembly kernels (K2, K3) of the YOLO-seg decode, and the
+// relative cut's peak pass, for sm_90a, over a batch of frames: one launch
+// each per batch.
 //
 // Replace: lidar_object_detection_tpu/ops/pallas_masks.py,
-//   pallas_assemble_masks (:246, kernel body _mask_kernel) -> mask_kernel<false>
-//   pallas_count_above    (:282, kernel body _count_kernel) -> mask_kernel<true>
+//   pallas_assemble_masks (:246, kernel body _mask_kernel) -> mask_kernel<kAssemble>
+//   pallas_count_above    (:282, kernel body _count_kernel) -> mask_kernel<kCount>
+// and, with no Pallas counterpart, the relative-threshold peak of
+// lidar_object_detection_tpu/models/yolo/postprocess.py:438-443 (XLA:
+// max(where(in_box, field, 0)) per detection over the upsampled field)
+//                                                         -> mask_kernel<kPeak>
 // pallas_assemble_masks_guarded (:309) is their composition: K3 counts at
 // the primary cut, then K2 picks each detection's cut on the device
 // (counts >= min_pixels ? threshold : floor, pallas_masks.py:327-329) from
@@ -21,7 +26,10 @@
 // belongs to detection d when d is valid, the pixel lies in d's half-open
 // box [x1, x2) x [y1, y2), and v > cut[d].  K2 ORs the detections' bits
 // into one 32-bit word per pixel; K3 counts, per detection, the pixels
-// that pass.
+// that pass.  The peak pass takes, per valid detection, the largest v of
+// the pixels inside its box (0 when none is; an invalid detection's peak
+// is 0, since its cut is never used): the relative cut is threshold x
+// peak, which K2 then applies as per-detection cuts.
 //
 // What bounds them on an H100.  The function needs, per valid box, only
 // the table rows and columns its pixel range reaches through the taps
@@ -76,6 +84,14 @@
 //   __reduce_add_sync per step), the warps meet in shared counters, and
 //   each block adds one global atomic per detection it counted into the
 //   zeroed (B, D) output: integer atomics are exact in any order.
+// * Peaks.  The peak pass walks the pixels as K3 does, with a max in place
+//   of the count.  The values it takes are probabilities (>= 0), whose
+//   float bits order as signed integers, so __reduce_max_sync, a shared
+//   and one global atomicMax per detection and block on the int bits,
+//   into a zeroed (B, D) output, give the exact maximum in any order; a
+//   negative value's bits are a negative integer and lose to the 0 start,
+//   as they lose to max(where(in_box, v, 0)).  It is bound like K3 (the
+//   table entries its boxes reach, 4 operations a pixel and detection).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +103,10 @@ constexpr int kRows = 2;                   // output rows a block
 constexpr int kThreads = 128;              // one block: 4 warps
 constexpr int kTileCols = 4 * kThreads;    // 4 adjacent pixels a thread
 constexpr unsigned kFull = 0xffffffffu;
+// what mask_kernel computes
+constexpr int kAssemble = 0;               // K2: packed words (B, H, W)
+constexpr int kCount = 1;                  // K3: pixels over the cut (B, D)
+constexpr int kPeak = 2;                   // in-box peaks (B, D), float bits
 
 struct Args {
   const float* table;     // (B, D, mh, mw)
@@ -98,7 +118,8 @@ struct Args {
   const float* wx1;
   const float4* boxes;    // (B, D) xyxy
   const uint8_t* valid;   // (B, D)
-  const float* thr;       // (B, D) cut, or the primary cut when guarded
+  const float* thr;       // (B, D) cut, or the primary cut when guarded;
+                          // null for the peak pass
   const int32_t* guard;   // (B, D) K3's counts at thr, or null
   float floor;            // the cut of a guarded detection under min_pixels
   int min_pixels;
@@ -136,7 +157,7 @@ __device__ void setup_tile(const Args& a, int b, int x_begin, int x_end,
   if (slot) {
     bx = a.boxes[i];
     valid = a.valid[i] != 0;
-    cut = a.thr[i];
+    if (a.thr != nullptr) cut = a.thr[i];
     if (a.guard != nullptr) guard = a.guard[i];
   }
   const int y = y_begin + d;
@@ -187,13 +208,16 @@ __device__ __forceinline__ float pick3(int i, float v0, float v1, float v2) {
   return i == 0 ? v0 : (i == 1 ? v1 : v2);
 }
 
-// Bit p set where pixel p of the quad, in tile row r, belongs to detection
-// d (whose box covers row r).  The table is read through L1: a detection's
-// two table rows serve every pixel of the tile row.  A quad that reads at
-// most 3 table columns (upsampling by 2 or more) y-interpolates them once.
-__device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
-                                              const Quad& q, int b, int r,
-                                              int d) {
+// Calls visit(p, in, v) with the value v of pixel p of the quad, in tile
+// row r, for detection d (whose box covers row r); in says whether the
+// pixel lies in d's columns (the wide path visits only those).  The table
+// is read through L1: a detection's two table rows serve every pixel of
+// the tile row.  A quad that reads at most 3 table columns (upsampling by
+// 2 or more) y-interpolates them once.
+template <typename Visit>
+__device__ __forceinline__ void quad_visit(const Args& a, const Tile& t,
+                                           const Quad& q, int b, int r,
+                                           int d, Visit visit) {
   const float* row0 = a.table +
       ((static_cast<size_t>(b) * a.num_det + d) * a.mh + t.src0[r]) * a.mw +
       q.base;
@@ -202,8 +226,6 @@ __device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
   const float wy1 = t.w1[r];
   const int lo = t.x_lo[d] - q.x;
   const int hi = t.x_hi[d] - q.x;
-  const float cut = t.cut[d];
-  uint32_t bits = 0u;
   if (q.narrow) {
     const int last = a.mw - 1 - q.base;
     const int k1 = min(1, last);
@@ -215,7 +237,7 @@ __device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
     for (int p = 0; p < 4; ++p) {
       const float v = lerp_rn(q.w0[p], pick3(q.i0[p], v0, v1, v2),
                               q.w1[p], pick3(q.i1[p], v0, v1, v2));
-      bits |= static_cast<uint32_t>(p >= lo && p < hi && v > cut) << p;
+      visit(p, p >= lo && p < hi, v);
     }
   } else {
 #pragma unroll
@@ -225,14 +247,37 @@ __device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
                                __ldg(row1 + q.i0[p]));
       const float cb = lerp_rn(wy0, __ldg(row0 + q.i1[p]), wy1,
                                __ldg(row1 + q.i1[p]));
-      bits |= static_cast<uint32_t>(lerp_rn(q.w0[p], ca, q.w1[p], cb) > cut)
-              << p;
+      visit(p, true, lerp_rn(q.w0[p], ca, q.w1[p], cb));
     }
   }
+}
+
+// Bit p set where pixel p of the quad belongs to detection d: inside its
+// columns and over its cut.
+__device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
+                                              const Quad& q, int b, int r,
+                                              int d) {
+  const float cut = t.cut[d];
+  uint32_t bits = 0u;
+  quad_visit(a, t, q, b, r, d, [&](int p, bool in, float v) {
+    bits |= static_cast<uint32_t>(in && v > cut) << p;
+  });
   return bits;
 }
 
-template <bool kCount>
+// The largest value of the quad's pixels inside detection d's columns, as
+// float bits read as an int (0 when none is positive).
+__device__ __forceinline__ int quad_peak(const Args& a, const Tile& t,
+                                         const Quad& q, int b, int r,
+                                         int d) {
+  int peak = 0;
+  quad_visit(a, t, q, b, r, d, [&](int, bool in, float v) {
+    peak = in ? max(peak, __float_as_int(v)) : peak;
+  });
+  return peak;
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 mask_kernel(Args a, int32_t* __restrict__ out) {
   __shared__ Tile t;
@@ -274,7 +319,7 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
       out + (static_cast<size_t>(b) * a.height + y_begin) * a.width + q.x);
   const int row_stride = a.width / 4;  // in int4
   if (active == 0u) {
-    if (!kCount && has_quad)
+    if (kMode == kAssemble && has_quad)
       for (int r = 0; r < rows; ++r)
         words[r * row_stride] = make_int4(0, 0, 0, 0);
     return;
@@ -287,7 +332,7 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
       col_mask |= 1u << d;
   if (!has_quad) col_mask = 0u;
 
-  if (kCount) {
+  if (kMode == kCount) {
     // lane d keeps its warp's count of detection d; the loop over the
     // detections that meet the warp's columns is uniform across the warp
     const uint32_t warp_cols = __reduce_or_sync(kFull, col_mask);
@@ -306,6 +351,24 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
     __syncthreads();
     if (tid < a.num_det && s_cnt[tid] != 0)
       atomicAdd(&out[static_cast<size_t>(b) * a.num_det + tid], s_cnt[tid]);
+  } else if (kMode == kPeak) {
+    // as the count, with a max of the float bits in place of the sum
+    const uint32_t warp_cols = __reduce_or_sync(kFull, col_mask);
+    int acc = 0;
+    for (int r = 0; r < rows; ++r) {
+      for (uint32_t rest = t.row_mask[r] & warp_cols; rest != 0u;
+           rest &= rest - 1u) {
+        const int d = __ffs(rest) - 1;
+        const int m = ((col_mask >> d) & 1u) ? quad_peak(a, t, q, b, r, d)
+                                             : 0;
+        const int s = __reduce_max_sync(kFull, m);
+        if (lane == d) acc = max(acc, s);
+      }
+    }
+    if (acc > 0) atomicMax(&s_cnt[lane], acc);
+    __syncthreads();
+    if (tid < a.num_det && s_cnt[tid] > 0)
+      atomicMax(&out[static_cast<size_t>(b) * a.num_det + tid], s_cnt[tid]);
   } else if (has_quad) {
     for (int r = 0; r < rows; ++r) {
       uint32_t w[4] = {0u, 0u, 0u, 0u};
@@ -323,7 +386,7 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
   }
 }
 
-int launch(bool count, Args a, int batch, void* out, void* stream) {
+int launch(int mode, Args a, int batch, void* out, void* stream) {
   if (batch <= 0 || a.height <= 0 || a.width <= 0) return 0;
   if (a.num_det < 0 || a.num_det > kMaxDet || a.width % 4 != 0 ||
       a.mh < 1 || a.mw < 1 || batch > 65535)
@@ -333,10 +396,12 @@ int launch(bool count, Args a, int batch, void* out, void* stream) {
   const int threads = kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
-  if (count)
-    mask_kernel<true><<<grid, threads, 0, s>>>(a, o);
+  if (mode == kCount)
+    mask_kernel<kCount><<<grid, threads, 0, s>>>(a, o);
+  else if (mode == kPeak)
+    mask_kernel<kPeak><<<grid, threads, 0, s>>>(a, o);
   else
-    mask_kernel<false><<<grid, threads, 0, s>>>(a, o);
+    mask_kernel<kAssemble><<<grid, threads, 0, s>>>(a, o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,7 +445,21 @@ extern "C" int mask_count_launch(const void* table, int batch, int num_det,
                                  void* stream) {
   Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
                      boxes, valid, thr, height, width);
-  return launch(true, a, batch, counts, stream);
+  return launch(kCount, a, batch, counts, stream);
+}
+
+// Same operands without the cuts; adds into peaks (B, D) i32, zeroed by the
+// caller, the float bits of each valid detection's largest in-box value.
+extern "C" int mask_peak_launch(const void* table, int batch, int num_det,
+                                int mh, int mw, const void* y0,
+                                const void* wy0, const void* wy1,
+                                const void* x0, const void* wx0,
+                                const void* wx1, const void* boxes,
+                                const void* valid, int height, int width,
+                                void* peaks, void* stream) {
+  Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
+                     boxes, valid, nullptr, height, width);
+  return launch(kPeak, a, batch, peaks, stream);
 }
 
 // Same operands; K2 writes out (B, H, W) i32 packed words.  With guard
@@ -401,5 +480,5 @@ extern "C" int mask_assemble_launch(const void* table, int batch,
   a.guard = static_cast<const int32_t*>(guard);
   a.floor = floor;
   a.min_pixels = min_pixels;
-  return launch(false, a, batch, out, stream);
+  return launch(kAssemble, a, batch, out, stream);
 }

@@ -26,7 +26,7 @@ from lidar_object_detection_tpu_torch.models.yolo.model import (
 from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     LetterboxSpec, PostprocessParams, letterbox_image, postprocess_batch)
 from lidar_object_detection_tpu_torch.models.yolo.tta import (
-    postprocess_tta)
+    postprocess_tta, validate_tta_params)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
     fold_serving_variables, from_flax_variables)
 
@@ -56,9 +56,15 @@ class YoloDetector:
         random weights from ``seed`` when omitted.
       fold_weights: fold BatchNorm into the convs before loading, as the
         serving path does (``weights.fold_serving_variables``).
+      mask_upsample, mask_threshold_mode, fast_masks: the decode modes of
+        ``postprocess.PostprocessParams``.
       dtype: the network's dtype (bf16 serves on the card).
-      tta: "none" or "hflip" (``tta.py``).
-      device: where the network and its outputs live.
+      tta: "none" or "hflip" (``tta.py``; prob-space, absolute cuts only).
+      device: where the network and its outputs live; ``cuda`` raises
+        where CUDA is not available.
+
+    ``YoloConfig(segment=False)`` builds the detection-only network, whose
+    decode gives zero mask words.
     """
 
     def __init__(self, image_shape, cfg: YoloConfig = YoloConfig(),
@@ -66,6 +72,9 @@ class YoloDetector:
                  conf: float = 0.25, iou: float = 0.7, class_id: int = 2,
                  max_detections: int = 32, max_candidates: int = 256,
                  fold_weights: bool = False, mask_threshold: float = 0.5,
+                 mask_upsample: str = "prob",
+                 mask_threshold_mode: str = "absolute",
+                 fast_masks: bool = False,
                  mask_threshold_floor: Optional[float] = None,
                  mask_min_pixels: int = 0, tta: str = "none",
                  tta_match_iou: float = 0.5,
@@ -86,8 +95,12 @@ class YoloDetector:
             spec=self.spec, conf_threshold=conf, iou_threshold=iou,
             class_id=class_id, max_candidates=max_candidates,
             max_detections=max_detections, mask_threshold=mask_threshold,
+            mask_upsample=mask_upsample,
+            mask_threshold_mode=mask_threshold_mode, fast_masks=fast_masks,
             mask_threshold_floor=mask_threshold_floor,
             mask_min_pixels=mask_min_pixels)
+        if tta == "hflip":
+            validate_tta_params(self.params)
         self.tta = tta
         self.tta_match_iou = tta_match_iou
         # random weights come from ``seed`` without touching the caller's

@@ -1,15 +1,18 @@
 """YOLO11 detection / instance-segmentation network as a PyTorch module.
 
 Counterpart of ``lidar_object_detection_tpu/models/yolo/model.py``: the
-published YOLO11 graph (backbone 0-10, FPN/PAN head 11-22, Segment head at
-23) with the per-scale depth/width table.  Layers live in ``self.model``
-under their ultralytics indices, so the state dict's keys are ultralytics'
-(``model.0.conv.weight``, ``model.23.proto.cv1.bn.running_mean``).
+published YOLO11 graph (backbone 0-10, FPN/PAN head 11-22, Segment or
+Detect head at 23) with the per-scale depth/width table.  Layers live in
+``self.model`` under their ultralytics indices, so the state dict's keys
+are ultralytics' (``model.0.conv.weight``,
+``model.23.proto.cv1.bn.running_mean``).
 
 The network runs NCHW inside; its public input and outputs are NHWC, as in
 the JAX package: ``forward`` takes (B, H, W, 3) in [0, 1] and returns
 ``{"box", "cls", "coef"}`` lists of (B, h, w, C) per level and
-``"proto"`` (B, H/4, W/4, nm).
+``"proto"`` (B, H/4, W/4, nm); with ``YoloConfig(segment=False)`` (the
+detection-only head of the KITTI 2D evaluation) only ``"box"`` and
+``"cls"``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ class YoloConfig:
     num_classes: int = 80
     nm: int = 32       # mask coefficients
     npr: int = 256     # prototype channels before width scaling
+    segment: bool = True
 
     @property
     def depth(self) -> float:
@@ -67,16 +71,15 @@ class YoloConfig:
         return self.scale in ("m", "l", "x")
 
 
-class SegmentHead(nn.Module):
-    """Detect (cv2 box bins, cv3 classes) + mask coefficients (cv4) +
-    Proto, at ultralytics' key names."""
+class DetectHead(nn.Module):
+    """Detect: per level, cv2 -> 4 * REG_MAX box bins and cv3 (YOLO11's
+    depthwise variant) -> class logits, at ultralytics' key names."""
 
     def __init__(self, cfg: YoloConfig, level_channels):
         super().__init__()
         nc = cfg.num_classes
         c2 = max(16, level_channels[0] // 4, REG_MAX * 4)
         c3 = max(level_channels[0], min(nc, 100))
-        c4 = max(level_channels[0] // 4, cfg.nm)
         self.cv2 = nn.ModuleList(nn.Sequential(
             B.ConvBNAct(c, c2, 3), B.ConvBNAct(c2, c2, 3),
             nn.Conv2d(c2, 4 * REG_MAX, 1)) for c in level_channels)
@@ -84,20 +87,33 @@ class SegmentHead(nn.Module):
             nn.Sequential(B.dw_conv(c, c, 3), B.ConvBNAct(c, c3, 1)),
             nn.Sequential(B.dw_conv(c3, c3, 3), B.ConvBNAct(c3, c3, 1)),
             nn.Conv2d(c3, nc, 1)) for c in level_channels)
+
+    def forward(self, feats):
+        boxes = [m(x) for m, x in zip(self.cv2, feats)]
+        classes = [m(x) for m, x in zip(self.cv3, feats)]
+        return boxes, classes
+
+
+class SegmentHead(DetectHead):
+    """Detect + mask coefficients (cv4) + Proto; ultralytics' Segment is a
+    Detect, so the detection half keeps the same key names."""
+
+    def __init__(self, cfg: YoloConfig, level_channels):
+        super().__init__(cfg, level_channels)
+        c4 = max(level_channels[0] // 4, cfg.nm)
         self.cv4 = nn.ModuleList(nn.Sequential(
             B.ConvBNAct(c, c4, 3), B.ConvBNAct(c4, c4, 3),
             nn.Conv2d(c4, cfg.nm, 1)) for c in level_channels)
         self.proto = B.Proto(level_channels[0], cfg.ch(cfg.npr), cfg.nm)
 
     def forward(self, feats):
-        boxes = [m(x) for m, x in zip(self.cv2, feats)]
-        classes = [m(x) for m, x in zip(self.cv3, feats)]
+        boxes, classes = super().forward(feats)
         coeffs = [m(x) for m, x in zip(self.cv4, feats)]
         return boxes, classes, coeffs, self.proto(feats[0])
 
 
 class Yolo11(nn.Module):
-    """Full YOLO11-seg network."""
+    """Full YOLO11(-seg) network."""
 
     def __init__(self, cfg: YoloConfig = YoloConfig()):
         super().__init__()
@@ -121,7 +137,8 @@ class Yolo11(nn.Module):
             19: B.C3k2(ch(256) + ch(512), ch(512), n2, c3k, 0.5),
             20: B.ConvBNAct(ch(512), ch(512), 3, 2),
             22: B.C3k2(ch(512) + ch(1024), ch(1024), n2, True, 0.5),
-            HEAD_INDEX: SegmentHead(cfg, (ch(256), ch(512), ch(1024))),
+            HEAD_INDEX: (SegmentHead if cfg.segment else DetectHead)(
+                cfg, (ch(256), ch(512), ch(1024))),
         }
         self.model = nn.ModuleDict({str(i): m for i, m in layers.items()})
 
@@ -141,9 +158,11 @@ class Yolo11(nn.Module):
         p3 = m["16"](torch.cat([B.upsample2x(x), s4], dim=1))
         p4 = m["19"](torch.cat([m["17"](p3), s13], dim=1))
         p5 = m["22"](torch.cat([m["20"](p4), s10], dim=1))
-        boxes, classes, coeffs, protos = m[str(HEAD_INDEX)]((p3, p4, p5))
+        heads = m[str(HEAD_INDEX)]((p3, p4, p5))
         nhwc = lambda t: t.permute(0, 2, 3, 1)
-        return {"box": [nhwc(t) for t in boxes],
-                "cls": [nhwc(t) for t in classes],
-                "coef": [nhwc(t) for t in coeffs],
-                "proto": nhwc(protos)}
+        out = {"box": [nhwc(t) for t in heads[0]],
+               "cls": [nhwc(t) for t in heads[1]]}
+        if self.cfg.segment:
+            out["coef"] = [nhwc(t) for t in heads[2]]
+            out["proto"] = nhwc(heads[3])
+        return out

@@ -2,9 +2,10 @@
 
 Counterpart of ``lidar_object_detection_tpu/models/yolo/serving.py``.  A
 committed detector checkpoint is a flax msgpack ``{"variables", "step"}``
-plus a JSON sidecar ``<ckpt>.json`` with at least ``{"scale": ...}`` and,
-for tuned checkpoints, a ``{"serving": {...}}`` block with the selected
-operating point.  Precedence, per knob: explicit caller override > sidecar
+(``convert-weights`` writes ``{"variables"}`` alone) plus a JSON sidecar
+``<ckpt>.json`` with at least ``{"scale": ...}`` and, for tuned
+checkpoints, a ``{"serving": {...}}`` block with the selected operating
+point.  Precedence, per knob: explicit caller override > sidecar
 ``serving`` block > library default (``mask_threshold`` 0.5, the
 detector's own ``conf``).
 """
@@ -101,4 +102,5 @@ def load_serving_checkpoint(ckpt_path: str,
                        mask_min_pixels=resolved["mask_min_pixels"],
                        tta=resolved["tta"],
                        max_detections=max_detections, **kw)
-    return det, int(np.asarray(raw["step"])), resolved
+    # convert-weights writes no step
+    return det, int(np.asarray(raw.get("step", 0))), resolved

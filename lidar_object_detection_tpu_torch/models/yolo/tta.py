@@ -37,13 +37,29 @@ from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
 )
 
 __all__ = ["consensus_tables", "flip_boxes", "postprocess_tta",
-           "postprocess_tta_pair"]
+           "postprocess_tta_pair", "validate_tta_params"]
 
 
 def flip_boxes(boxes: torch.Tensor, src_w: float) -> torch.Tensor:
     """xyxy boxes in flipped-source pixels -> normal-source pixels."""
     return torch.stack([src_w - boxes[..., 2], boxes[..., 1],
                         src_w - boxes[..., 0], boxes[..., 3]], dim=-1)
+
+
+def validate_tta_params(params: PostprocessParams) -> None:
+    """hflip TTA averages probability tables and binarizes them at one
+    absolute cut: reject the decode modes it cannot honour, with the JAX
+    package's messages (``tta.py:59-72``)."""
+    if params.mask_upsample != "prob":
+        raise ValueError(
+            "tta='hflip' needs mask_upsample='prob': the consensus "
+            "averages per-view probability fields, which has no "
+            "logit-space equivalent after the sigmoid")
+    if params.mask_threshold_mode != "absolute":
+        raise ValueError(
+            "tta='hflip' needs mask_threshold_mode='absolute': a "
+            "relative cut of an AVERAGED field re-normalizes against a "
+            "peak neither view produced")
 
 
 def consensus_tables(det, protos, params: PostprocessParams,
@@ -73,6 +89,10 @@ def postprocess_tta(outputs, params: PostprocessParams,
     raw outputs of 2B frames (levels (2B, h, w, C)), the B frames first
     and their horizontal mirrors after them.  Returns boxes / scores /
     det_valid of the normal view and ``mask_bits`` (B, H0, W0) int32."""
+    validate_tta_params(params)
+    if "coef" not in outputs:
+        raise ValueError("tta='hflip' needs a segmentation head: the "
+                         "consensus is over mask probability fields")
     b = outputs["proto"].shape[0] // 2
     det = postprocess_batch(outputs, params, masks=False)
     table = consensus_tables(det, outputs["proto"], params, match_iou)

@@ -1,26 +1,36 @@
-"""Flax variables -> PyTorch state dict, and the serving weight fold.
+"""Flax variables <-> PyTorch state dict, ultralytics state dicts, and the
+serving weight fold.
 
 Counterpart of ``lidar_object_detection_tpu/models/yolo/weights.py``.  The
 JAX package names its Flax modules so that each variable path translates
-token by token into an ultralytics state-dict key; this module runs that
-translation the other way:
+token by token into an ultralytics state-dict key:
 
-  flax ``params/layer2/m0/cv1/conv/kernel``  ->  ``model.2.m.0.cv1.conv.weight``
-  flax ``batch_stats/layer0/bn/mean``        ->  ``model.0.bn.running_mean``
+  flax ``params/layer2/m0/cv1/conv/kernel``  <->  ``model.2.m.0.cv1.conv.weight``
+  flax ``batch_stats/layer0/bn/mean``        <->  ``model.0.bn.running_mean``
   flax ``params/head/detect/cv3_0_0_0/dw/conv/kernel``
-                                             ->  ``model.23.cv3.0.0.0.conv.weight``
+                                             <->  ``model.23.cv3.0.0.0.conv.weight``
 
-Conv kernels go HWIO -> OIHW; the Proto transposed-conv kernel keeps its
+Conv kernels go HWIO <-> OIHW; the Proto transposed-conv kernel keeps its
 (in, out, 2, 2) layout, which is ``nn.ConvTranspose2d``'s own; BN scale /
-bias become weight / bias and the running statistics buffers.
+bias are weight / bias and the running statistics buffers.
 
-:func:`fold_serving_variables` folds BatchNorm into the conv kernels and
-casts the tree for serving (bf16 on the card), as the JAX package's
-function of the same name does.
+* :func:`from_flax_variables`: a Flax tree -> the port's state dict (its
+  keys are ultralytics').
+* :func:`convert_state_dict`: an ultralytics state dict -> a Flax tree,
+  as the JAX package's function of the same name fills its template, with
+  this module's own copy of the mapping; :func:`flax_template` gives the
+  template of a network configuration (the JAX package takes a Flax
+  ``init``'s).  Detectors load the tree through
+  :func:`from_flax_variables`, as they load a msgpack checkpoint.
+* :func:`load_state_dict_file`: a raw state dict saved with ``torch.save``.
+* :func:`fold_serving_variables` folds BatchNorm into the conv kernels and
+  casts the tree for serving (bf16 on the card), as the JAX package's
+  function of the same name does.
 """
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Dict, Tuple
 
@@ -53,25 +63,62 @@ def _flax_path_to_torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     return ".".join(tokens), leaf
 
 
+def _torch_key_to_flax_path(key: str, segment: bool) -> Tuple[str, ...]:
+    """An ultralytics state-dict key -> its (collection, *path) in the Flax
+    tree of ``Yolo11(YoloConfig(segment=segment))``: the inverse of
+    :func:`_flax_path_to_torch_key` and the leaf names of
+    :func:`_torch_entry`."""
+    *stem, leaf = key.split(".")
+    if len(stem) < 2 or stem[0] != "model" or not stem[1].isdigit():
+        raise KeyError(f"not a YOLO11 state-dict key: {key}")
+    index, rest = int(stem[1]), stem[2:]
+    path = ["head" if index == HEAD_INDEX else f"layer{index}"]
+    if index == HEAD_INDEX and rest and rest[0] in ("cv2", "cv3", "cv4"):
+        n = 1
+        while n < len(rest) and rest[n].isdigit():
+            n += 1
+        if segment and rest[0] != "cv4":
+            path.append("detect")
+        path.append("_".join(rest[:n]))
+        if rest[0] == "cv3" and n == 4 and rest[3] == "0":
+            path.append("dw")       # YOLO11's depthwise cv3 stages
+        rest = rest[n:]
+    for token in rest:
+        if token.isdigit():
+            path[-1] += token       # m.0 -> m0, ffn.1 -> ffn1
+        else:
+            path.append(token)
+    if leaf in ("running_mean", "running_var"):
+        return ("batch_stats", *path, leaf[len("running_"):])
+    if leaf == "weight":
+        leaf = "scale" if path[-1] == "bn" else "kernel"
+    elif leaf != "bias":
+        raise KeyError(f"unhandled leaf {leaf} of {key}")
+    return ("params", *path, leaf)
+
+
 def _as_tensor(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
 
+def _torch_key(stem: str, leaf: str, collection: str) -> str:
+    """The state-dict key of a Flax leaf."""
+    if collection == "batch_stats":
+        return f"{stem}.running_{'mean' if leaf == 'mean' else 'var'}"
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+    if leaf not in names:
+        raise KeyError(f"unhandled leaf {leaf} at {stem}")
+    return f"{stem}.{names[leaf]}"
+
+
 def _torch_entry(stem: str, leaf: str, collection: str, value):
     t = _as_tensor(value)
-    if collection == "batch_stats":
-        return f"{stem}.running_{'mean' if leaf == 'mean' else 'var'}", t
-    if leaf == "kernel":
-        if stem.endswith("upsample"):
-            return f"{stem}.weight", t                   # (in, out, 2, 2)
-        return f"{stem}.weight", t.permute(3, 2, 0, 1).contiguous()
-    if leaf == "scale":
-        return f"{stem}.weight", t
-    if leaf == "bias":
-        return f"{stem}.bias", t
-    raise KeyError(f"unhandled leaf {leaf} at {stem}")
+    if leaf == "kernel" and not stem.endswith("upsample"):
+        t = t.permute(3, 2, 0, 1).contiguous()      # HWIO -> OIHW
+    # the Proto's transposed-conv kernel stays (in, out, 2, 2)
+    return _torch_key(stem, leaf, collection), t
 
 
 def _flatten(tree, prefix=()):
@@ -93,6 +140,115 @@ def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax variables map to {key}")
         sd[key] = tensor
     return sd
+
+
+def _set(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _flax_leaf(value: np.ndarray, path) -> np.ndarray:
+    """An ultralytics array in the Flax layout of the leaf at ``path``."""
+    if path[-1] == "kernel" and path[-2] != "upsample":
+        return np.transpose(value, (2, 3, 1, 0))      # OIHW -> HWIO
+    return value
+
+
+def flax_template(cfg) -> dict:
+    """The Flax tree of ``Yolo11(cfg)``, float32 numpy leaves of the Flax
+    shapes (values of a random init), built from the port's module: the
+    template :func:`convert_state_dict` fills.  Every path translates back
+    to its own state-dict key."""
+    from lidar_object_detection_tpu_torch.models.yolo.model import Yolo11
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = Yolo11(cfg).state_dict()
+    tree: dict = {}
+    for key, value in sd.items():
+        if "num_batches_tracked" in key:
+            continue
+        collection, *path = _torch_key_to_flax_path(key, cfg.segment)
+        back = _torch_key(*_flax_path_to_torch_key(tuple(path)), collection)
+        if back != key:
+            raise KeyError(f"{key} maps to flax {'/'.join(path)}, which "
+                           f"maps back to {back}")
+        _set(tree, (collection, *path),
+             _flax_leaf(value.float().numpy(), path))
+    return tree
+
+
+def convert_state_dict(state_dict: Dict[str, np.ndarray],
+                       variables: dict) -> dict:
+    """Fill a Flax variables template with an ultralytics state dict.
+
+    Args:
+      state_dict: torch name -> array (numpy arrays or tensors).
+      variables: the template (:func:`flax_template`, or any Flax tree of
+        the network); shapes must match.
+
+    Returns a new tree of numpy arrays in the template's dtypes.  Raises
+    ValueError listing every unmapped or mismatched entry: the conversion
+    is all or nothing, as in the JAX package.
+    """
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+          else np.asarray(v) for k, v in state_dict.items()}
+    used, problems, out = set(), [], {}
+    # in the sorted order of a JAX tree's leaves, so that the problems are
+    # listed as the JAX package lists them
+    for (collection, *path), value in sorted(_flatten(variables),
+                                             key=lambda kv: kv[0]):
+        stem, leaf = _flax_path_to_torch_key(tuple(path))
+        try:
+            key = _torch_key(stem, leaf, collection)
+        except KeyError as e:
+            problems.append(str(e))
+            continue
+        if key not in sd:
+            problems.append(f"missing in state dict: {key} (for flax "
+                            f"{'/'.join([collection, *path])})")
+            continue
+        arr = _flax_leaf(sd[key], path)
+        template = np.asarray(_to_f32(value)) if isinstance(
+            value, torch.Tensor) else np.asarray(value)
+        if arr.shape != template.shape:
+            problems.append(f"shape mismatch {key}: torch {arr.shape} vs "
+                            f"flax {template.shape}")
+            continue
+        used.add(key)
+        _set(out, (collection, *path), np.ascontiguousarray(
+            arr.astype(template.dtype)))
+    leftovers = [k for k in sd if k not in used
+                 and not k.startswith(f"model.{HEAD_INDEX}.dfl.")
+                 and "num_batches_tracked" not in k]
+    if leftovers:
+        problems.append(f"unconsumed torch keys: {sorted(leftovers)[:10]}"
+                        f" (+{max(0, len(leftovers) - 10)} more)")
+    if problems:
+        raise ValueError("weight conversion failed:\n  "
+                         + "\n  ".join(problems[:40]))
+    return out
+
+
+def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
+    """A raw state dict saved with ``torch.save(sd, path)``, as float32
+    numpy arrays.  It is read with ``weights_only=True``: a full
+    ultralytics checkpoint pickles ultralytics classes, which only the
+    ultralytics package can unpickle, so such a file raises with a message
+    saying so (extract the state dict there and save it raw)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(
+            f"{path} is not a raw state dict: it pickles classes (a full "
+            f"ultralytics checkpoint needs the ultralytics package to "
+            f"unpickle; save torch.load(path)['model'].state_dict() with "
+            f"torch.save where it is installed) ({e})") from None
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path} does not contain a state dict")
+    return {k: v.float().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in obj.items()}
 
 
 def _to_f32(x) -> np.ndarray:

@@ -42,6 +42,8 @@ SIGNATURES = {
                              _P, _P, _P, _P, _F, _I, _I, _I, _P, _P),
     "mask_count_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _I, _I, _P, _P),
+    "mask_peak_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _P, _P),
     "nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
     "lap_launch": (_P, _P, _P, _I, _I, _I, _P, _P),
     "rotated_nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,

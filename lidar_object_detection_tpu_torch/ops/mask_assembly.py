@@ -1,5 +1,6 @@
-"""Stack-free mask assembly over a batch of frames: kernels K2 and K3, their
-plain twins, and the guarded composition.
+"""Stack-free mask assembly over a batch of frames: kernels K2 and K3, the
+relative cut's peak pass, their plain twins, and the guarded and relative
+compositions.
 
 Counterpart of ``lidar_object_detection_tpu/ops/pallas_masks.py``.  The
 input is a batch of cropped proto-resolution probability tables
@@ -19,13 +20,19 @@ stack is never stored on the kernel path.
   (``pallas_assemble_masks_guarded``): K3 at the primary threshold, then
   K2, which reads K3's counts and cuts each detection at ``threshold``
   where it keeps >= ``min_pixels`` pixels and at ``floor`` otherwise
-  (:class:`Guard`), on the device: two launches, no host sync.
+  (:class:`Guard`), on the device: two launches, no host sync;
+* :func:`peak_cuda` -> (B, D) float32, each valid detection's largest
+  interpolated value inside its box (0 where none is, and for an invalid
+  detection), one launch for the batch: the peak of the relative cut
+  (``postprocess.py:438-443`` of the JAX package, an XLA reduction over
+  the (D, H, W) field there); :func:`peak_batch` composes it.
 
-The plain twins (:func:`assemble_masks_plain`, :func:`count_above_plain`)
-take the same batched operands and compute the same interpolation in the
-same operation order, y first: ``c = wy0 * t[y0] + wy1 * t[y1]``, then
-``v = wx0 * c[x0] + wx1 * c[x1]``, each product and sum rounded on its
-own, so kernel and twin agree bit for bit.  Against the JAX package's XLA
+The plain twins (:func:`assemble_masks_plain`, :func:`count_above_plain`,
+:func:`peak_plain`) take the same batched operands and compute the same
+interpolation in the same operation order, y first:
+``c = wy0 * t[y0] + wy1 * t[y1]``, then ``v = wx0 * c[x0] + wx1 * c[x1]``,
+each product and sum rounded on its own, so kernel and twin agree bit for
+bit.  Against the JAX package's XLA
 path (one dense resize) the values agree to 1-2 ulp; the tests state the
 flip bound.
 
@@ -132,10 +139,9 @@ def guarded_cut(thr: torch.Tensor, guard: Guard) -> torch.Tensor:
                                     device=thr.device))
 
 
-def _binary_plain(ops: MaskOperands, cut: torch.Tensor,
-                  b: int) -> torch.Tensor:
-    """(D, H, W) bool of frame ``b``'s pixels that pass, in the kernels'
-    order."""
+def _values_plain(ops: MaskOperands, b: int):
+    """Frame ``b``'s interpolated values (D, H, W), in the kernels' order,
+    and which of them lie inside a valid detection's box."""
     t = ops.table[b]
     mh, mw = t.shape[-2], t.shape[-1]
     r1 = torch.clamp(ops.y0 + 1, max=mh - 1)
@@ -150,15 +156,24 @@ def _binary_plain(ops: MaskOperands, cut: torch.Tensor,
     x1, y1, x2, y2 = (e[:, None, None] for e in ops.boxes[b].unbind(-1))
     in_box = (xs >= x1) & (xs < x2) & (ys >= y1) & (ys < y2) \
         & ops.valid[b, :, None, None]
+    return v, in_box
+
+
+def _binary_plain(ops: MaskOperands, cut: torch.Tensor,
+                  b: int) -> torch.Tensor:
+    """(D, H, W) bool of frame ``b``'s pixels that pass, in the kernels'
+    order."""
+    v, in_box = _values_plain(ops, b)
     return (v > cut[b, :, None, None]) & in_box
 
 
-def _per_frame(fn, ops: MaskOperands, empty_shape) -> torch.Tensor:
+def _per_frame(fn, ops: MaskOperands, empty_shape,
+               dtype=torch.int32) -> torch.Tensor:
     """Stack ``fn(b)`` over the batch's frames: the twins build one frame's
     (D, H, W) stack at a time, so their memory does not grow with B."""
     b = ops.table.shape[0]
     if b == 0:
-        return torch.zeros(empty_shape, dtype=torch.int32,
+        return torch.zeros(empty_shape, dtype=dtype,
                            device=ops.table.device)
     return torch.stack([fn(i) for i in range(b)])
 
@@ -179,6 +194,16 @@ def count_above_plain(ops: MaskOperands) -> torch.Tensor:
             torch.int32), ops, (0, ops.table.shape[1]))
 
 
+def peak_plain(ops: MaskOperands) -> torch.Tensor:
+    """Plain twin of the peak pass: (B, D) float32, the largest value of
+    each valid detection's in-box pixels, 0 where it has none."""
+    def peak(b):
+        v, in_box = _values_plain(ops, b)
+        return torch.where(in_box, v, 0.0).amax(dim=(-2, -1))
+
+    return _per_frame(peak, ops, ops.table.shape[:2], torch.float32)
+
+
 def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
            guard: Optional[Guard]) -> None:
     device = ops.table.device
@@ -194,7 +219,7 @@ def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
                 (ops.valid, torch.bool, (b, d)),
                 (ops.thr, torch.float32, (b, d)),
                 (out, torch.int32,
-                 (b, d) if fn_name == "mask_count_launch" else (b, h, w))]
+                 (b, h, w) if fn_name == "mask_assemble_launch" else (b, d))]
     if guard is not None:
         expected.append((guard.counts, torch.int32, (b, d)))
     for t, dtype, shape in expected:
@@ -212,9 +237,10 @@ def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
 
 def launch(fn_name: str, ops: MaskOperands, out: torch.Tensor,
            guard: Optional[Guard] = None) -> None:
-    """Launch K3 (``mask_count_launch``, adding into ``out`` (B, D)) or K2
-    (``mask_assemble_launch``, writing ``out`` (B, H, W)) on the current
-    stream.  Counts no launch: the wrappers below do."""
+    """Launch K3 (``mask_count_launch``, adding into ``out`` (B, D)), the
+    peak pass (``mask_peak_launch``, max-ing float bits into ``out``
+    (B, D)) or K2 (``mask_assemble_launch``, writing ``out`` (B, H, W)) on
+    the current stream.  Counts no launch: the wrappers below do."""
     _check(fn_name, ops, out, guard)
     b, d, mh, mw = ops.table.shape
     h, w = ops.shape
@@ -222,7 +248,9 @@ def launch(fn_name: str, ops: MaskOperands, out: torch.Tensor,
     args = [ops.table.data_ptr(), b, d, mh, mw, ops.y0.data_ptr(),
             ops.wy0.data_ptr(), ops.wy1.data_ptr(), ops.x0.data_ptr(),
             ops.wx0.data_ptr(), ops.wx1.data_ptr(), ops.boxes.data_ptr(),
-            ops.valid.data_ptr(), ops.thr.data_ptr()]
+            ops.valid.data_ptr()]
+    if fn_name != "mask_peak_launch":
+        args.append(ops.thr.data_ptr())
     if fn_name == "mask_assemble_launch":
         args += ([None, 0.0, 0] if guard is None else
                  [guard.counts.data_ptr(), float(guard.floor),
@@ -252,6 +280,15 @@ def count_above_cuda(ops: MaskOperands) -> torch.Tensor:
     return out
 
 
+def peak_cuda(ops: MaskOperands) -> torch.Tensor:
+    """Launch the peak pass: (B, D) float32 in-box peaks."""
+    out = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
+                      device=ops.table.device)
+    launch("mask_peak_launch", ops, out)
+    kernel_lib.LAUNCHES["mask_peak"] += 1
+    return out.view(torch.float32)
+
+
 def _on_cpu(ops: MaskOperands) -> bool:
     return ops.table.device.type == "cpu"
 
@@ -274,6 +311,32 @@ def count_above_batch(table, boxes, det_valid, src_h: int, src_w: int,
     if _on_cpu(ops):
         return count_above_plain(ops)
     return count_above_cuda(ops)
+
+
+def peak_batch(table, boxes, det_valid, src_h: int,
+               src_w: int) -> torch.Tensor:
+    """(B, D) float32 in-box peaks of a batch's interpolated fields: the
+    peak pass on CUDA, the twin on CPU."""
+    ops = prepare_operands(table, boxes, det_valid, src_h, src_w, 0.0)
+    if _on_cpu(ops):
+        return peak_plain(ops)
+    return peak_cuda(ops)
+
+
+def assemble_masks_relative_batch(table, boxes, det_valid, src_h: int,
+                                  src_w: int,
+                                  threshold: float) -> torch.Tensor:
+    """Relative-cut assembly of a batch: each detection cuts at the float32
+    product ``threshold * peak`` of its in-box peak (the peak pass, then
+    K2 with those per-detection cuts on CUDA, no host sync; the twins on
+    CPU)."""
+    ops = prepare_operands(table, boxes, det_valid, src_h, src_w, 0.0)
+    cpu = _on_cpu(ops)
+    peak = peak_plain(ops) if cpu else peak_cuda(ops)
+    cut = torch.tensor(threshold, dtype=torch.float32,
+                       device=peak.device) * peak
+    ops = dataclasses.replace(ops, thr=cut.contiguous())
+    return assemble_masks_plain(ops) if cpu else assemble_masks_cuda(ops)
 
 
 def assemble_masks_guarded_batch(table, boxes, det_valid, src_h: int,

@@ -14,17 +14,24 @@
       --dataset /path/to/KITTI360_sample \\
       --ckpt checkpoints/pp_ssd_surround.msgpack --surround \\
       --aggregate-sweeps --head ssd --export-ply
+  python -m lidar_object_detection_tpu_torch kitti2d \\
+      --dataset /path/to/KITTI_Selection --output results/
+  python -m lidar_object_detection_tpu_torch convert-weights \\
+      --state-dict yolo11x-seg_state_dict.pt --output yolo11x.msgpack
 
-Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py`` for the
-``run`` (every version, with ``--export-ply`` and ``--analysis-cloud``),
-``erosion-study``, ``depth-maps`` and ``pointpillars-infer`` subcommands.
-``--device`` (default ``cuda``) takes the place of the JAX CLI's
-``--platform``; ``--device cpu`` runs the plain twins on the CPU.  The
-YOLO detector serves a msgpack checkpoint in float32 with unfolded
-weights, at the operating point its sidecar records, as the JAX CLI does.
+Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py`` for every
+subcommand but ``pointpillars-train``, which exits non-zero with a message
+naming its ROADMAP item.  ``--device`` (default ``cuda``) takes the place
+of the JAX CLI's ``--platform``; ``--device cpu`` runs the plain twins on
+the CPU.
 
-The other subcommands and weight formats of the JAX CLI are not ported
-yet: they exit non-zero with a message naming their ROADMAP item.
+``--weights`` takes a flax msgpack checkpoint (served at the operating
+point its sidecar records, float32 with unfolded weights, as the JAX CLI
+serves it) or a raw ultralytics state dict saved with ``torch.save``
+(``.pt``).  ``convert-weights`` writes the msgpack layout, where the JAX
+CLI writes an orbax directory: orbax imports JAX, which the port does not.
+So ``--weights`` refuses an orbax directory, and a ``.safetensors`` file,
+which the JAX CLI's ``torch.load`` cannot read either.
 """
 
 from __future__ import annotations
@@ -38,8 +45,6 @@ from lidar_object_detection_tpu_torch.config import (
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 UNPORTED_COMMANDS = {
-    "kitti2d": 6,
-    "convert-weights": 6,
     "pointpillars-train": 7,
 }
 # the versions whose run writes the master CSV (as the JAX CLI's)
@@ -68,7 +73,9 @@ def _add_common(p, detector: bool = True) -> None:
                         "YOLO11-seg (random weights without --weights)")
     p.add_argument("--weights", default=None,
                    help="yolo weights: a flax msgpack checkpoint "
-                        "(checkpoints/yolo11*_seg_distill.msgpack)")
+                        "(checkpoints/yolo11*_seg_distill.msgpack, or "
+                        "convert-weights' output) or a raw torch-saved "
+                        "ultralytics state dict (.pt)")
     p.add_argument("--yolo-scale", default=None, choices=list("nsmlx"),
                    help="yolo scale (default: the checkpoint sidecar's "
                         "scale, else x)")
@@ -88,6 +95,21 @@ def _add_common(p, detector: bool = True) -> None:
                         "else none)")
 
 
+def _refuse_weights(path: str) -> None:
+    """Exit on the weight formats the port does not read, naming why."""
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"--weights {path!r} is a directory: an orbax checkpoint needs "
+            "orbax.checkpoint, which imports JAX, and the port imports no "
+            "JAX; convert the state dict with convert-weights (a .msgpack) "
+            "instead")
+    if path.endswith(".safetensors"):
+        raise SystemExit(
+            f"--weights {path!r}: a .safetensors file is not read, since "
+            "the JAX CLI's loader is torch.load too and cannot read one "
+            "either; save the state dict with torch.save (.pt)")
+
+
 def _build_detector(args, dataset):
     """None for the stub; else a ``YoloDetector`` on ``args.device``."""
     if args.detector == "stub":
@@ -103,10 +125,7 @@ def _build_detector(args, dataset):
                    mask_threshold=args.mask_thr,
                    mask_threshold_floor=args.mask_floor,
                    mask_min_pixels=args.mask_min_pixels, tta=args.tta)
-    if args.weights:
-        if not args.weights.endswith(".msgpack"):
-            raise _not_ported(f"weights {args.weights!r} (orbax or "
-                              "state-dict formats)", 6)
+    if args.weights and args.weights.endswith(".msgpack"):
         # float32, unfolded: the JAX CLI serves the raw variables
         det, _, _ = load_serving_checkpoint(
             args.weights, image_hw, default_scale="x", device=args.device,
@@ -118,8 +137,48 @@ def _build_detector(args, dataset):
           "tta": args.tta or "none", "device": args.device}
     if args.conf is not None:
         kw["conf"] = args.conf
-    return YoloDetector(image_hw, YoloConfig(scale=args.yolo_scale or "x"),
-                        **kw)
+    cfg = YoloConfig(scale=args.yolo_scale or "x")
+    if args.weights:
+        from lidar_object_detection_tpu_torch.models.yolo.weights import (
+            convert_state_dict, flax_template, load_state_dict_file)
+
+        _refuse_weights(args.weights)
+        kw["variables"] = convert_state_dict(
+            load_state_dict_file(args.weights), flax_template(cfg))
+    return YoloDetector(image_hw, cfg, **kw)
+
+
+def _convert_weights(args) -> int:
+    """``convert-weights``: an ultralytics state dict -> a flax msgpack
+    checkpoint ``{"variables": ...}`` and its sidecar ``{"scale": ...}``,
+    which both CLIs' ``--weights`` serve."""
+    import json
+
+    from lidar_object_detection_tpu_torch.models.yolo.detector import (
+        YoloDetector)
+    from lidar_object_detection_tpu_torch.models.yolo.model import YoloConfig
+    from lidar_object_detection_tpu_torch.models.yolo.weights import (
+        convert_state_dict, flax_template, load_state_dict_file)
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        write_flax_msgpack)
+
+    if not args.output.endswith(".msgpack"):
+        raise SystemExit(f"--output {args.output!r} must be a .msgpack "
+                         "path: --weights serves that suffix as a flax "
+                         "msgpack checkpoint")
+    cfg = YoloConfig(scale=args.scale)
+    sd = load_state_dict_file(args.state_dict)
+    variables = convert_state_dict(sd, flax_template(cfg))
+    # the converted tree must load into the network, strictly
+    YoloDetector(tuple(args.image_shape), cfg, variables=variables,
+                 device="cpu")
+    out_dir = os.path.dirname(os.path.abspath(args.output))
+    os.makedirs(out_dir, exist_ok=True)
+    write_flax_msgpack(args.output, {"variables": variables})
+    with open(args.output + ".json", "w") as f:
+        json.dump({"scale": args.scale}, f)
+    print(f"converted {len(sd)} tensors -> {args.output}")
+    return 0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -169,6 +228,28 @@ def _parser() -> argparse.ArgumentParser:
     pi_p.add_argument("--max-points", type=int, default=None)
     pi_p.add_argument("--export-ply", action="store_true")
 
+    cw_p = sub.add_parser("convert-weights",
+                          help="torch state dict -> flax msgpack checkpoint "
+                               "of YOLO11(-seg)")
+    cw_p.add_argument("--state-dict", required=True,
+                      help="torch-saved raw state dict (.pt)")
+    cw_p.add_argument("--output", required=True,
+                      help="msgpack checkpoint path (.msgpack), with a "
+                           "sidecar <output>.json recording the scale")
+    cw_p.add_argument("--scale", default="x", choices=list("nsmlx"))
+    cw_p.add_argument("--image-shape", type=int, nargs=2, default=(376, 1408),
+                      help="(H, W) of a detector the converted weights are "
+                           "loaded into as a check")
+
+    k2_p = sub.add_parser("kitti2d", help="KITTI 2D detection eval")
+    k2_p.add_argument("--dataset", required=True,
+                      help="KITTI_Selection root (images/ labels/ calib/)")
+    k2_p.add_argument("--output", default="results")
+    k2_p.add_argument("--conf", type=float, default=0.5)
+    k2_p.add_argument("--device", default="cuda",
+                      help="torch device to run on (default cuda; cpu runs "
+                           "the plain twins)")
+
     for name, item in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP Queue 1 item "
                                   f"{item})")
@@ -183,6 +264,19 @@ def main(argv=None) -> int:
                           UNPORTED_COMMANDS[args.cmd])
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+
+    if args.cmd == "convert-weights":
+        return _convert_weights(args)
+
+    if args.cmd == "kitti2d":
+        from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
+            run_kitti2d_eval)
+        result = run_kitti2d_eval(args.dataset, output_dir=args.output,
+                                  conf=args.conf, device=args.device)
+        t = result.totals
+        print(f"TP: {t['tp']}  FP: {t['fp']}  FN: {t['fn']}")
+        print(f"Precision: {t['precision']:.2f}  Recall: {t['recall']:.2f}")
+        return 0
 
     if args.cmd == "pointpillars-infer":
         from lidar_object_detection_tpu_torch.pipelines.pointpillars import (

@@ -17,8 +17,13 @@ image resolution and without titles, through ``utils/png.py``.
 Packed words are the port's int32 words or JAX's uint32 ones: both are
 read as uint32.
 
-Not ported yet: ``draw_label`` and ``annotate_kitti2d_image``, which only
-the KITTI 2D evaluation uses (ROADMAP Queue 1 item 6.5).
+The KITTI 2D evaluation's annotated image (:func:`annotate_kitti2d_image`)
+has the JAX package's boxes, label anchors, background blend and layout.
+The JAX package draws the label text with PIL's default font, which the
+card's machine does not promise; :func:`draw_label` draws it with a 5 x 8
+bitmap font of this module's own (:data:`FONT`, printable ASCII, one
+pixel colour, no antialiasing), so the text and the size of its
+background rectangle differ from the JAX package's.
 """
 
 from __future__ import annotations
@@ -208,3 +213,218 @@ def depth_map_figure(depth_map: np.ndarray, seg_image: np.ndarray,
     top, bottom = depth_map_panels(depth_map, seg_image)
     figure = np.concatenate([top, bottom], axis=0)
     write_png_rgb(save_path, np.round(figure * 255.0).astype(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# the KITTI 2D annotation: a bitmap font and labels
+# ---------------------------------------------------------------------------
+
+GLYPH_W, GLYPH_H, ADVANCE = 5, 8, 6
+# printable ASCII, 5 x 8 glyphs: 8 rows of 5 pixels, top row first, the
+# last row for descenders
+_GLYPHS = {
+    " ": "00000 00000 00000 00000 00000 00000 00000 00000",
+    "!": "00100 00100 00100 00100 00100 00000 00100 00000",
+    '"': "01010 01010 01010 00000 00000 00000 00000 00000",
+    "#": "01010 01010 11111 01010 11111 01010 01010 00000",
+    "$": "00100 01111 10100 01110 00101 11110 00100 00000",
+    "%": "11000 11001 00010 00100 01000 10011 00011 00000",
+    "&": "01100 10010 10100 01000 10101 10010 01101 00000",
+    "'": "00100 00100 01000 00000 00000 00000 00000 00000",
+    "(": "00010 00100 01000 01000 01000 00100 00010 00000",
+    ")": "01000 00100 00010 00010 00010 00100 01000 00000",
+    "*": "00000 00100 10101 01110 10101 00100 00000 00000",
+    "+": "00000 00100 00100 11111 00100 00100 00000 00000",
+    ",": "00000 00000 00000 00000 00000 01100 00100 01000",
+    "-": "00000 00000 00000 11111 00000 00000 00000 00000",
+    ".": "00000 00000 00000 00000 00000 01100 01100 00000",
+    "/": "00000 00001 00010 00100 01000 10000 00000 00000",
+    "0": "01110 10001 10011 10101 11001 10001 01110 00000",
+    "1": "00100 01100 00100 00100 00100 00100 01110 00000",
+    "2": "01110 10001 00001 00010 00100 01000 11111 00000",
+    "3": "11111 00010 00100 00010 00001 10001 01110 00000",
+    "4": "00010 00110 01010 10010 11111 00010 00010 00000",
+    "5": "11111 10000 11110 00001 00001 10001 01110 00000",
+    "6": "00110 01000 10000 11110 10001 10001 01110 00000",
+    "7": "11111 00001 00010 00100 01000 01000 01000 00000",
+    "8": "01110 10001 10001 01110 10001 10001 01110 00000",
+    "9": "01110 10001 10001 01111 00001 00010 01100 00000",
+    ":": "00000 01100 01100 00000 01100 01100 00000 00000",
+    ";": "00000 01100 01100 00000 01100 00100 01000 00000",
+    "<": "00010 00100 01000 10000 01000 00100 00010 00000",
+    "=": "00000 00000 11111 00000 11111 00000 00000 00000",
+    ">": "01000 00100 00010 00001 00010 00100 01000 00000",
+    "?": "01110 10001 00001 00010 00100 00000 00100 00000",
+    "@": "01110 10001 00001 01101 10101 10101 01110 00000",
+    "A": "01110 10001 10001 10001 11111 10001 10001 00000",
+    "B": "11110 10001 10001 11110 10001 10001 11110 00000",
+    "C": "01110 10001 10000 10000 10000 10001 01110 00000",
+    "D": "11100 10010 10001 10001 10001 10010 11100 00000",
+    "E": "11111 10000 10000 11110 10000 10000 11111 00000",
+    "F": "11111 10000 10000 11110 10000 10000 10000 00000",
+    "G": "01110 10001 10000 10111 10001 10001 01111 00000",
+    "H": "10001 10001 10001 11111 10001 10001 10001 00000",
+    "I": "01110 00100 00100 00100 00100 00100 01110 00000",
+    "J": "00111 00010 00010 00010 00010 10010 01100 00000",
+    "K": "10001 10010 10100 11000 10100 10010 10001 00000",
+    "L": "10000 10000 10000 10000 10000 10000 11111 00000",
+    "M": "10001 11011 10101 10101 10001 10001 10001 00000",
+    "N": "10001 10001 11001 10101 10011 10001 10001 00000",
+    "O": "01110 10001 10001 10001 10001 10001 01110 00000",
+    "P": "11110 10001 10001 11110 10000 10000 10000 00000",
+    "Q": "01110 10001 10001 10001 10101 10010 01101 00000",
+    "R": "11110 10001 10001 11110 10100 10010 10001 00000",
+    "S": "01111 10000 10000 01110 00001 00001 11110 00000",
+    "T": "11111 00100 00100 00100 00100 00100 00100 00000",
+    "U": "10001 10001 10001 10001 10001 10001 01110 00000",
+    "V": "10001 10001 10001 10001 10001 01010 00100 00000",
+    "W": "10001 10001 10001 10101 10101 10101 01010 00000",
+    "X": "10001 10001 01010 00100 01010 10001 10001 00000",
+    "Y": "10001 10001 10001 01010 00100 00100 00100 00000",
+    "Z": "11111 00001 00010 00100 01000 10000 11111 00000",
+    "[": "01110 01000 01000 01000 01000 01000 01110 00000",
+    "\\": "00000 10000 01000 00100 00010 00001 00000 00000",
+    "]": "01110 00010 00010 00010 00010 00010 01110 00000",
+    "^": "00100 01010 10001 00000 00000 00000 00000 00000",
+    "_": "00000 00000 00000 00000 00000 00000 11111 00000",
+    "`": "01000 00100 00010 00000 00000 00000 00000 00000",
+    "a": "00000 00000 01110 00001 01111 10001 01111 00000",
+    "b": "10000 10000 10110 11001 10001 10001 11110 00000",
+    "c": "00000 00000 01110 10000 10000 10001 01110 00000",
+    "d": "00001 00001 01101 10011 10001 10001 01111 00000",
+    "e": "00000 00000 01110 10001 11111 10000 01110 00000",
+    "f": "00110 01001 01000 11100 01000 01000 01000 00000",
+    "g": "00000 00000 01111 10001 10001 01111 00001 01110",
+    "h": "10000 10000 10110 11001 10001 10001 10001 00000",
+    "i": "00100 00000 01100 00100 00100 00100 01110 00000",
+    "j": "00010 00000 00110 00010 00010 00010 10010 01100",
+    "k": "10000 10000 10010 10100 11000 10100 10010 00000",
+    "l": "01100 00100 00100 00100 00100 00100 01110 00000",
+    "m": "00000 00000 11010 10101 10101 10001 10001 00000",
+    "n": "00000 00000 10110 11001 10001 10001 10001 00000",
+    "o": "00000 00000 01110 10001 10001 10001 01110 00000",
+    "p": "00000 00000 11110 10001 10001 11110 10000 10000",
+    "q": "00000 00000 01111 10001 10001 01111 00001 00001",
+    "r": "00000 00000 10110 11001 10000 10000 10000 00000",
+    "s": "00000 00000 01111 10000 01110 00001 11110 00000",
+    "t": "01000 01000 11100 01000 01000 01001 00110 00000",
+    "u": "00000 00000 10001 10001 10001 10011 01101 00000",
+    "v": "00000 00000 10001 10001 10001 01010 00100 00000",
+    "w": "00000 00000 10001 10001 10101 10101 01010 00000",
+    "x": "00000 00000 10001 01010 00100 01010 10001 00000",
+    "y": "00000 00000 10001 10001 10001 01111 00001 01110",
+    "z": "00000 00000 11111 00010 00100 01000 11111 00000",
+    "{": "00010 00100 00100 01000 00100 00100 00010 00000",
+    "|": "00100 00100 00100 00100 00100 00100 00100 00000",
+    "}": "01000 00100 00100 00010 00100 00100 01000 00000",
+    "~": "00000 00000 01000 10101 00010 00000 00000 00000",
+}
+# character -> (GLYPH_H, GLYPH_W) bool
+FONT = {c: np.array([[bit == "1" for bit in row] for row in rows.split()])
+        for c, rows in _GLYPHS.items()}
+
+
+def text_size(text: str) -> Tuple[int, int]:
+    """(width, height) in pixels of ``text`` in :data:`FONT`."""
+    return max(ADVANCE * len(text) - 1, 0), GLYPH_H
+
+
+def draw_text(image: np.ndarray, text: str, top_left: Tuple[int, int],
+              color: Tuple[int, int, int]) -> None:
+    """Draw ``text`` into (H, W, 3) uint8 ``image`` in place, its first
+    glyph's top-left pixel at ``top_left`` (x, y), clipped to the image;
+    a character outside printable ASCII draws as ``?``."""
+    h, w = image.shape[:2]
+    x, y = int(top_left[0]), int(top_left[1])
+    rgb = np.asarray(color, np.uint8)
+    for i, ch in enumerate(text):
+        glyph = FONT.get(ch, FONT["?"])
+        gx = x + ADVANCE * i
+        ys, xs = np.nonzero(glyph)
+        ys, xs = ys + y, xs + gx
+        keep = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+        image[ys[keep], xs[keep]] = rgb
+
+
+def label_rect(text: str, position: Tuple[int, int],
+               shape) -> Tuple[int, int, int, int]:
+    """(y0, y1, x0, x1) of :func:`draw_label`'s background rectangle in an
+    image of ``shape``: the text lies inside it."""
+    x, y = int(position[0]), int(position[1])
+    tw, th = text_size(text)
+    h, w = shape[:2]
+    return max(y - th - 2, 0), min(y + 2, h), max(x, 0), min(x + tw + 5, w)
+
+
+def draw_label(image: np.ndarray, text: str, position: Tuple[int, int],
+               text_color: Tuple[int, int, int] = (255, 255, 255),
+               bg_color: Tuple[int, int, int] = (0, 0, 0),
+               alpha: float = 0.6) -> np.ndarray:
+    """Text over an alpha-blended background rectangle on an RGB uint8
+    image: ``draw_text_with_background`` (ObjectDetection_final.py:47-76).
+    ``position`` is the text's baseline anchor, as cv2.putText's; colours
+    are RGB.  The rectangle spans 2 pixels above the text to 2 below the
+    anchor and 5 past the text's end, as in the JAX package."""
+    arr = np.array(image, dtype=np.uint8, copy=True)
+    x, y = int(position[0]), int(position[1])
+    _, th = text_size(text)
+    y0, y1, x0, x1 = label_rect(text, position, arr.shape)
+    if y1 > y0 and x1 > x0:
+        patch = arr[y0:y1, x0:x1].astype(np.float32)
+        bg = np.asarray(bg_color, np.float32)
+        arr[y0:y1, x0:x1] = (alpha * bg + (1 - alpha) * patch).astype(
+            np.uint8)
+    draw_text(arr, text, (x, y - th), text_color)
+    return arr
+
+
+def kitti2d_labels(matches, precision: float, recall: float, shape):
+    """The labels of :func:`annotate_kitti2d_image` in drawing order, each
+    (text, position, text colour, background colour, alpha): five per
+    match, then the recall and precision banner."""
+    h, w = shape[:2]
+    white = (255, 255, 255)
+    y_off = 250
+    sum_x = min(1000, max(w - 400, 0))
+    labels = []
+    for m in matches:
+        x1, y1 = int(m.det_box[0]), int(m.det_box[1])
+        labels += [
+            (f"ID: {m.car_id}", (x1, y1 - 35), (0, 0, 0), white, 0.6),
+            (f"IoU: {m.iou:.2f}", (x1, y1 - 20), (219, 22, 107), white, 0.6),
+            (f"YOLO: {m.yolo_distance:.2f}m", (x1, y1 - 5), (255, 0, 0),
+             white, 0.6),
+            (f"GT: {m.gt_distance:.2f}m", (x1, y1 + 10), (0, 255, 0), white,
+             0.6),
+            (f"ID: {m.car_id:.2f} ; gt: {m.gt_distance:.2f}m ; "
+             f"yolo: {m.yolo_distance:.2f} m; IoU: {m.iou:.2f}",
+             (sum_x, y_off), (0, 0, 0), white, 0.6)]
+        y_off += 15
+    labels.append((f"Recall: {recall:.2f} ; Precision: {precision:.2f}",
+                   (min(420, max(w - 500, 0)), min(330, h - 10)),
+                   (232, 67, 67), white, 0.0))
+    return labels
+
+
+def annotate_kitti2d_image(image: np.ndarray, matches,
+                           precision: float, recall: float) -> np.ndarray:
+    """The reference's annotated KITTI 2D result image
+    (ObjectDetection_final.py:166-253): per matched detection a box and
+    four labels (ID / IoU / YOLO distance / GT distance) about its top-left
+    corner, a running summary column on the right, and the image's recall
+    and precision banner.  ``matches`` are ``eval.kitti2d.MatchRecord``s.
+    RGB in, RGB out."""
+    out = image.copy()
+    labels = kitti2d_labels(matches, precision, recall, out.shape)
+    for i, m in enumerate(matches):
+        x1, y1, x2, y2 = [int(v) for v in m.det_box]
+        # the JAX package's colour, "BGR red" in its comment: it draws
+        # (255, 0, 0) reversed, blue in RGB
+        out = draw_boxes(out, np.asarray([[x1, y1, x2, y2]]),
+                         colors=[(0, 0, 255)], thickness=1)
+        for text, pos, color, bg, alpha in labels[5 * i:5 * i + 5]:
+            out = draw_label(out, text, pos, text_color=color, bg_color=bg,
+                             alpha=alpha)
+    text, pos, color, bg, alpha = labels[-1]
+    return draw_label(out, text, pos, text_color=color, bg_color=bg,
+                      alpha=alpha)

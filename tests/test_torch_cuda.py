@@ -274,3 +274,84 @@ def test_csv_eval_on_card_writes_the_cpu_rows(dev, tmp_path):
     with open(paths["cuda"]) as a, open(paths["cpu"]) as b:
         card, cpu = a.read(), b.read()
     assert card == cpu and len(card.splitlines()) > 5
+
+
+def test_peak_pass_equals_twin(dev):
+    """The relative cut's peak pass (``mask_kernel<kPeak>``) against its
+    twin on ``chip_smoke.mask_cases``: float bits equal, one launch."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    rng = np.random.default_rng(4)
+    for name, arrays in chip_smoke.mask_cases(rng).items():
+        table, boxes, valid = (torch.from_numpy(a).to(dev) for a in arrays)
+        ops = ma.prepare_operands(table, boxes, valid, chip_smoke.H0,
+                                  chip_smoke.W0, 0.0)
+        before = kernel_lib.LAUNCHES["mask_peak"]
+        got = ma.peak_cuda(ops)
+        assert kernel_lib.LAUNCHES["mask_peak"] == before + 1
+        ref = ma.peak_plain(ops)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            name
+        if name.startswith("dense"):
+            assert int((got > 0).sum()) > 10
+
+
+def _decode_modes():
+    return {"logit": dict(mask_upsample="logit", mask_threshold=0.9),
+            "relative": dict(mask_threshold_mode="relative",
+                             mask_threshold=0.5),
+            "coef": dict(mask_threshold=0.5, emit_coef=True)}
+
+
+def test_decode_modes_on_card_equal_cpu(dev):
+    """The n network's raw outputs on the card decoded on the card (the
+    peak pass, K2, K5) and on the CPU (the twins): equal words; and the
+    detection-only outputs give zero words on both."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        PostprocessParams, postprocess_batch)
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    images = np.stack([read_png_rgb(p) for p in chip_smoke.FRAMES])
+    det, _, _ = load_serving_checkpoint(chip_smoke.CKPT, (376, 1408),
+                                        tta="none", device=dev)
+    outputs = det.forward(images)
+    cpu = {k: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+           for k, v in outputs.items()}
+    for name, kw in _decode_modes().items():
+        params = PostprocessParams(spec=det.spec, **kw)
+        got = postprocess_batch(outputs, params)
+        ref = postprocess_batch(cpu, params)
+        assert torch.equal(got["det_valid"].cpu(), ref["det_valid"]), name
+        assert torch.equal(got["mask_bits"].cpu(), ref["mask_bits"]), name
+        assert bool((ref["mask_bits"] != 0).any()), name
+    det_only = {k: outputs[k] for k in ("box", "cls")}
+    got = postprocess_batch(det_only, PostprocessParams(spec=det.spec))
+    assert got["mask_bits"].shape == (2, 376, 1408)
+    assert not bool(got["mask_bits"].any())
+
+
+def test_kitti2d_on_card_equals_cpu(dev, tmp_path):
+    """The KITTI 2D evaluation with its default detector (YOLO11x's
+    detection head, random weights from seed 0) on the card and on the
+    CPU: equal TP / FP / FN."""
+    from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
+        run_kitti2d_eval)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    frame = read_png_rgb(chip_smoke.FRAMES[0])
+    samples = [(f"{i:06d}", np.ascontiguousarray(frame[:h, :w]),
+                [("Car", 400.0, 170.0, 520.0, 240.0, 20.0)],
+                chip_smoke.INTRINSICS)
+               for i, (h, w) in enumerate(chip_smoke.KITTI2D_SHAPES[:2])]
+    root = str(tmp_path / "tree")
+    chip_smoke.write_kitti2d_tree(root, samples)
+    card = run_kitti2d_eval(root, output_dir=str(tmp_path / "card"),
+                            device=dev)
+    cpu = run_kitti2d_eval(root, output_dir=str(tmp_path / "cpu"),
+                           device="cpu")
+    assert {k: card.totals[k] for k in ("tp", "fp", "fn")} == \
+        {k: cpu.totals[k] for k in ("tp", "fp", "fn")}

@@ -198,21 +198,32 @@ def test_cli_writes_what_the_function_api_writes(tree, tmp_path, pinned):
     ["pointpillars-train", "--dataset", "x", "--head", "center",
      "--aggregate-sweeps"],
     ["pointpillars-train", "--dataset", "x", "--steps", "2"],
-    ["kitti2d", "--dataset", "x"],
-    ["convert-weights", "--state-dict", "w.pt", "--output", "o"],
-    ["run", "--dataset", "TREE", "--version", "v4_iou", "--detector",
-     "yolo", "--weights", "w.pt", "--device", "cpu"],
-    ["depth-maps", "--dataset", "TREE", "--detector", "yolo", "--weights",
-     "orbax_dir", "--device", "cpu"],
-    ["erosion-study", "--dataset", "TREE", "--detector", "yolo",
-     "--weights", "w.safetensors", "--device", "cpu"],
-    ["run", "--dataset", "TREE", "--detector", "yolo", "--weights",
-     "w.safetensors", "--device", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(tree, argv):
     argv = [tree if a == "TREE" else a for a in argv]
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv,reason", [
+    (["depth-maps", "--dataset", "TREE", "--detector", "yolo", "--weights",
+      "ORBAX_DIR", "--device", "cpu"], "orbax.checkpoint, which imports JAX"),
+    (["erosion-study", "--dataset", "TREE", "--detector", "yolo",
+      "--weights", "w.safetensors", "--device", "cpu"],
+     "the JAX CLI's loader is torch.load too"),
+    (["run", "--dataset", "TREE", "--detector", "yolo", "--weights",
+      "w.safetensors", "--device", "cpu"],
+     "the JAX CLI's loader is torch.load too"),
+])
+def test_cli_refuses_weights_it_cannot_read(tree, tmp_path, argv, reason):
+    """An orbax directory needs JAX; a safetensors file is read by neither
+    package: each exits naming its reason, and no ROADMAP item."""
+    orbax = tmp_path / "orbax_dir"
+    orbax.mkdir()
+    argv = [{"TREE": tree, "ORBAX_DIR": str(orbax)}.get(a, a) for a in argv]
+    with pytest.raises(SystemExit, match=reason) as e:
+        cli.main(argv)
+    assert "ROADMAP" not in str(e.value)
 
 
 def test_pipeline_runs_on_cuda_by_default_or_refuses(tree):
