@@ -20,7 +20,10 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    consensus tables, and on edge cases (a frame with no valid detection,
    D = 1, boxes off the image or with infinite or NaN coordinates, edges
    on tile borders and at fractions, guards that fire for some
-   detections, a count exactly at the guard's minimum); and K5 (NMS) on
+   detections, a count exactly at the guard's minimum, and frames whose
+   width is not a multiple of 4: KITTI's 375 x 1242 and 376 x 1241 and
+   370 x 1223, boxes on the last quad's columns and clamped to the
+   width); and K5 (NMS) on
    synthetic hard cases (NaN, infinite and invalid scores, ties, IoUs an
    ulp around the threshold, N = 1024, M > N, a frame with nothing alive)
    and on the decode's real candidates of both views;
@@ -86,7 +89,26 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    overlap, all invalid, NaN scores, equal scores; B = 64 of degenerate
    boxes, some of whose pairs must take the kernel's ring routine), IoU
    rows within 1e-5, and timed; K5 on the AABB path's candidates;
-9. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
+9. trains PointPillars at the surround grid on that street (full width,
+   4 frames of 131072 points a step): the CLI's ``pointpillars-train
+   --surround --aggregate-sweeps --max-points 131072 --checkpoint-dir``
+   with ``--head ssd`` (8 steps; the assigner's IoU kernel once a step,
+   the closing evaluation's rotated NMS once a frame) and ``--head
+   center`` (4 steps, no kernel), each run twice with the counters
+   zeroed before each: byte-equal checkpoints, finite losses, the final
+   below the first; ``pointpillars-infer --ckpt`` on what was written;
+   one full-width step from the committed SSD variables on the card
+   against the CPU port (loss parts, num_pos, gradients within a fixed
+   share of each tensor's largest entry; the CPU's one-ulp spread is
+   printed beside it); CUDA-event times of the step split into the
+   assignment, forward (with and without cuDNN's deterministic flag),
+   loss, backward and optimizer, and a traced step.
+   Then the assigner's IoU kernel (``rotated_iou_pairs_kernel`` of
+   ``csrc/rotated_nms.cu``) is held to its twin on the step's real
+   candidate pairs (4 x 64 x 512), a seeded heavy overlap and degenerate
+   boxes (some pairs through the ring routine), IoUs within 1e-5, the
+   step's assignment replayed from the kernel's IoUs, and timed;
+10. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
    images cut from the committed frames at KITTI's shapes (375 x 1242,
    370 x 1224, 376 x 1241), labelled with the n checkpoint's cars and a
    KITTI-like calib: the CLI's ``kitti2d`` on the card (YOLO11x's
@@ -98,7 +120,7 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
    the per-image forward and decode times (CUDA events) and the CLI's
    host seconds;
-10. decodes the n float32 detector's raw outputs on the committed frames
+11. decodes the n float32 detector's raw outputs on the committed frames
    (B = 4) in the modes the serving path does not run -- logit at 0.9,
    relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
    ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
@@ -107,12 +129,13 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
-11. prints one JSON line of the kernels (times, bounds, launches, errors;
+12. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
-   PointPillars runs, ``kitti2d_launches`` of the card's ``kitti2d`` run
-   and ``relative_decode_launches``), the card's name and power limit,
-   and last the ``{"ok": true, ...}`` line.
+   PointPillars runs, ``pointpillars_train_launches`` of the four
+   training runs, ``kitti2d_launches`` of the card's ``kitti2d`` run and
+   ``relative_decode_launches``), the card's name and power limit, and
+   last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
 line.  It imports nothing of JAX and nothing of the JAX package.
@@ -162,8 +185,9 @@ P, G, D = 131072, 384, 32
 # solver, ``lap``, launches only where a run matches by assignment
 PATH_KERNELS = ("inside_counts", "mask_assemble", "mask_count", "nms")
 # kernels that the serving path never launches: V5's solver, the
-# PointPillars decode's rotated NMS and the relative cut's peak pass
-OFF_PATH_KERNELS = ("lap", "rotated_nms", "mask_peak")
+# PointPillars decode's rotated NMS, the relative cut's peak pass and the
+# PointPillars training assigner's rotated IoU
+OFF_PATH_KERNELS = ("lap", "rotated_nms", "mask_peak", "rotated_iou_pairs")
 H0, W0 = 376, 1408
 # bench.py's tight shapes: the KITTI-360 sample's largest scan (122,183
 # points) padded to a multiple of 4096
@@ -467,6 +491,35 @@ def mask_cases(rng, h=H0, w=W0, mh=42, mw=160):
         "off the image": off,
         "borders and fractions": borders,
     }
+
+# frame shapes whose width is not a multiple of 4: KITTI's 1242 and 1241
+# (W = 2, 1 mod 4) and one W = 3 mod 4
+ODD_SHAPES = ((375, 1242), (376, 1241), (370, 1223))
+
+
+def odd_width_cases(rng):
+    """``mask_cases``' dense B = 4, off-the-image and border cases at each
+    of ODD_SHAPES, and a case of boxes on the last quad's columns (the
+    columns past the last multiple of 4, a box ending a hair before, at
+    and past the true width, boxes clamped to it): name -> (h, w, (table,
+    boxes, valid))."""
+    out = {}
+    for h, w in ODD_SHAPES:
+        cases = mask_cases(rng, h, w)
+        for name in ("dense B=4", "off the image", "borders and fractions"):
+            out[f"{name} {h}x{w}"] = (h, w, cases[name])
+        table, boxes, valid = cases["borders and fractions"]
+        last = 4 * (w // 4)
+        rows = [[last, 0, w, h], [last - 1, 3, w, h - 3],
+                [last + 0.5, 1.5, w - 0.25, 40.5], [w - 1, 0, w, h],
+                [w - 0.5, 7, w + 0.5, 19], [w - 6, 10, w + 30, 60],
+                [last - 3.5, 2, w + 1e6, h + 5], [-10, -10, w + 10, h + 10],
+                [w - 2, h - 2, np.inf, np.inf], [last + 1, 0, last + 2, h]]
+        boxes = boxes.copy()
+        boxes[0, :len(rows)] = np.array(rows, np.float32)
+        out[f"last quad {h}x{w}"] = (h, w, (table, boxes, valid))
+    return out
+
 
 def lap_case(rng, batch, r=D, c=G, row_share=0.4, col_share=0.1):
     """V5-shaped assignment operands (numpy): costs (B, R, C) float32 of 1
@@ -860,6 +913,9 @@ def check_mask_kernels(torch, dev, rng, detector, images):
     cases["main path B=1"] = tuple(a[:1] for a in main)
     ops_of = {name: ma.prepare_operands(*args, H0, W0, thr)
               for name, args in cases.items()}
+    ops_of.update({name: ma.prepare_operands(
+        *(torch.from_numpy(a).to(dev) for a in arrays), h, w, thr)
+        for name, (h, w, arrays) in odd_width_cases(rng).items()})
     bad = {"mask_count": 0, "mask_assemble": 0}
     compared = {"mask_count": 0, "mask_assemble": 0}
     k3_err, k2_err, failed, stats = 0, 0, [], {}
@@ -902,8 +958,8 @@ def check_mask_kernels(torch, dev, rng, detector, images):
         raise AssertionError(f"mask check is degenerate: {stats}")
 
     def timer(name, ops):
-        out = torch.empty((ops.table.shape[0], H0, W0), dtype=torch.int32,
-                          device=dev)
+        out = torch.empty((ops.table.shape[0], *ops.shape),
+                          dtype=torch.int32, device=dev)
         counts = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
                              device=dev)
         guard = ma.Guard(ma.count_above_plain(ops), floor, min_pixels)
@@ -911,8 +967,10 @@ def check_mask_kernels(torch, dev, rng, detector, images):
             return lambda: ma.launch("mask_count_launch", ops, counts)
         return lambda: ma.launch("mask_assemble_launch", ops, out, guard)
 
+    odd = f"dense B=4 {ODD_SHAPES[0][0]}x{ODD_SHAPES[0][1]}"
     timed = {"": "main path B=4", "_b1": "main path B=1",
-             "_synthetic": "dense B=4", "_synthetic_b1": "dense B=1"}
+             "_synthetic": "dense B=4", "_synthetic_b1": "dense B=1",
+             "_odd_width": odd}
     entries = []
     src = "lidar_object_detection_tpu_torch/csrc/mask_assembly.cu"
     for name, line, err in (("mask_count", 282, k3_err),
@@ -948,7 +1006,9 @@ def check_mask_kernels(torch, dev, rng, detector, images):
               f"{entry['ms_synthetic']:.4f} (bound "
               f"{entry['bound_ms_synthetic']:.4g}), B=1 "
               f"{entry['ms_synthetic_b1']:.4f} (bound "
-              f"{entry['bound_ms_synthetic_b1']:.4g}); twin "
+              f"{entry['bound_ms_synthetic_b1']:.4g}); {odd} "
+              f"{entry['ms_odd_width']:.4f} (bound "
+              f"{entry['bound_ms_odd_width']:.4g}); twin "
               f"{entry['plain_ms']:.4f}", flush=True)
     print(f"mask cases: {stats}", flush=True)
     return entries
@@ -1527,7 +1587,8 @@ def matching_phase(torch, dev, smi, root, tmp):
     for name, k1, solver in (("v4", 1, 0), ("v5", 2, 1),
                              ("depth_maps", 1, 0)):
         want = dict(inside_counts=k1, mask_assemble=1, mask_count=1, nms=1,
-                    lap=solver, rotated_nms=0, mask_peak=0)
+                    lap=solver, rotated_nms=0, mask_peak=0,
+                    rotated_iou_pairs=0)
         if launches[name] != want:
             raise AssertionError(f"the {name} CLI run launched "
                                  f"{launches[name]}, expected {want}")
@@ -2022,6 +2083,438 @@ def check_pp_aabb(torch, dev, operands):
             "pointpillars_aabb_picks": picks}
 
 
+# ---------------------------------------------------------------------------
+# PointPillars training
+# ---------------------------------------------------------------------------
+
+# the CLI runs' steps per head (4 frames a step, the street's 4 frames)
+PP_TRAIN_STEPS = {"ssd": 8, "center": 4}
+# the assigner's IoU thresholds (models/pointpillars/loss.py pos, neg)
+PP_ASSIGN_THRESHOLDS = (0.6, 0.45)
+# one full-width float32 step from the committed SSD variables, card
+# against the CPU port: loss parts within PP_STEP_LOSS_RTOL relative, and
+# every gradient tensor within PP_STEP_GRAD_TOL of its largest entry on
+# the CPU.  The card's step agrees within 1.5e-4 of that; a point moved
+# into the neighbouring pillar by a reciprocal division (the fault this
+# check found) moved some tensor by 7.2e-2.  The gradients of a float32
+# step are ill-conditioned: the pillar features subtract each pillar's
+# mean from coordinates of up to 100 m, and train-mode BatchNorm over 17
+# layers carries their rounding into the deepest block's gradients.  How
+# far is printed beside the check, as the CPU's one-ulp spread: the CPU's
+# step against the same step with every weight and every point coordinate
+# one ulp up or down at random (3.1e-3 at the full-width step).  It is a
+# larger change than the card's rounding and is not held to the limit
+PP_STEP_LOSS_RTOL, PP_STEP_GRAD_TOL = 1e-3, 2e-3
+# frames of that comparison (the CPU's part of the check's time)
+PP_STEP_CPU_FRAMES = 2
+
+
+def nudge_one_ulp(torch, tensors, seed):
+    """Move every entry of ``tensors`` one ulp up or down at random, in
+    place."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in tensors:
+            up = (torch.rand(p.shape, generator=gen) < 0.5).to(p.device)
+            p.copy_(torch.where(up, torch.nextafter(p, p + 1),
+                                torch.nextafter(p, p - 1)))
+
+
+def training_step_grads(torch, cfg, state, batch, device, nudge=None):
+    """One training step's loss parts and gradients (Flax layout, on the
+    host) from ``state`` on ``device``; ``nudge`` a seed moves every
+    weight and every point coordinate one ulp first (``nudge_one_ulp``)."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        pillars_flax_from_state)
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        train as ptrain)
+
+    tr = ptrain.PillarsTrainer(cfg, device=device)
+    tr.model.load_state_dict(state)
+    b = tr.batch_tensors(*batch)
+    if nudge is not None:
+        nudge_one_ulp(torch, [*tr.model.parameters(), b[0][..., :3]], nudge)
+    parts = tr.loss(*b)
+    grads = tr.gradients(parts["loss"])
+    return ({key: float(v.detach()) for key, v in parts.items()},
+            pillars_flax_from_state(grads)["params"])
+
+
+def grad_spread(got, ref):
+    """The largest difference of two gradient trees, in units of each
+    tensor's largest entry in ``ref``."""
+    worst = 0.0
+    for key, value in ref.items():
+        if isinstance(value, dict):
+            worst = max(worst, grad_spread(got[key], value))
+        else:
+            scale = max(float(np.abs(value).max()), 1e-30)
+            worst = max(worst, float(np.abs(got[key] - value).max()) / scale)
+    return worst
+
+
+def compare_steps(torch, cfg, state, batch, dev):
+    """A training step on the card against the CPU's (``PP_STEP_*``):
+    returns (card parts, CPU parts, loss parts' relative error, the
+    card's gradient error, the CPU's one-ulp spread, a diagnostic)."""
+    card_parts, card_grads = training_step_grads(torch, cfg, state, batch,
+                                                 dev)
+    cpu_parts, cpu_grads = training_step_grads(torch, cfg, state, batch,
+                                               "cpu")
+    spread = grad_spread(training_step_grads(
+        torch, cfg, state, batch, "cpu", nudge=0)[1], cpu_grads)
+    loss_err = max(abs(card_parts[key] - cpu_parts[key])
+                   / max(abs(cpu_parts[key]), 1e-12)
+                   for key in ("loss", "cls", "box", "dir"))
+    return (card_parts, cpu_parts, loss_err,
+            grad_spread(card_grads, cpu_grads), spread)
+
+
+def steps_agree(card_parts, cpu_parts, loss_err, grad_err):
+    return (card_parts["num_pos"] == cpu_parts["num_pos"]
+            and loss_err <= PP_STEP_LOSS_RTOL
+            and grad_err <= PP_STEP_GRAD_TOL)
+
+
+def train_cli_losses(text):
+    """(step 0's loss, the final loss, eval matched, eval GTs) of a
+    ``pointpillars-train`` run's output."""
+    first = re.search(r"step 0: loss=(\S+) ", text)
+    final = re.search(r"final loss: (\S+); eval recall=(\d+)/(\d+)", text)
+    if not first or not final:
+        raise AssertionError(f"pointpillars-train printed {text!r}")
+    return (float(first[1]), float(final[1]), int(final[2]),
+            int(final[3]))
+
+
+def pointpillars_train_phase(torch, dev, smi, tmp):
+    """PointPillars training on the card at the surround grid (640 x 640
+    pillars, full width, P = 131072 points a frame, 4 frames a step), on
+    ``pillars_tree``'s street:
+
+    * the CLI ``pointpillars-train --surround --aggregate-sweeps
+      --max-points 131072 --checkpoint-dir`` with ``--head ssd``
+      (PP_TRAIN_STEPS, the assigner's IoU kernel once a step, the closing
+      evaluation's rotated NMS once a frame) and ``--head center`` (no
+      kernel), each run twice, counters zeroed before each: the two
+      checkpoints and sidecars byte-equal; finite losses, the final below
+      step 0's;
+    * ``pointpillars-infer --ckpt`` on each written checkpoint;
+    * one full-width step from the committed SSD variables on the card
+      and on the CPU (PP_STEP_CPU_FRAMES frames): num_pos exact, loss
+      parts within PP_STEP_LOSS_RTOL, gradients within PP_STEP_GRAD_TOL
+      (``compare_steps``);
+    * CUDA-event times of the step at B = 4, split into the assignment,
+      the train-mode forward (as the step runs it, and under cuDNN's
+      deterministic flag, as the backward runs), the eval-mode forward,
+      forward + loss, backward and the optimizer; a traced step and a
+      traced train-mode forward.
+
+    Returns the runs' launches, a summary, and the step's real candidate
+    pairs on the card (anchors, top-k indices, GTs, GT validity)."""
+    from lidar_object_detection_tpu_torch.data import Kitti360Dataset
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, pillars_state_from_flax)
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        train as ptrain)
+    from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
+        assign_anchors, iou_bound, top_candidates)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "pp_train_kitti360")
+    n_cars = pillars_tree(root, np.random.default_rng(2))
+    n = len(PP_FRAMES)
+    base = ["pointpillars-train", "--dataset", root, "--surround",
+            "--aggregate-sweeps", "--max-points", str(P), "--device",
+            str(dev)]
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    launches, walls, losses, ckpts, repeated = {}, {}, {}, {}, {}
+    for head, steps in PP_TRAIN_STEPS.items():
+        want = (dict(zero, rotated_iou_pairs=steps, rotated_nms=n)
+                if head == "ssd" else zero)
+        for run in ("", "_again"):
+            out = os.path.join(tmp, f"pp_train_{head}{run}")
+            torch.cuda.synchronize()
+            kernel_lib.reset_launches()
+            t = time.perf_counter()
+            text = run_cli(base + ["--head", head, "--steps", str(steps),
+                                   "--checkpoint-dir", out])
+            torch.cuda.synchronize()
+            walls[head + run] = time.perf_counter() - t
+            launches[head + run] = dict(kernel_lib.LAUNCHES)
+            if launches[head + run] != want:
+                raise AssertionError(f"pointpillars-train {head}{run} "
+                                     f"launched {launches[head + run]}, "
+                                     f"expected {want}")
+            first, final, matched, total = train_cli_losses(text)
+            if not (np.isfinite(first) and np.isfinite(final)) \
+                    or final >= first or total == 0:
+                raise AssertionError(f"pointpillars-train {head}{run}: "
+                                     f"loss {first} -> {final}, recall "
+                                     f"{matched}/{total}")
+            losses[head + run] = {"step0": first, "final": final,
+                                  "recall": [matched, total]}
+            ckpts[head + run] = os.path.join(
+                out, f"pp_{head}_step{steps}.msgpack")
+        repeated[head] = same_files(os.path.dirname(ckpts[head + "_again"]),
+                                    os.path.dirname(ckpts[head]),
+                                    f"the {head} training run's second run")
+    print(f"pointpillars-train: the second run of each head wrote the "
+          f"first run's checkpoint bytes ({repeated}); losses {losses}; "
+          f"wall s {walls}", flush=True)
+    infer = {}
+    for head in PP_TRAIN_STEPS:
+        out = os.path.join(tmp, f"pp_train_infer_{head}")
+        text = run_cli(["pointpillars-infer", "--dataset", root, "--ckpt",
+                        ckpts[head], "--surround", "--aggregate-sweeps",
+                        "--head", head, "--score-threshold", "0.1",
+                        "--output", out, "--device", str(dev)])
+        line = re.search(r"(\d+) frames, (\d+) detections", text)
+        if not line or int(line[1]) != n:
+            raise AssertionError(f"pointpillars-infer on the trained {head} "
+                                 f"checkpoint printed {text!r}")
+        infer[head] = int(line[2])
+    phase("PointPillars training: the CLI on the card", t0)
+
+    # one full-width step from the committed SSD variables, card and CPU
+    cfg = dataclasses.replace(PillarsConfig.kitti360_surround(), head="ssd")
+    ds = Kitti360Dataset(root)
+    frames = pp.load_aggregated_frames(ds, PP_FRAMES, grid=cfg.grid,
+                                       max_points=P)
+    batch = pp.pack_frames(frames, P)
+    state = pillars_state_from_flax(read_flax_msgpack(PP_CKPTS["ssd"])["0"])
+    k = PP_STEP_CPU_FRAMES
+    t = time.perf_counter()
+    card_parts, cpu_parts, loss_err, grad_err, spread = compare_steps(
+        torch, cfg, state, tuple(a[:k] for a in batch), dev)
+    cpu_s = time.perf_counter() - t
+    print(f"one full-width step, {k} frames, from the committed SSD "
+          f"variables: card {card_parts}, CPU {cpu_parts}; loss parts "
+          f"within {loss_err:.3g} relative, gradients within {grad_err:.3g} "
+          f"of each tensor's largest, the CPU's one-ulp spread {spread:.3g} "
+          f"({cpu_s:.1f} s)", flush=True)
+    if not steps_agree(card_parts, cpu_parts, loss_err, grad_err):
+        raise AssertionError(f"the card's training step differs from the "
+                             f"CPU's: loss parts {loss_err}, gradients "
+                             f"{grad_err} (limit {PP_STEP_GRAD_TOL})")
+
+    # times of the step at B = 4 on the card, and a traced step
+    tr = ptrain.PillarsTrainer(cfg, device=dev)
+    tr.model.load_state_dict(state)
+    b = tr.batch_tensors(*batch)
+    kernel_lib.reset_launches()
+    tr.train_step(*b)
+    if kernel_lib.LAUNCHES != dict(zero, rotated_iou_pairs=1):
+        raise AssertionError(f"a training step launched {kernel_lib.LAUNCHES}")
+    anchors, gt, gv = tr.anchors, b[2], b[4]
+
+    def forward():
+        return tr.model(b[0], b[1], train=True)
+
+    def forward_deterministic():
+        with ptrain.repeatable():
+            return forward()
+
+    times = {
+        "step_ms": time_events(torch, lambda: tr.train_step(*b), 5)[0],
+        "assign_ms": time_events(torch, lambda: assign_anchors(
+            gt, gv, cfg, anchors), 5)[0],
+        "forward_ms": time_events(torch, forward, 5)[0],
+        "forward_deterministic_ms": time_events(
+            torch, forward_deterministic, 5)[0],
+        "forward_eval_ms": time_events(torch, lambda: tr.apply(b[0], b[1]),
+                                       5)[0],
+        "forward_loss_ms": time_events(torch, lambda: tr.loss(*b), 5)[0],
+        "forward_loss_backward_ms": time_events(
+            torch, lambda: tr.gradients(tr.loss(*b)["loss"]), 5)[0],
+    }
+    grads = tr.gradients(tr.loss(*b)["loss"])
+    times["optimizer_ms"] = time_events(torch, lambda: ptrain.adamw_update(
+        tr.state.params(), grads, tr.state.opt_state, 2e-3, 1e-4), 5)[0]
+    times["backward_ms"] = (times["forward_loss_backward_ms"]
+                            - times["forward_loss_ms"])
+    times["loss_ms"] = times["forward_loss_ms"] - times["forward_ms"]
+    print(f"training step at B = {len(batch[0])}, full width, on {smi}: "
+          f"{json.dumps(times)}", flush=True)
+    print("traced training step (B = 4):", flush=True)
+    profile_once(torch, lambda: tr.train_step(*b))
+    print("traced train-mode forward (B = 4):", flush=True)
+    profile_once(torch, forward)
+    idx = top_candidates(iou_bound(anchors, gt))
+    summary = {"cars in the street": n_cars, "cli_wall_s": walls,
+               "losses": losses, "checkpoints_equal": repeated,
+               "infer_detections": infer, "step_loss_rel_err": loss_err,
+               "step_grad_err": grad_err, "step_grad_spread": spread,
+               "compare_s": cpu_s,
+               "card_step_parts": card_parts, **times}
+    print(json.dumps({"pointpillars_train": summary}), flush=True)
+    phase("PointPillars training", t0)
+    return launches, summary, (anchors, idx, gt, gv)
+
+
+def pair_cases(torch, dev, rng, real):
+    """Operands of the assigner's IoU kernel: the training step's real
+    candidates (``real``: anchors (N, 7), top-k indices (B, G, K), GTs,
+    validity; left out where None), a seeded heavy overlap (4096 car
+    boxes of any yaw in a 12 m square as anchors, 4 x 64 GTs among them,
+    10 % invalid) and 16 frames of ``degenerate_boxes`` (anchors and GTs
+    alike; their copies' pairs can take the ring routine).  name ->
+    (anchors, idx, gt, gt_valid)."""
+    from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
+        iou_bound, top_candidates)
+
+    def cars(shape, spread):
+        b = np.zeros((*shape, 7), np.float32)
+        b[..., 0] = rng.uniform(-spread, spread, shape)
+        b[..., 1] = rng.uniform(-spread, spread, shape)
+        b[..., 2], b[..., 5] = -1.0, 1.5
+        b[..., 3] = rng.uniform(1.4, 2.2, shape)
+        b[..., 4] = rng.uniform(3.2, 5.0, shape)
+        b[..., 6] = rng.uniform(-np.pi, np.pi, shape)
+        return torch.from_numpy(b).to(dev)
+
+    def case(anchors, gt, gv):
+        return anchors, top_candidates(iou_bound(anchors, gt)), gt, gv
+
+    overlap = case(cars((4096,), 6.0), cars((4, 64), 6.0),
+                   torch.from_numpy(rng.uniform(size=(4, 64)) > 0.1).to(dev))
+    deg, _, _ = degenerate_boxes(rng, 16, 512)
+    deg = torch.from_numpy(deg).to(dev)
+    degenerate = case(deg.reshape(-1, 7).contiguous(),
+                      deg[:, :64].contiguous(),
+                      torch.ones((16, 64), dtype=torch.bool, device=dev))
+    cases = {"heavy overlap": overlap, "degenerate": degenerate}
+    return cases if real is None else {"training step": real, **cases}
+
+
+def pair_bound(torch, anchors, idx, gt, gv):
+    """The assigner's IoU kernel's bound on these operands.  Bytes: the
+    GT flags once; the valid GTs once and, for each of their pairs, the
+    index and the gathered anchor; the output once per pair (a pair of an
+    invalid GT reads nothing but its GT's flag and writes 0).
+    Operations: PP_CLIP_OPS for each pair the kernel clips (a valid GT,
+    circumcircles within the kernel's reach test)."""
+    a = anchors[idx]                                        # (B, G, K, 7)
+    g = gt[:, :, None, :]
+    rad = lambda x: 0.5 * torch.sqrt(x[..., 3] ** 2 + x[..., 4] ** 2)
+    d2 = (a[..., 0] - g[..., 0]) ** 2 + (a[..., 1] - g[..., 1]) ** 2
+    reach = rad(a) + rad(g)
+    clipped = int(((d2 <= 1.01 * reach * reach + 1.0)
+                   & gv[..., None]).sum())
+    n_valid = int(gv.sum())
+    n_bytes = (gv.numel() + n_valid * (28 + idx.shape[2] * (8 + 28))
+               + idx.numel() * 4)
+    return bound_ms(n_bytes, PP_CLIP_OPS * clipped), clipped
+
+
+def check_rotated_iou_pairs(torch, dev, rng, real):
+    """The training assigner's IoU kernel against its twin on the card
+    (``pair_cases``): IoUs within PP_IOU_TOL over the valid GTs' pairs, 0
+    for invalid GTs; on the step's candidates the assignment (matched,
+    pos, neg) replayed from the kernel's IoUs equal to the one from the
+    twin's except at anchors with a deciding IoU within PP_IOU_TOL of a
+    threshold or of the runner-up GT's (their count printed); the
+    degenerate case must send pairs through the ring routine.  Timed on
+    the step's candidates (B = 4, G = 64, K = 512) beside the twin."""
+    from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
+        assign_from_iou)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import rotated_iou_pairs as rip
+
+    cases = pair_cases(torch, dev, rng, real)
+    stats, max_err, slow_of = {}, 0.0, {}
+    for name, (anchors, idx, gt, gv) in cases.items():
+        got, slow = rip.rotated_iou_pairs_cuda(anchors, idx, gt, gv,
+                                               count_slow=True)
+        ref = torch.where(gv[..., None],
+                          rip.rotated_iou_pairs_plain(anchors, idx, gt), 0.0)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"assigner IoU kernel: {name}: non-finite")
+        err = float((got - ref).abs().max())
+        max_err = max(max_err, err)
+        slow_of[name] = int(slow.item())
+        stats[name] = {"pairs": idx.numel(), "max_abs_err": err,
+                       "positive": int((got > 0).sum()),
+                       "over 0.6": int((got >= 0.6).sum())}
+    # the step's assignment, replayed from the kernel's IoUs
+    anchors, idx, gt, gv = real
+    b, g, _ = idx.shape
+    n = anchors.shape[0]
+    flat = (idx * g + torch.arange(g, device=dev)[:, None]).reshape(b, -1)
+    dense = {}
+    for name, ious in (("kernel", rip.rotated_iou_pairs_cuda(anchors, idx,
+                                                              gt, gv)),
+                       ("twin", torch.where(gv[..., None],
+                                            rip.rotated_iou_pairs_plain(
+                                                anchors, idx, gt), 0.0))):
+        m = torch.zeros((b, n * g), device=dev)
+        m.scatter_(1, flat, torch.clamp(ious, min=0.0).reshape(b, -1))
+        dense[name] = m.reshape(b, n, g)
+    got = assign_from_iou(dense["kernel"], gv)
+    ref = assign_from_iou(dense["twin"], gv)
+    differ = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    for key in ("matched", "pos", "neg"):
+        differ |= got[key] != ref[key]
+    iou = torch.where(gv[:, None, :], dense["kernel"], 0.0)
+    near = torch.zeros_like(iou, dtype=torch.bool)
+    for t in PP_ASSIGN_THRESHOLDS:
+        near |= (iou - t).abs() <= PP_IOU_TOL
+    top2 = torch.topk(iou, 2, dim=2).values
+    close = near.any(dim=2) | ((top2[..., 1] > 0)
+                               & (top2[..., 0] - top2[..., 1] <= PP_IOU_TOL))
+    n_close = int(close.sum())
+    n_differ = int(differ.sum())
+    unexplained = int((differ & ~close).sum())
+    print(f"assigner IoU cases: {stats}; ring routine pairs {slow_of}; the "
+          f"step's assignment from the kernel's IoUs: {n_differ} anchors "
+          f"differ from the twin's, {n_close} anchors with a deciding IoU "
+          f"within {PP_IOU_TOL} of a threshold or a tie; positives "
+          f"{int(got['pos'].sum())}", flush=True)
+    if max_err > PP_IOU_TOL or unexplained:
+        raise AssertionError(f"the assigner's IoU kernel differs from its "
+                             f"twin by {max_err}; {unexplained} anchors' "
+                             f"assignments differ without a close IoU")
+    if slow_of["degenerate"] == 0 or int(got["pos"].sum()) == 0 \
+            or stats["heavy overlap"]["over 0.6"] == 0:
+        raise AssertionError(f"degenerate assigner IoU cases: {stats}, "
+                             f"{slow_of}")
+
+    lib = kernel_lib.library()
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+
+    def launcher():
+        kernel_lib.check(lib.rotated_iou_pairs_launch(
+            anchors.data_ptr(), n, idx.data_ptr(), gt.data_ptr(),
+            gv.data_ptr(), b, g, idx.shape[2], out.data_ptr(), None,
+            kernel_lib.stream_handle(dev)), "rotated_iou_pairs_launch")
+
+    (bound, by), clipped = pair_bound(torch, anchors, idx, gt, gv)
+    entry = {"name": "rotated_iou_pairs", "route": "cuda",
+             "source": "lidar_object_detection_tpu_torch/csrc/"
+                       "rotated_nms.cu",
+             "replaces": "lidar_object_detection_tpu/models/pointpillars/"
+                         "loss.py:80",
+             "max_abs_err": max_err, "mismatches": unexplained,
+             "assignment_differs": n_differ, "close_anchors": n_close,
+             "cases": len(cases), "ring_routine_pairs": slow_of,
+             "pairs": idx.numel(), "clipped_pairs": clipped,
+             "ms": time_gpu(launcher), "bound_ms": bound, "bound_by": by,
+             "plain_ms": time_gpu(lambda: rip.rotated_iou_pairs_plain(
+                 anchors, idx, gt), reps=5, warmup=1, head_start=False),
+             "library_ms": None}
+    entry["kernel_ms"] = entry["ms"]
+    print(f"rotated_iou_pairs: within {max_err:.3g} of the twin on "
+          f"{len(cases)} cases; the step's {idx.numel()} pairs "
+          f"({clipped} clipped) {entry['ms']:.4f} ms (bound {bound:.3g} by "
+          f"{by}); twin {entry['plain_ms']:.3f} ms", flush=True)
+    return entry
+
+
 def same_detections(got, ref, what, box_atol, score_atol):
     """Two decodes of one frame: validity, classes exact; boxes7 and
     scores within the tolerances."""
@@ -2504,6 +2997,9 @@ def check_peak(torch, dev, rng, tables):
     cases["decode B=4"] = tables
     ops_of = {name: ma.prepare_operands(*args, H0, W0, 0.0)
               for name, args in cases.items()}
+    ops_of.update({name: ma.prepare_operands(
+        *(torch.from_numpy(a).to(dev) for a in arrays), h, w, 0.0)
+        for name, (h, w, arrays) in odd_width_cases(rng).items()})
     compared, positive, err = 0, {}, 0.0
     for name, ops in ops_of.items():
         got = ma.peak_cuda(ops)
@@ -2538,12 +3034,17 @@ def check_peak(torch, dev, rng, tables):
              "library_ms": None}
     entry["bound_ms"], entry["bound_by"] = mask_bound(main_ops, True)
     entry["bound_ms_synthetic"], _ = mask_bound(dense_ops, True)
+    odd = f"dense B=4 {ODD_SHAPES[0][0]}x{ODD_SHAPES[0][1]}"
+    entry["ms_odd_width"] = time_gpu(timer(ops_of[odd]), reps=20)
+    entry["bound_ms_odd_width"], _ = mask_bound(ops_of[odd], True)
     entry["kernel_ms"] = entry["ms"]
     print(f"mask_peak: float bits equal to the twin on {len(ops_of)} cases "
           f"({compared} peaks, positive {positive}); decode B=4 "
           f"{entry['ms']:.4f} ms (bound {entry['bound_ms']:.4g} by "
           f"{entry['bound_by']}), dense B=4 {entry['ms_synthetic']:.4f} "
-          f"(bound {entry['bound_ms_synthetic']:.4g}); twin "
+          f"(bound {entry['bound_ms_synthetic']:.4g}), {odd} "
+          f"{entry['ms_odd_width']:.4f} (bound "
+          f"{entry['bound_ms_odd_width']:.4g}); twin "
           f"{entry['plain_ms']:.4f}", flush=True)
     return entry
 
@@ -3210,6 +3711,12 @@ def main() -> int:
         check_pp_aabb(torch, dev, pp_aabb))
     phase("PointPillars kernels against twins", t0)
     with tempfile.TemporaryDirectory() as tmp:
+        train_launches, _, pairs = pointpillars_train_phase(torch, dev, smi,
+                                                            tmp)
+    assigner = check_rotated_iou_pairs(torch, dev, rng, pairs)
+    del pairs
+    phase("PointPillars training kernel against its twin", t0)
+    with tempfile.TemporaryDirectory() as tmp:
         k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
     peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
     # the solver's main path is the V5 run
@@ -3232,6 +3739,13 @@ def main() -> int:
                 headline_launches_4_chunks=times["launches_many"][
                     "mask_peak"])
     kernels.append(peak)
+    # the assigner's IoU's main path is the SSD head's training run
+    assigner.update(launches=train_launches["ssd"]["rotated_iou_pairs"],
+                    csv_eval_launches=csv_launches["rotated_iou_pairs"],
+                    headline_launches=launches["rotated_iou_pairs"],
+                    headline_launches_4_chunks=times["launches_many"][
+                        "rotated_iou_pairs"])
+    kernels.append(assigner)
     for k in kernels:
         k["matching_launches"] = {run: n[k["name"]]
                                   for run, n in match_launches.items()}
@@ -3239,6 +3753,8 @@ def main() -> int:
                                       for run, n in pp_launches.items()}
         k["kitti2d_launches"] = k2d_launches[k["name"]]
         k["relative_decode_launches"] = peak_launches[k["name"]]
+        k["pointpillars_train_launches"] = {
+            run: n[k["name"]] for run, n in train_launches.items()}
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -54,8 +54,16 @@
 //   by 512 columns of one frame: grid (column tiles, row tiles, B), every
 //   frame of the batch in one launch.  Two rows per block was the fastest
 //   of 1, 2, 4 and 8 on the card (PERF.md, runs C-F).  Each
-//   thread owns 4 adjacent columns (W % 4 == 0) and keeps their column taps
-//   in registers.
+//   thread owns 4 adjacent columns and keeps their column taps in
+//   registers.
+// * Any width.  Where W % 4 == 0 (mask_kernel<mode, true>) a quad's taps
+//   are three 16-byte loads and its words one 16-byte store.  Otherwise
+//   (mask_kernel<mode, false>, chosen per launch) a row of words does not
+//   start on a 16-byte boundary and the last quad of a row runs past W:
+//   that instantiation loads each tap on its own, the columns past W
+//   padded with the taps of column W - 1, and stores each word on its own,
+//   none past W.  The pixels past W take part in nothing: every box's
+//   columns are clamped to [0, W), so no detection covers them.
 // * Culling.  At the start of a tile, warp 0 loads every slot's box,
 //   validity and cut at once and runs a ballot over the D <= 32 slots:
 //   valid, a non-empty box, and a box whose pixel ranges [ceil x1, ceil x2)
@@ -78,7 +86,8 @@
 //   nothing is staged and no cp.async is used; an L1 prefetch of each
 //   tile's table rows gained nothing; two detections per step took more
 //   registers and 5-20 % more time.
-// * Stores.  K2 writes each thread's 4 words as one 16-byte int4.
+// * Stores.  K2 writes each thread's 4 words as one 16-byte int4 (where
+//   W % 4 == 0; else word by word).
 // * Counts.  K3 walks the detections that meet a warp's columns uniformly
 //   across the warp; lane d keeps the warp's count of detection d (one
 //   __reduce_add_sync per step), the warps meet in shared counters, and
@@ -277,7 +286,23 @@ __device__ __forceinline__ int quad_peak(const Args& a, const Tile& t,
   return peak;
 }
 
-template <int kMode>
+// The quad's 4 words of tile row r: one int4 where rows are 16-byte
+// aligned (W % 4 == 0), else word by word, none past the row's end.
+template <bool kAligned>
+__device__ __forceinline__ void store_quad(int32_t* row, int width, int x,
+                                           const uint32_t (&w)[4]) {
+  if (kAligned) {
+    *reinterpret_cast<int4*>(row) =
+        make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                  static_cast<int>(w[2]), static_cast<int>(w[3]));
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (x + p < width) row[p] = static_cast<int>(w[p]);
+  }
+}
+
+template <int kMode, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 mask_kernel(Args a, int32_t* __restrict__ out) {
   __shared__ Tile t;
@@ -298,12 +323,24 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
   q.x = x_begin + 4 * tid;
   const bool has_quad = q.x < a.width;
   if (has_quad) {
-    const int4 c = *reinterpret_cast<const int4*>(a.x0 + q.x);
-    const float4 f0 = *reinterpret_cast<const float4*>(a.wx0 + q.x);
-    const float4 f1 = *reinterpret_cast<const float4*>(a.wx1 + q.x);
-    const int c0[4] = {c.x, c.y, c.z, c.w};
-    q.w0[0] = f0.x; q.w0[1] = f0.y; q.w0[2] = f0.z; q.w0[3] = f0.w;
-    q.w1[0] = f1.x; q.w1[1] = f1.y; q.w1[2] = f1.z; q.w1[3] = f1.w;
+    int c0[4];
+    if (kAligned) {
+      const int4 c = *reinterpret_cast<const int4*>(a.x0 + q.x);
+      const float4 f0 = *reinterpret_cast<const float4*>(a.wx0 + q.x);
+      const float4 f1 = *reinterpret_cast<const float4*>(a.wx1 + q.x);
+      c0[0] = c.x; c0[1] = c.y; c0[2] = c.z; c0[3] = c.w;
+      q.w0[0] = f0.x; q.w0[1] = f0.y; q.w0[2] = f0.z; q.w0[3] = f0.w;
+      q.w1[0] = f1.x; q.w1[1] = f1.y; q.w1[2] = f1.z; q.w1[3] = f1.w;
+    } else {
+      // columns past W take column W - 1's taps: no box reaches them
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int xc = min(q.x + p, a.width - 1);
+        c0[p] = a.x0[xc];
+        q.w0[p] = a.wx0[xc];
+        q.w1[p] = a.wx1[xc];
+      }
+    }
     q.base = c0[0];
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -315,13 +352,15 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
   __syncthreads();
   const uint32_t active = t.active;
   const int rows = y_end - y_begin;
-  int4* words = reinterpret_cast<int4*>(
-      out + (static_cast<size_t>(b) * a.height + y_begin) * a.width + q.x);
-  const int row_stride = a.width / 4;  // in int4
+  int32_t* words =
+      out + (static_cast<size_t>(b) * a.height + y_begin) * a.width + q.x;
   if (active == 0u) {
-    if (kMode == kAssemble && has_quad)
+    if (kMode == kAssemble && has_quad) {
+      const uint32_t zero[4] = {0u, 0u, 0u, 0u};
       for (int r = 0; r < rows; ++r)
-        words[r * row_stride] = make_int4(0, 0, 0, 0);
+        store_quad<kAligned>(words + static_cast<size_t>(r) * a.width,
+                             a.width, q.x, zero);
+    }
     return;
   }
   // the active detections whose columns meet this thread's 4 pixels
@@ -379,29 +418,36 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
 #pragma unroll
         for (int p = 0; p < 4; ++p) w[p] |= ((bits >> p) & 1u) << d;
       }
-      words[r * row_stride] =
-          make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
-                    static_cast<int>(w[2]), static_cast<int>(w[3]));
+      store_quad<kAligned>(words + static_cast<size_t>(r) * a.width,
+                           a.width, q.x, w);
     }
   }
 }
 
+template <bool kAligned>
+void launch_mode(int mode, dim3 grid, cudaStream_t s, const Args& a,
+                 int32_t* o) {
+  if (mode == kCount)
+    mask_kernel<kCount, kAligned><<<grid, kThreads, 0, s>>>(a, o);
+  else if (mode == kPeak)
+    mask_kernel<kPeak, kAligned><<<grid, kThreads, 0, s>>>(a, o);
+  else
+    mask_kernel<kAssemble, kAligned><<<grid, kThreads, 0, s>>>(a, o);
+}
+
 int launch(int mode, Args a, int batch, void* out, void* stream) {
   if (batch <= 0 || a.height <= 0 || a.width <= 0) return 0;
-  if (a.num_det < 0 || a.num_det > kMaxDet || a.width % 4 != 0 ||
-      a.mh < 1 || a.mw < 1 || batch > 65535)
+  if (a.num_det < 0 || a.num_det > kMaxDet || a.mh < 1 || a.mw < 1 ||
+      batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.width + kTileCols - 1) / kTileCols,
                   (a.height + kRows - 1) / kRows, batch);
-  const int threads = kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
-  if (mode == kCount)
-    mask_kernel<kCount><<<grid, threads, 0, s>>>(a, o);
-  else if (mode == kPeak)
-    mask_kernel<kPeak><<<grid, threads, 0, s>>>(a, o);
+  if (a.width % 4 == 0)
+    launch_mode<true>(mode, grid, s, a, o);
   else
-    mask_kernel<kAssemble><<<grid, threads, 0, s>>>(a, o);
+    launch_mode<false>(mode, grid, s, a, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,9 @@
-"""Anchor grid, box decoding and BEV NMS for PointPillars, for inference.
+"""Anchor grid, box encoding and decoding, and BEV NMS for PointPillars.
 
 Counterpart of ``lidar_object_detection_tpu/models/pointpillars/decode.py``
-(lines 25-230; ``encode_boxes`` is training, ROADMAP Queue 1 item 7).
-Boxes decode as in SECOND/PointPillars: center offsets scaled by the
-anchor diagonal, log-ratio sizes, a yaw residual whose pi ambiguity the
-direction classifier resolves.  Suppression is greedy NMS on the exact
+(lines 25-230).  Boxes encode and decode as in SECOND/PointPillars:
+center offsets scaled by the anchor diagonal, log-ratio sizes, a yaw
+residual whose pi ambiguity the direction classifier resolves.  Suppression is greedy NMS on the exact
 rotated BEV IoU (``ops/rotated_nms.py``, a CUDA kernel on the card) or on
 the boxes' axis-aligned BEV extent (``ops/nms.py``, kernel K5).
 
@@ -61,6 +60,21 @@ def anchor_grid(cfg: PillarsConfig, device="cpu"):
         anchors[..., a, 5] = ah
         anchors[..., a, 6] = (math.pi / 2) * (a % 2)
     return torch.from_numpy(anchors).to(device)
+
+
+def encode_boxes(boxes, anchors):
+    """GT boxes (..., 7) + anchors -> regression targets (..., 7), the
+    inverse of :func:`decode_boxes`."""
+    diag = torch.sqrt(anchors[..., 3] ** 2 + anchors[..., 4] ** 2)
+    return torch.stack([
+        (boxes[..., 0] - anchors[..., 0]) / diag,
+        (boxes[..., 1] - anchors[..., 1]) / diag,
+        (boxes[..., 2] - anchors[..., 2]) / anchors[..., 5],
+        torch.log(torch.clamp(boxes[..., 3], min=1e-3) / anchors[..., 3]),
+        torch.log(torch.clamp(boxes[..., 4], min=1e-3) / anchors[..., 4]),
+        torch.log(torch.clamp(boxes[..., 5], min=1e-3) / anchors[..., 5]),
+        boxes[..., 6] - anchors[..., 6],
+    ], dim=-1)
 
 
 def decode_boxes(deltas, anchors):

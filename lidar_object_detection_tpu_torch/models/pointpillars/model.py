@@ -1,4 +1,4 @@
-"""The PointPillars network as PyTorch modules, for inference.
+"""The PointPillars network as PyTorch modules, for inference and training.
 
 Counterpart of ``lidar_object_detection_tpu/models/pointpillars/model.py``
 (lines 26-245): the pillar feature net (per-point linear, masked
@@ -15,10 +15,14 @@ follow the Flax tree (``pfn.linear``, ``backbone.block0_down.conv``,
 ``head.cls``, ...), so :func:`.weights.pillars_state_from_flax` maps each
 variable path straight to a state-dict key.
 
-Evaluation only: BatchNorm uses the running statistics, in Flax's order
-(:class:`MaskedBatchNorm` its own, ``(x - mean) * rsqrt(var + eps)`` then
-``* scale + bias``; the backbone's :class:`BatchNormEval`).  Training is
-ROADMAP Queue 1 item 7.  The forward runs in full float32, TF32 off
+BatchNorm is Flax's, in Flax's order: ``(x - mean) * (rsqrt(var + eps) *
+scale) + bias`` (:class:`MaskedBatchNorm`: ``(x - mean) * rsqrt(var +
+eps)``, then ``* scale + bias``).  ``forward(..., train=False)`` uses the
+running statistics.  ``train=True`` uses the batch's and updates the
+running ones, as Flax's ``nn.BatchNorm`` does (:class:`BatchNorm`), not as
+``torch.nn.BatchNorm2d`` does: the biased variance ``E[x^2] - E[x]^2``
+clipped at 0, and ``running = m * running + (1 - m) * batch`` with m =
+``bn_momentum``.  The forward runs in full float32, TF32 off
 (``full_float32``), as the JAX package computes.
 """
 
@@ -43,8 +47,7 @@ BN_EPS = 1e-3   # the Flax modules' epsilon
 
 @dataclasses.dataclass(frozen=True)
 class PillarsConfig:
-    """The JAX package's ``PillarsConfig`` without its training fields
-    (BatchNorm momentum, the assignment IoU, the center loss's weights)."""
+    """The JAX package's ``PillarsConfig``, field for field."""
 
     grid: PillarGridConfig = PillarGridConfig()
     embed_dim: int = 64
@@ -53,11 +56,22 @@ class PillarsConfig:
     up_channels: int = 128
     num_classes: int = 1          # car
     num_anchors: int = 2          # 0 / 90 degree anchor rotations
+    # BatchNorm running-average momentum (Flax's convention: the share of
+    # the old running value kept per training step)
+    bn_momentum: float = 0.9
     # anchor geometry (w, l, h) and z-center -- KITTI car anchor
     anchor_size: Tuple[float, float, float] = (1.6, 3.9, 1.56)
     anchor_z: float = -1.0
+    # anchor-assignment IoU: the exact "rotated" BEV IoU or the "aabb"
+    # approximation (:mod:`.loss`)
+    assign_iou: str = "rotated"
     # detection head family: "ssd" (anchor-based) or "center" (:mod:`.center`)
     head: str = "ssd"
+    # center head: GTs with few in-box points get their positive terms
+    # weighted by up to 1 + starve_weight (0 disables), weight = 1 +
+    # starve_weight * exp(-count / starve_n0) (:func:`.center.starve_weights`)
+    starve_weight: float = 0.0
+    starve_n0: float = 20.0
 
     @property
     def out_stride(self) -> int:
@@ -87,7 +101,7 @@ class ConvBN(nn.Module):
     """
 
     def __init__(self, c_in: int, c_out: int, k: int = 3, s: int = 1,
-                 transpose: bool = False):
+                 transpose: bool = False, momentum: float = 0.9):
         super().__init__()
         if transpose:
             if k != s:
@@ -98,29 +112,74 @@ class ConvBN(nn.Module):
         else:
             self.conv = nn.Conv2d(c_in, c_out, k, stride=s, padding=k // 2,
                                   bias=False)
-        self.bn = BatchNormEval(c_out, eps=BN_EPS)
+        self.bn = BatchNorm(c_out, eps=BN_EPS, momentum=momentum)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, train: bool = False):
+        return F.relu(self.bn(self.conv(x), train))
+
+
+class BatchNorm(BatchNormEval):
+    """Flax's ``nn.BatchNorm`` over NCHW.  Evaluation is
+    :class:`BatchNormEval`'s.  In training the statistics are the batch's
+    over (N, H, W): mean ``E[x]`` and the biased variance ``max(E[x^2] -
+    E[x]^2, 0)`` (Flax's ``use_fast_variance``), in float32; the output is
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; and, with no
+    gradient, ``running = m * running + (1 - m) * batch`` (m =
+    ``momentum``, Flax's convention: ``torch.nn.BatchNorm2d``'s momentum
+    would be 1 - m, and it keeps the unbiased variance)."""
+
+    def __init__(self, c: int, eps: float = BN_EPS, momentum: float = 0.9):
+        super().__init__(c, eps=eps)
+        self.momentum = momentum
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        _update_running(self, mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
+def _update_running(bn: nn.Module, mean, var) -> None:
+    """Flax's running-average update of ``bn``'s buffers, no gradient."""
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
 
 
 class MaskedBatchNorm(nn.Module):
-    """The pillar feature net's BatchNorm over (N, C) point rows, in
-    evaluation: ``(x - mean) * rsqrt(var + eps)``, then ``* scale +
-    bias`` (the JAX module's order; its masked batch statistics serve
-    training only)."""
+    """The pillar feature net's BatchNorm over (N, C) point rows:
+    ``(x - mean) * rsqrt(var + eps)``, then ``* scale + bias`` (the JAX
+    module's order).  In training the mean and the biased variance are
+    weighted by ``mask`` (two passes over the rows, n = max(sum(mask),
+    1)), and the running statistics update as :class:`BatchNorm`'s."""
 
-    def __init__(self, c: int, eps: float = BN_EPS):
+    def __init__(self, c: int, eps: float = BN_EPS, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var
-                                                  + self.eps)
+    def forward(self, x, mask=None, train: bool = False):
+        if train:
+            w = mask.to(torch.float32)[:, None]
+            n = torch.clamp(w.sum(), min=1.0)
+            x = x.float()
+            mean = (x * w).sum(dim=0) / n
+            var = (((x - mean) ** 2) * w).sum(dim=0) / n
+            _update_running(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
@@ -132,15 +191,15 @@ class PillarFeatureNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.linear = nn.Linear(9, cfg.embed_dim, bias=False)
-        self.bn = MaskedBatchNorm(cfg.embed_dim)
+        self.bn = MaskedBatchNorm(cfg.embed_dim, momentum=cfg.bn_momentum)
 
-    def forward(self, points, valid):
+    def forward(self, points, valid, train: bool = False):
         grid = self.cfg.grid
         b, p = points.shape[0], points.shape[1]
         feats, ids, in_grid = point_features(
             points.reshape(b * p, points.shape[-1]), valid.reshape(b * p),
             grid, batch=b)
-        x = F.relu(self.bn(self.linear(feats)))
+        x = F.relu(self.bn(self.linear(feats), in_grid, train))
         return scatter_bev(x, ids, in_grid, grid, batch=b)
 
 
@@ -151,24 +210,27 @@ class Backbone2D(nn.Module):
     def __init__(self, cfg: PillarsConfig):
         super().__init__()
         c_in = cfg.embed_dim
+        m = cfg.bn_momentum
         for b, (ch, n_layers) in enumerate(zip(cfg.backbone_channels,
                                                cfg.backbone_layers)):
-            self.add_module(f"block{b}_down", ConvBN(c_in, ch, 3, 2))
+            self.add_module(f"block{b}_down", ConvBN(c_in, ch, 3, 2,
+                                                     momentum=m))
             for i in range(n_layers):
-                self.add_module(f"block{b}_conv{i}", ConvBN(ch, ch, 3, 1))
+                self.add_module(f"block{b}_conv{i}",
+                                ConvBN(ch, ch, 3, 1, momentum=m))
             up = (1, 2, 4)[b]
             self.add_module(f"up{b}", ConvBN(ch, cfg.up_channels, up, up,
-                                             transpose=up > 1))
+                                             transpose=up > 1, momentum=m))
             c_in = ch
         self.layers = cfg.backbone_layers
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         ups = []
         for b, n_layers in enumerate(self.layers):
-            x = getattr(self, f"block{b}_down")(x)
+            x = getattr(self, f"block{b}_down")(x, train)
             for i in range(n_layers):
-                x = getattr(self, f"block{b}_conv{i}")(x)
-            ups.append(getattr(self, f"up{b}")(x))
+                x = getattr(self, f"block{b}_conv{i}")(x, train)
+            ups.append(getattr(self, f"up{b}")(x, train))
         return torch.cat(ups, dim=1)
 
 
@@ -211,15 +273,13 @@ class PointPillars(nn.Module):
             self.head = SSDHead(cfg)
 
     def forward(self, points, valid, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "PointPillars training is not ported yet (ROADMAP Queue 1 "
-                "item 7); the port runs inference only")
+        """``train=True`` normalizes with the batch's statistics and
+        updates the running ones (Flax's ``mutable=["batch_stats"]``)."""
         if points.dim() == 2:
             points, valid = points[None], valid[None]
         with full_float32():
-            bev = self.pfn(points, valid)
-            x = self.backbone(bev.permute(0, 3, 1, 2).contiguous())
+            bev = self.pfn(points, valid, train)
+            x = self.backbone(bev.permute(0, 3, 1, 2).contiguous(), train)
             if self.cfg.head == "center":
-                return self.center_head(x)
+                return self.center_head(x, train)
             return self.head(x)

@@ -70,6 +70,16 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
 
 
+def true_div(x, scalar: float):
+    """``x / scalar`` rounded as IEEE division on every device.  PyTorch's
+    CUDA kernel multiplies by the reciprocal of a Python-scalar divisor,
+    which can round a quotient at or next to an integer to the other side
+    of it: a point by a pillar's edge would fall into the neighbouring
+    pillar on the card only.  A divisor on the tensor's device is divided
+    by."""
+    return x / torch.full((), scalar, dtype=x.dtype, device=x.device)
+
+
 def pillar_ids(points, valid, cfg: PillarGridConfig):
     """Per-point pillar index into the flattened (ny, nx) grid.
 
@@ -77,8 +87,10 @@ def pillar_ids(points, valid, cfg: PillarGridConfig):
     points get id 0 with in_grid False.
     """
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    ix = torch.floor((x - cfg.x_range[0]) / cfg.pillar_size).to(torch.int32)
-    iy = torch.floor((y - cfg.y_range[0]) / cfg.pillar_size).to(torch.int32)
+    ix = torch.floor(true_div(x - cfg.x_range[0], cfg.pillar_size)).to(
+        torch.int32)
+    iy = torch.floor(true_div(y - cfg.y_range[0], cfg.pillar_size)).to(
+        torch.int32)
     in_grid = (valid
                & (ix >= 0) & (ix < cfg.nx)
                & (iy >= 0) & (iy < cfg.ny)
@@ -111,9 +123,11 @@ def point_features(points, valid, cfg: PillarGridConfig, batch: int = 1):
         counts = points.new_zeros((n_pillars,)).index_add_(0, ids, w)
     means = sums[ids] / torch.clamp(counts[ids], min=1.0)[:, None]
 
-    cx = (torch.floor((points[:, 0] - cfg.x_range[0]) / cfg.pillar_size)
+    cx = (torch.floor(true_div(points[:, 0] - cfg.x_range[0],
+                               cfg.pillar_size))
           + 0.5) * cfg.pillar_size + cfg.x_range[0]
-    cy = (torch.floor((points[:, 1] - cfg.y_range[0]) / cfg.pillar_size)
+    cy = (torch.floor(true_div(points[:, 1] - cfg.y_range[0],
+                               cfg.pillar_size))
           + 0.5) * cfg.pillar_size + cfg.y_range[0]
 
     refl = (points[:, 3] if points.shape[1] > 3

@@ -48,6 +48,8 @@ SIGNATURES = {
     "lap_launch": (_P, _P, _P, _I, _I, _I, _P, _P),
     "rotated_nms_launch": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
                            _P),
+    "rotated_iou_pairs_launch": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                                 _P),
 }
 
 _lib = None

@@ -230,9 +230,6 @@ def _check(fn_name: str, ops: MaskOperands, out: torch.Tensor,
     if d > MAX_DET or mh > h or mw > w:
         raise ValueError(f"{fn_name}: needs D <= {MAX_DET} and upsampling, "
                          f"got {d} x {mh} x {mw} -> {h} x {w}")
-    if w % 4:
-        raise ValueError(f"{fn_name}: needs a width that is a multiple of "
-                         f"4, got {w}")
 
 
 def launch(fn_name: str, ops: MaskOperands, out: torch.Tensor,

@@ -12,9 +12,12 @@ union exceeds ``1e-9``.
 
 :func:`rotated_iou_matrix` runs on tensors (any device) and is the oracle
 of the rotated-NMS kernel (``ops/rotated_nms.py``);
+:func:`rotated_iou_pairs` is its pairwise form, the IoU of ``a[i]``
+clipped by ``b[i]`` over any leading shape, and the oracle of the
+training assigner's kernel (``ops/rotated_iou_pairs.py``);
 :func:`rotated_iou_matrix_np` is the NumPy copy the host-side evaluation
-uses.  The pairs are clipped a block of rows at a time: 512 x 512 pairs
-at 64 slots would otherwise hold several 134 MB buffers at once.
+uses.  The pairs are clipped a block at a time: 512 x 512 pairs at 64
+slots would otherwise hold several 134 MB buffers at once.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 # rows of boxes_a clipped together: 64 x 512 pairs x 64 slots x 2 floats
 # is 17 MB a buffer
 ROW_BLOCK = 64
+# pairs of rotated_iou_pairs clipped together (the same 17 MB a buffer)
+PAIR_BLOCK = ROW_BLOCK * 512
 
 
 def box7_to_bev_corners(boxes7):
@@ -105,6 +110,29 @@ def rotated_iou_matrix(boxes_a, boxes_b):
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     union = area_a + area_b - inter
     return torch.where(union > 1e-9, inter / union, torch.zeros_like(inter))
+
+
+def rotated_iou_pairs(boxes_a, boxes_b):
+    """Exact BEV IoU of each pair: ``boxes_a[i]`` clipped by the edges of
+    ``boxes_b[i]``, both (..., 7), batched over any leading shape.
+    Element for element the entry ``rotated_iou_matrix(a_i[None],
+    b_i[None])`` (the same operations in the same order), without the
+    matrix's other pairs."""
+    shape = boxes_a.shape[:-1]
+    a = boxes_a.reshape(-1, 7)
+    b = boxes_b.reshape(-1, 7)
+    ca = box7_to_bev_corners(a)                     # (n, 4, 2)
+    cb = box7_to_bev_corners(b)
+    parts = []
+    for i in range(0, a.shape[0], PAIR_BLOCK):
+        poly, edges = ca[i:i + PAIR_BLOCK], cb[i:i + PAIR_BLOCK]
+        for j in range(4):
+            poly = _clip_halfplane(poly, edges[:, j], edges[:, (j + 1) % 4])
+        parts.append(_shoelace(poly))
+    inter = torch.cat(parts) if parts else a.new_zeros((0,))
+    union = a[:, 3] * a[:, 4] + b[:, 3] * b[:, 4] - inter
+    iou = torch.where(union > 1e-9, inter / union, torch.zeros_like(inter))
+    return iou.reshape(shape)
 
 
 def rotated_iou_matrix_np(boxes_a, boxes_b):

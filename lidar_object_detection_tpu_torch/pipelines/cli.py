@@ -10,6 +10,9 @@
       --dataset /path/to/KITTI360_sample --output results/
   python -m lidar_object_detection_tpu_torch depth-maps \\
       --dataset /path/to/KITTI360_sample --output Predictions/
+  python -m lidar_object_detection_tpu_torch pointpillars-train \\
+      --dataset /path/to/KITTI360_sample --surround --aggregate-sweeps \\
+      --head ssd --max-points 131072 --checkpoint-dir ckpt/
   python -m lidar_object_detection_tpu_torch pointpillars-infer \\
       --dataset /path/to/KITTI360_sample \\
       --ckpt checkpoints/pp_ssd_surround.msgpack --surround \\
@@ -19,11 +22,16 @@
   python -m lidar_object_detection_tpu_torch convert-weights \\
       --state-dict yolo11x-seg_state_dict.pt --output yolo11x.msgpack
 
-Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py`` for every
-subcommand but ``pointpillars-train``, which exits non-zero with a message
-naming its ROADMAP item.  ``--device`` (default ``cuda``) takes the place
-of the JAX CLI's ``--platform``; ``--device cpu`` runs the plain twins on
-the CPU.
+Counterpart of ``lidar_object_detection_tpu/pipelines/cli.py``, every
+subcommand.  ``--device`` (default ``cuda``) takes the place of the JAX
+CLI's ``--platform``; ``--device cpu`` runs the plain twins on the CPU.
+
+``pointpillars-train --checkpoint-dir DIR`` writes
+``DIR/pp_<head>_step<N>.msgpack`` (flax's msgpack of ``(variables,
+opt_state, step)``, the JAX surround runner's layout) with its sidecar
+``.json``, where the JAX CLI writes an orbax directory: orbax imports
+JAX, which the port does not.  ``pointpillars-infer --ckpt`` of either
+package reads it.
 
 ``--weights`` takes a flax msgpack checkpoint (served at the operating
 point its sidecar records, float32 with unfolded weights, as the JAX CLI
@@ -43,18 +51,9 @@ import sys
 from lidar_object_detection_tpu_torch.config import (
     FusionConfig, PipelineVersion)
 
-# subcommand -> the ROADMAP Queue 1 item that ports it
-UNPORTED_COMMANDS = {
-    "pointpillars-train": 7,
-}
 # the versions whose run writes the master CSV (as the JAX CLI's)
 CSV_VERSIONS = (PipelineVersion.CSV_EVAL, PipelineVersion.V2_STATS,
                 PipelineVersion.V3_EROSION)
-
-
-def _not_ported(what: str, item: int) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 item "
-                      f"{item})")
 
 
 def _add_common(p, detector: bool = True) -> None:
@@ -212,6 +211,30 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(es_p)
     es_p.add_argument("--output", default="results")
 
+    pt_p = sub.add_parser(
+        "pointpillars-train",
+        help="train the pure-LiDAR PointPillars on a drive's frames; "
+             "--checkpoint-dir receives pp_<head>_step<N>.msgpack (flax "
+             "msgpack of (variables, opt_state, step) and a .json "
+             "sidecar) where the JAX CLI writes an orbax directory, since "
+             "orbax imports JAX")
+    _add_common(pt_p, detector=False)
+    pt_p.add_argument("--steps", type=int, default=50)
+    pt_p.add_argument("--checkpoint-dir", default=None,
+                      help="directory for pp_<head>_step<N>.msgpack, which "
+                           "both packages' pointpillars-infer --ckpt read")
+    pt_p.add_argument("--surround", action="store_true",
+                      help="360-degree KITTI-360 grid "
+                           "(PillarsConfig.kitti360_surround)")
+    pt_p.add_argument("--aggregate-sweeps", action="store_true",
+                      help="train on pose-aggregated multi-sweep clouds "
+                           "(data/poses.py)")
+    pt_p.add_argument("--max-points", type=int, default=None,
+                      help="subsample training clouds to this many points")
+    pt_p.add_argument("--head", default="ssd", choices=("ssd", "center"),
+                      help="detection head family: anchor-based SSD or the "
+                           "CenterPoint heatmap head (NMS-free decode)")
+
     pi_p = sub.add_parser("pointpillars-infer",
                           help="run a trained PointPillars checkpoint over "
                                "dataset frames (detections JSON + optional "
@@ -249,21 +272,11 @@ def _parser() -> argparse.ArgumentParser:
     k2_p.add_argument("--device", default="cuda",
                       help="torch device to run on (default cuda; cpu runs "
                            "the plain twins)")
-
-    for name, item in UNPORTED_COMMANDS.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP Queue 1 item "
-                                  f"{item})")
     return parser
 
 
 def main(argv=None) -> int:
-    parser = _parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in UNPORTED_COMMANDS:
-        raise _not_ported(f"the {args.cmd} subcommand",
-                          UNPORTED_COMMANDS[args.cmd])
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = _parser().parse_args(argv)
 
     if args.cmd == "convert-weights":
         return _convert_weights(args)
@@ -276,6 +289,24 @@ def main(argv=None) -> int:
         t = result.totals
         print(f"TP: {t['tp']}  FP: {t['fp']}  FN: {t['fn']}")
         print(f"Precision: {t['precision']:.2f}  Recall: {t['recall']:.2f}")
+        return 0
+
+    if args.cmd == "pointpillars-train":
+        from lidar_object_detection_tpu_torch.pipelines.pointpillars import (
+            train_pointpillars)
+        out = train_pointpillars(args.dataset, steps=args.steps,
+                                 frame_ids=args.frames,
+                                 checkpoint_dir=args.checkpoint_dir,
+                                 surround=args.surround,
+                                 aggregate=args.aggregate_sweeps,
+                                 max_points=args.max_points,
+                                 head=args.head, device=args.device)
+        evals = out["eval"]
+        last = (f"{out['loss_history'][-1]:.4f}" if out["loss_history"]
+                else "n/a (0 steps)")
+        print(f"final loss: {last}; eval "
+              f"recall={sum(e.matched for e in evals)}/"
+              f"{sum(e.total_gt for e in evals)}")
         return 0
 
     if args.cmd == "pointpillars-infer":

@@ -1,16 +1,28 @@
-"""Pure-LiDAR 3D detection (PointPillars): inference and its evaluation.
+"""Pure-LiDAR 3D detection (PointPillars): training, inference and their
+evaluation.
 
-Counterpart of the inference half of
-``lidar_object_detection_tpu/pipelines/pointpillars.py``: the BEV-IoU
-evaluation (lines 55-113, 385-437), the pose-aggregated multi-sweep
-frames and the GT-aware point cap (114-200), the checkpoint config check
-(558-626) and ``infer_pointpillars`` (628-712), which writes the same
-``detections_<frame>.json`` and ``scene_<frame>.ply`` files.  The
-network runs on ``device`` (the card by default), one frame per forward
-as the JAX function runs it; the SSD decode's suppression is the rotated
-NMS kernel there (``ops/rotated_nms.py``), or K5 with ``rotated_nms=False``.
-Training (``load_training_batch``, ``spatial_split``, ``pack_frames``,
-``train_pointpillars``) is ROADMAP Queue 1 item 7.
+Counterpart of ``lidar_object_detection_tpu/pipelines/pointpillars.py``:
+the training batches (``MAX_GT``, ``load_training_batch``, lines 30-52;
+``pack_frames``, 366-382), the BEV-IoU evaluation (55-113, 385-437), the
+pose-aggregated multi-sweep frames and the GT-aware point cap (114-200),
+the held-out split (``FrameSplit``, ``ego_positions``,
+``_gt_centers_world``, ``spatial_split``, 202-363), ``train_pointpillars``
+(438-555), the checkpoint config check (558-626) and
+``infer_pointpillars`` (628-712), which writes the same
+``detections_<frame>.json`` and ``scene_<frame>.ply`` files.  The network
+runs on ``device`` (the card by default); inference one frame per
+forward as the JAX function runs it, its SSD decode's suppression the
+rotated NMS kernel there (``ops/rotated_nms.py``), or K5 with
+``rotated_nms=False``; training one batch of frames per step
+(``models/pointpillars/train.py``).
+
+``train_pointpillars(checkpoint_dir=...)`` writes
+``pp_<head>_step<N>.msgpack``: flax's msgpack of ``(variables, opt_state,
+step)`` with a ``pillars_config_meta`` sidecar, the layout of the JAX
+package's surround runner (``examples/train_pointpillars_surround.py``),
+which both packages' ``pointpillars-infer`` read.  The JAX function writes
+an orbax directory there instead; orbax imports JAX, which the port does
+not.
 """
 
 from __future__ import annotations
@@ -36,7 +48,63 @@ from lidar_object_detection_tpu_torch.models.pointpillars.augment import (
 from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_matrix_np)
 from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
-    read_flax_msgpack)
+    read_flax_msgpack, write_flax_msgpack)
+
+
+MAX_GT = 64
+
+
+def load_training_batch(dataset: Kitti360Dataset,
+                        frame_ids: Optional[Sequence[int]] = None):
+    """Frames and their velodyne-frame 7-dof GT boxes in fixed shapes:
+    (batch, gt (B, MAX_GT, 7), gt_cls (B, MAX_GT) int32, gt_valid (B,
+    MAX_GT))."""
+    records = dataset.load_frames(frame_ids, require_image=False)
+    batch = dataset.make_batch(records)
+    b = batch.batch_size
+    gt = np.zeros((b, MAX_GT, 7), np.float32)
+    gt_cls = np.zeros((b, MAX_GT), np.int32)
+    gt_valid = np.zeros((b, MAX_GT), bool)
+    for i, rec in enumerate(records):
+        boxes7 = _frame_boxes7(dataset, rec)
+        g = min(len(boxes7), MAX_GT)
+        gt[i, :g] = boxes7[:g]
+        gt_valid[i, :g] = True
+    return batch, gt, gt_cls, gt_valid
+
+
+def _velo_corners(dataset: Kitti360Dataset, rec) -> np.ndarray:
+    """(G, 8, 3) float32 velodyne-frame corners of a frame record."""
+    cam_to_velo = torch.from_numpy(
+        dataset.transforms.cam_to_velo.astype(np.float32))
+    return transform_corners(
+        torch.from_numpy(rec.corners_cam0.astype(np.float32)),
+        cam_to_velo).numpy()
+
+
+def _frame_boxes7(dataset: Kitti360Dataset, rec) -> np.ndarray:
+    """(G, 7) float32 velodyne-frame GT boxes of a frame record."""
+    corners = torch.from_numpy(_velo_corners(dataset, rec))
+    return corners_to_boxes7(corners).numpy().reshape(-1, 7)
+
+
+def pack_frames(frames: Sequence, num_points: int, max_gt: int = MAX_GT):
+    """Fixed-shape batch arrays from (points, boxes7) frames: (pts
+    (B, P, 4), pv (B, P), gt (B, G, 7), gcls (B, G) int32, gv (B, G))."""
+    n = len(frames)
+    pts = np.zeros((n, num_points, 4), np.float32)
+    pv = np.zeros((n, num_points), bool)
+    gt = np.zeros((n, max_gt, 7), np.float32)
+    gcls = np.zeros((n, max_gt), np.int32)
+    gv = np.zeros((n, max_gt), bool)
+    for j, (p, bx) in enumerate(frames):
+        k = min(len(p), num_points)
+        pts[j, :k] = p[:k]
+        pv[j, :k] = True
+        g = min(len(bx), max_gt)
+        gt[j, :g] = bx[:g]
+        gv[j, :g] = True
+    return pts, pv, gt, gcls, gv
 
 
 @dataclasses.dataclass
@@ -157,6 +225,156 @@ def cap_points_protected(pts: np.ndarray, boxes7: np.ndarray,
     return pts[np.sort(np.concatenate([pidx, stride]))[:max_points]]
 
 
+@dataclasses.dataclass
+class FrameSplit:
+    """Held-out train/eval split over a drive's frames.
+
+    The split maximizes the ego separation between eval and train frames
+    and reports the leakage: ``eval_gt_overlapped`` counts the eval GT
+    boxes whose center falls inside the pillar grid of some train frame
+    (the same parked car may have been a training target).
+    """
+
+    train: List[int]
+    eval: List[int]
+    min_separation_m: float
+    eval_gt_total: int
+    eval_gt_overlapped: int
+    # per eval frame: bool over its GT boxes (annotation order), True where
+    # the box center is inside some train frame's grid footprint
+    overlap_masks: Dict[int, np.ndarray] = dataclasses.field(
+        default_factory=dict)
+
+    def summary(self) -> dict:
+        return {"train": self.train, "eval": self.eval,
+                "min_separation_m": round(self.min_separation_m, 1),
+                "eval_gt_total": self.eval_gt_total,
+                "eval_gt_overlapped": self.eval_gt_overlapped}
+
+
+def ego_positions(dataset: Kitti360Dataset,
+                  table=None) -> Dict[int, np.ndarray]:
+    """World-frame ego (velodyne origin) position per frame; ``table`` an
+    already-loaded pose table, else read from disk."""
+    from lidar_object_detection_tpu_torch.data.poses import (
+        load_pose_table, velo_to_world)
+    if table is None:
+        table = load_pose_table(dataset.root, dataset.seq)
+    v2r = dataset.transforms.velo_to_rect.astype(np.float64)
+    return {f: velo_to_world(table.lookup(f), v2r)[:3, 3]
+            for f in dataset.frame_ids()}
+
+
+def _gt_centers_world(dataset: Kitti360Dataset, frame_id: int,
+                      pose_table, v2r) -> np.ndarray:
+    """(G, 3) world-frame GT box centers of one frame."""
+    from lidar_object_detection_tpu_torch.data.poses import velo_to_world
+    rec = dataset.load_frame(frame_id, require_image=False)
+    if rec is None or rec.corners_cam0.shape[0] == 0:
+        return np.zeros((0, 3))
+    centers_velo = _velo_corners(dataset, rec).mean(axis=1)    # (G, 3)
+    t = velo_to_world(pose_table.lookup(frame_id), v2r)
+    return centers_velo @ t[:3, :3].T + t[:3, 3]
+
+
+def spatial_split(dataset: Kitti360Dataset,
+                  eval_frames: Optional[Sequence[int]] = None,
+                  n_eval: int = 2,
+                  grid=None,
+                  train_frames: Optional[Sequence[int]] = None) -> FrameSplit:
+    """Pick (or validate) a held-out eval set over the frames with GT.
+
+    Without ``eval_frames``, the eval subset of ``n_eval`` frames that
+    maximizes the least ego distance to a train frame (exhaustively up to
+    3 frames, else greedily).  ``grid`` (default: the surround grid) is
+    each train frame's reach for the leakage count.  ``train_frames`` pins
+    the training set instead of "every usable frame but the eval ones",
+    to score a trained checkpoint against frames it never saw.
+    """
+    import itertools
+
+    from lidar_object_detection_tpu_torch.data.poses import (
+        load_pose_table, velo_to_world)
+
+    if grid is None:
+        grid = PillarsConfig.kitti360_surround().grid
+    usable = [f for f in dataset.frame_ids()
+              if dataset.load_bboxes_exists(f)]
+    if train_frames is not None:
+        train_frames = sorted(set(train_frames))
+        unknown = [f for f in train_frames if f not in usable]
+        if unknown:
+            raise ValueError(f"train frames without GT boxes: {unknown}")
+        if not train_frames:
+            raise ValueError("train_frames is empty")
+    if eval_frames is None and not 0 < n_eval < len(usable):
+        raise ValueError(
+            f"n_eval={n_eval} must leave at least one training frame "
+            f"({len(usable)} usable frames with GT boxes)")
+    table = load_pose_table(dataset.root, dataset.seq)
+    pos = ego_positions(dataset, table)
+
+    def min_sep(ev):
+        base = train_frames if train_frames is not None else usable
+        tr = [f for f in base if f not in ev]
+        return min(float(np.linalg.norm(pos[e] - pos[t]))
+                   for e in ev for t in tr)
+
+    if eval_frames is None:
+        pool = ([f for f in usable if f not in train_frames]
+                if train_frames is not None else usable)
+        if n_eval > len(pool) - (1 if train_frames is None else 0):
+            raise ValueError(
+                f"n_eval={n_eval} does not fit the candidate pool "
+                f"({len(pool)} frames)")
+        if n_eval <= 3:
+            best = max(itertools.combinations(pool, n_eval), key=min_sep)
+        else:   # greedy farthest-point extension of the best pair
+            best = list(max(itertools.combinations(pool, 2), key=min_sep))
+            while len(best) < n_eval:
+                rest = [f for f in pool if f not in best]
+                best.append(max(rest, key=lambda f: min_sep(best + [f])))
+        eval_frames = sorted(best)
+    else:
+        eval_frames = sorted(eval_frames)
+        unknown = [f for f in eval_frames if f not in usable]
+        if unknown:
+            raise ValueError(f"eval frames without GT boxes: {unknown}")
+        if train_frames is not None:
+            leak = sorted(set(eval_frames) & set(train_frames))
+            if leak:
+                raise ValueError(f"eval frames also in train set: {leak}")
+    train = (train_frames if train_frames is not None
+             else [f for f in usable if f not in eval_frames])
+    if not train:
+        raise ValueError("eval set leaves no training frames")
+
+    # leakage: eval GT centers inside any train frame's grid footprint,
+    # checked in each train frame's velodyne coordinates
+    v2r = dataset.transforms.velo_to_rect.astype(np.float64)
+    train_inv = [np.linalg.inv(velo_to_world(table.lookup(t), v2r))
+                 for t in train]
+    total = overlapped = 0
+    masks: Dict[int, np.ndarray] = {}
+    for e in eval_frames:
+        centers = _gt_centers_world(dataset, e, table, v2r)
+        total += len(centers)
+        m = np.zeros(len(centers), bool)
+        for i, c in enumerate(centers):
+            for tinv in train_inv:
+                lc = tinv[:3, :3] @ c + tinv[:3, 3]
+                if (grid.x_range[0] <= lc[0] <= grid.x_range[1]
+                        and grid.y_range[0] <= lc[1] <= grid.y_range[1]):
+                    m[i] = True
+                    break
+        overlapped += int(m.sum())
+        masks[e] = m
+    return FrameSplit(train=train, eval=list(eval_frames),
+                      min_separation_m=min_sep(eval_frames),
+                      eval_gt_total=total, eval_gt_overlapped=overlapped,
+                      overlap_masks=masks)
+
+
 def bev_average_precision(dets, gts, iou_threshold: float = 0.5) -> float:
     """Continuous-interpolation BEV average precision at
     ``iou_threshold``: ``dets`` per frame a (boxes7 (D, 7), scores (D,))
@@ -199,6 +417,144 @@ def bev_average_precision(dets, gts, iou_threshold: float = 0.5) -> float:
         mpre[i] = max(mpre[i], mpre[i + 1])
     idx = np.where(mrec[1:] != mrec[:-1])[0]
     return float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+
+
+def write_pillars_checkpoint(path: str, trainer, cfg: PillarsConfig) -> None:
+    """flax's msgpack of ``(variables, opt_state, step)`` (the bytes of
+    ``flax.serialization.to_bytes`` of the JAX trainer's tuple, maps in
+    sorted key order) and the ``pillars_config_meta`` sidecar
+    ``<path>.json``: the layout of the JAX package's surround runner, read
+    by ``load_pillars_variables`` in both packages and by flax's
+    ``from_bytes`` against the JAX trainer's state."""
+    variables, opt_state, step = trainer.state.flax_tree()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    write_flax_msgpack(tmp, {"0": variables, "1": opt_state, "2": step})
+    os.replace(tmp, path)
+    with open(path + ".json", "w") as f:
+        json.dump(pillars_config_meta(cfg), f)
+
+
+def train_pointpillars(dataset_root: str, steps: int = 50,
+                       frame_ids: Optional[Sequence[int]] = None,
+                       cfg: Optional[PillarsConfig] = None,
+                       learning_rate: float = 2e-3,
+                       batch_frames: int = 4,
+                       log_every: int = 10,
+                       eval_score_threshold: float = 0.1,
+                       checkpoint_dir: Optional[str] = None,
+                       augment: bool = True,
+                       gt_sample_max: int = 12,
+                       seed: int = 0,
+                       eval_iou: float = 0.5,
+                       eval_exact: bool = True,
+                       surround: bool = False,
+                       aggregate: bool = False,
+                       max_points: Optional[int] = None,
+                       head: Optional[str] = None,
+                       device="cuda") -> Dict:
+    """Train on a drive's frames (an overfit and regression harness: the
+    bundled sample has 19 frames), on ``device``.
+
+    ``augment=True`` applies the Lang et al. section-3 recipe on the host
+    per step (GT paste, then global rotation, flip and scale,
+    ``models/pointpillars/augment.py``); the closing evaluation runs on
+    the un-augmented frames (the rotated-NMS decode with ``eval_exact``,
+    then ``evaluate_bev``).  ``surround=True`` selects
+    :meth:`PillarsConfig.kitti360_surround`, ``aggregate=True`` trains on
+    pose-aggregated multi-sweep clouds.  With ``checkpoint_dir`` the
+    final state goes to ``pp_<head>_step<steps>.msgpack`` there
+    (:func:`write_pillars_checkpoint`).
+
+    Returns dict: loss_history, trainer, eval (a
+    :class:`PillarsEvalResult` per evaluated frame), checkpoint (its path
+    or None).
+    """
+    from lidar_object_detection_tpu_torch.models.pointpillars.augment import (
+        GtDatabase, augment_frame)
+    from lidar_object_detection_tpu_torch.models.pointpillars.train import (
+        PillarsTrainer)
+
+    cfg = resolve_pillars_config(cfg, surround=surround, head=head)
+    shapes = ShapeConfig()
+    ds = Kitti360Dataset(dataset_root, shapes=shapes)
+    p_max = max_points or shapes.max_points
+    if aggregate:
+        targets = list(frame_ids or ds.frame_ids())
+        frames = load_aggregated_frames(ds, targets, grid=cfg.grid,
+                                        max_points=p_max)
+    else:
+        records = ds.load_frames(frame_ids, require_image=False)
+        frames = [(rec.points.astype(np.float32), _frame_boxes7(ds, rec))
+                  for rec in records]
+    db = GtDatabase.build(frames) if augment else None
+    rng = np.random.default_rng(seed)
+
+    def make_batch(sel, train: bool):
+        b = len(sel)
+        pts = np.zeros((b, p_max, 4), np.float32)
+        pv = np.zeros((b, p_max), bool)
+        gt = np.zeros((b, MAX_GT, 7), np.float32)
+        gcls = np.zeros((b, MAX_GT), np.int32)
+        gv = np.zeros((b, MAX_GT), bool)
+        for j, i in enumerate(sel):
+            p, bx = frames[i]
+            if train and augment:
+                room = max(0, MAX_GT - bx.shape[0])
+                p, bx = augment_frame(p, bx, db, rng,
+                                      max_samples=min(gt_sample_max, room))
+            if len(p) > p_max:
+                # a random subsample: the pasted points sit at the tail,
+                # where a plain truncation would drop exactly them
+                p = p[rng.choice(len(p), p_max, replace=False)]
+            n = len(p)
+            pts[j, :n] = p
+            pv[j, :n] = True
+            g = min(len(bx), MAX_GT)
+            gt[j, :g] = bx[:g]
+            gv[j, :g] = True
+        return pts, pv, gt, gcls, gv
+
+    trainer = PillarsTrainer(cfg, learning_rate=learning_rate, seed=seed,
+                             device=device)
+
+    n = len(frames)
+    history: List[float] = []
+    for step in range(steps):
+        sel = [(step * batch_frames + j) % n for j in range(batch_frames)]
+        metrics = trainer.train_step(*make_batch(sel, train=True))
+        loss = float(metrics["loss"])
+        history.append(loss)
+        if log_every and step % log_every == 0:
+            print(f"step {step}: loss={loss:.4f} "
+                  f"cls={float(metrics['cls']):.4f} "
+                  f"box={float(metrics['box']):.4f} "
+                  f"num_pos={int(metrics['num_pos'])}")
+    path = None
+    if checkpoint_dir:
+        path = os.path.join(checkpoint_dir,
+                            f"pp_{cfg.head}_step{steps}.msgpack")
+        write_pillars_checkpoint(path, trainer, cfg)
+
+    # evaluation on the (un-augmented) training frames
+    eval_sel = list(range(min(batch_frames, n)))
+    pts, pv, gt, _, gv = make_batch(eval_sel, train=False)
+    out = trainer.apply(pts, pv)
+    results = []
+    for i in eval_sel:
+        one = {k: v[i] for k, v in out.items()}
+        # the harness's threshold: the focal loss's confidence ramps slowly
+        # on tiny datasets; production decoding uses 0.3
+        with torch.no_grad():
+            det = decode_predictions(one, cfg,
+                                     score_threshold=eval_score_threshold,
+                                     rotated_nms=eval_exact)
+        det = {k: v.cpu().numpy() for k, v in det.items()}
+        results.append(evaluate_bev(det, gt[i], gv[i],
+                                    iou_threshold=eval_iou,
+                                    exact=eval_exact))
+    return {"loss_history": history, "trainer": trainer, "eval": results,
+            "checkpoint": path}
 
 
 def resolve_pillars_config(cfg: Optional[PillarsConfig] = None,

@@ -276,6 +276,28 @@ def test_csv_eval_on_card_writes_the_cpu_rows(dev, tmp_path):
     assert card == cpu and len(card.splitlines()) > 5
 
 
+def test_mask_kernels_at_odd_widths_equal_twins(dev):
+    """K3, K2 (plain cut and the serving guard) and the peak pass on
+    ``chip_smoke.odd_width_cases`` (KITTI's 1242 and 1241 and a width of 3
+    mod 4, boxes on the last quad's columns and clamped to the width):
+    counts, words and peak bits equal the twins'."""
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    rng = np.random.default_rng(5)
+    for name, (h, w, arrays) in chip_smoke.odd_width_cases(rng).items():
+        table, boxes, valid = (torch.from_numpy(a).to(dev) for a in arrays)
+        ops = ma.prepare_operands(table, boxes, valid, h, w, 0.99)
+        counts = ma.count_above_cuda(ops)
+        assert torch.equal(counts, ma.count_above_plain(ops)), name
+        for guard in (None, ma.Guard(counts, 0.5, 200)):
+            assert torch.equal(ma.assemble_masks_cuda(ops, guard),
+                               ma.assemble_masks_plain(ops, guard)), name
+        assert torch.equal(ma.peak_cuda(ops).view(torch.int32),
+                           ma.peak_plain(ops).view(torch.int32)), name
+        if name.startswith(("dense", "last quad")):
+            assert int(counts.sum()) > 0, name
+
+
 def test_peak_pass_equals_twin(dev):
     """The relative cut's peak pass (``mask_kernel<kPeak>``) against its
     twin on ``chip_smoke.mask_cases``: float bits equal, one launch."""

@@ -1,8 +1,10 @@
-"""The rotated-NMS kernel (``csrc/rotated_nms.cu``) and the PointPillars
-decode on a card, against their plain twins, and PointPillars inference
-repeating its bits on the card (the pillar sums, the heads, and the
-``pointpillars-infer`` CLI's JSON and PLY files byte for byte).  Every
-test here is marked ``cuda`` and skips where
+"""The rotated-NMS kernel and the training assigner's IoU kernel
+(``csrc/rotated_nms.cu``) and the PointPillars decode on a card, against
+their plain twins; PointPillars inference repeating its bits on the card
+(the pillar sums, the heads, and the ``pointpillars-infer`` CLI's JSON and
+PLY files byte for byte); a training step on the card against the same
+step on the CPU, and ``pointpillars-train`` writing the same checkpoint
+bytes twice.  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is False.
 
 This file imports nothing of JAX, Flax or the JAX package, so that it
@@ -211,3 +213,152 @@ def test_pointpillars_decode_on_card_equals_cpu(dev, head):
         chip_smoke.same_detections(got, ref, f"{head} {rotated}", 1e-4,
                                    1e-6)
         assert int(got["valid"].sum()) >= 1
+
+
+def test_rotated_iou_pairs_kernel_equals_twin(dev):
+    """The assigner's IoU kernel on ``chip_smoke.pair_cases`` (heavy
+    overlap with invalid GTs, degenerate boxes): IoUs within 1e-5 of the
+    twin's (the shoelace summed in another order), 0 for invalid GTs, one
+    launch each; some degenerate pairs take the ring routine (printed with
+    ``-s``)."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import rotated_iou_pairs as rip
+
+    cases = chip_smoke.pair_cases(torch, dev, np.random.default_rng(8), None)
+    for name, (anchors, idx, gt, gv) in cases.items():
+        before = kernel_lib.LAUNCHES["rotated_iou_pairs"]
+        got, slow = rip.rotated_iou_pairs_cuda(anchors, idx, gt, gv,
+                                               count_slow=True)
+        assert kernel_lib.LAUNCHES["rotated_iou_pairs"] == before + 1
+        ref = rip.rotated_iou_pairs_plain(anchors, idx, gt)
+        err = float((got - ref)[gv].abs().max())
+        print(f"{name}: within {err:.3g}, ring routine {int(slow)} pairs")
+        assert err <= chip_smoke.PP_IOU_TOL, name
+        assert (got[~gv] == 0).all()
+        if name == "degenerate":
+            assert int(slow) > 0
+        else:
+            assert int((got >= 0.6).sum()) > 0
+    # candidate_ious dispatches by device: the twin on the CPU
+    anchors, idx, gt, gv = cases["heavy overlap"]
+    before = dict(kernel_lib.LAUNCHES)
+    cpu = rip.candidate_ious(anchors.cpu(), idx.cpu(), gt.cpu(), gv.cpu())
+    assert kernel_lib.LAUNCHES == before
+    card = rip.candidate_ious(anchors, idx, gt, gv)
+    assert float((card.cpu() - cpu)[gv.cpu()].abs().max()) <= \
+        chip_smoke.PP_IOU_TOL
+
+
+@pytest.mark.parametrize("head", ["ssd", "center"])
+def test_training_step_on_card_matches_cpu(dev, head):
+    """One full-width training step (two frames of the synthetic street
+    on a 64 x 64 grid) from the committed checkpoint's variables on the
+    card and on the CPU (``chip_smoke.compare_steps``): num_pos exact,
+    loss parts within 1e-3 relative, every gradient tensor within 2e-3
+    of its largest entry (``chip_smoke.PP_STEP_GRAD_TOL``; the CPU's own
+    spread under one-ulp changes of the weights and the points is
+    printed with ``-s``; from random weights the step's gradients are
+    too ill-conditioned in float32 for such a check: the pillars'
+    max-pool routes them by near ties); the SSD step launches
+    the assigner's kernel once, the center step none; two card steps give
+    the same bits."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarGridConfig, PillarsConfig, pillars_state_from_flax)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    grid = PillarGridConfig(x_range=(-10.24, 10.24), y_range=(-10.24, 10.24),
+                            z_range=(-5.0, 1.5), pillar_size=0.32)
+    cfg = PillarsConfig(grid=grid, head=head)
+    rng = np.random.default_rng(6)
+    pts, cars = chip_smoke.pillars_world(rng, 2 * 16384)
+    near = (np.abs(cars[:, 0]) < 9) & (np.abs(cars[:, 1]) < 9)
+    gt = np.zeros((2, 16, 7), np.float32)
+    gv = np.zeros((2, 16), bool)
+    gt[:, :near.sum()] = cars[near]
+    gv[:, :near.sum()] = True
+    points = np.stack([pts[:16384], pts[16384:]])
+    batch = (points, np.ones(points.shape[:2], bool), gt,
+             np.zeros((2, 16), np.int32), gv)
+    state = pillars_state_from_flax(read_flax_msgpack(
+        chip_smoke.PP_CKPTS[head])["0"])
+    result = chip_smoke.compare_steps(torch, cfg, state, batch, dev)
+    print(f"{head}: loss parts within {result[2]:.3g}, gradients within "
+          f"{result[3]:.3g}, the CPU's spread {result[4]:.3g}")
+    assert chip_smoke.steps_agree(*result[:4])
+    assert result[0]["num_pos"] >= 1
+    runs = []
+    for _ in range(2):
+        before = dict(kernel_lib.LAUNCHES)
+        runs.append(chip_smoke.training_step_grads(torch, cfg, state, batch,
+                                                   dev))
+        launched = {k: kernel_lib.LAUNCHES[k] - before[k] for k in before}
+        want = {k: 0 for k in before}
+        if head == "ssd":
+            want["rotated_iou_pairs"] = 1
+        assert launched == want
+    assert runs[0][0] == runs[1][0]
+    assert chip_smoke.grad_spread(runs[1][1], runs[0][1]) == 0.0
+
+
+def test_cli_training_runs_write_equal_checkpoints(dev, tmp_path):
+    """``pointpillars-train --surround --aggregate-sweeps`` on the card
+    (full width, the surround grid, 2 steps of 4 frames of 32768 points)
+    run twice: byte-equal checkpoints and sidecars, the assigner's kernel
+    once a step and the evaluation's rotated NMS once a frame; then
+    ``pointpillars-infer --ckpt`` reads what was written."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    root = str(tmp_path / "tree")
+    chip_smoke.pillars_tree(root, np.random.default_rng(2))
+    for run in ("a", "b"):
+        kernel_lib.reset_launches()
+        chip_smoke.run_cli(["pointpillars-train", "--dataset", root,
+                            "--surround", "--aggregate-sweeps", "--head",
+                            "ssd", "--steps", "2", "--max-points", "32768",
+                            "--checkpoint-dir", str(tmp_path / run),
+                            "--device", str(dev)])
+        assert kernel_lib.LAUNCHES["rotated_iou_pairs"] == 2
+        assert kernel_lib.LAUNCHES["rotated_nms"] == len(chip_smoke.PP_FRAMES)
+    assert chip_smoke.same_files(str(tmp_path / "b"), str(tmp_path / "a"),
+                                 "the second training run") == 2
+    text = chip_smoke.run_cli([
+        "pointpillars-infer", "--dataset", root, "--ckpt",
+        str(tmp_path / "a" / "pp_ssd_step2.msgpack"), "--surround",
+        "--aggregate-sweeps", "--head", "ssd", "--max-points", "32768",
+        "--output", str(tmp_path / "infer"), "--device", str(dev)])
+    assert text.startswith(f"{len(chip_smoke.PP_FRAMES)} frames")
+
+
+def test_pillar_ids_at_pillar_edges_equal_cpu(dev):
+    """Points a few ulps either side of pillar edges get the CPU's pillar
+    ids and features on the card: the pillar index divides by the pillar
+    size as IEEE division (``voxelize.true_div``), where PyTorch's CUDA
+    kernel would multiply by the reciprocal of a Python-scalar divisor and
+    put some of them in the next pillar (-16.000011 on the surround grid
+    was one)."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, pillar_ids, point_features)
+
+    grid = PillarsConfig.kitti360_surround().grid
+    rng = np.random.default_rng(9)
+    edges = grid.x_range[0] + grid.pillar_size * rng.integers(1, grid.nx,
+                                                              4096)
+    x = edges.astype(np.float32)
+    for _ in range(4):       # up to 4 ulps either way
+        step = rng.integers(-1, 2, 4096)
+        x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(x, np.float32(-np.inf)),
+                              x)).astype(np.float32)
+    pts = np.stack([x, x[::-1].copy(), np.full(4096, -1.7, np.float32),
+                    rng.uniform(0, 1, 4096).astype(np.float32)], 1)
+    pts[0, :2] = -16.000011444091797
+    points = torch.from_numpy(pts)
+    valid = torch.ones(4096, dtype=torch.bool)
+    ids, ok = pillar_ids(points, valid, grid)
+    ids_card, ok_card = pillar_ids(points.to(dev), valid.to(dev), grid)
+    assert torch.equal(ids_card.cpu(), ids) and torch.equal(ok_card.cpu(), ok)
+    feats, _, _ = point_features(points, valid, grid)
+    feats_card, _, _ = point_features(points.to(dev), valid.to(dev), grid)
+    assert float((feats_card.cpu() - feats).abs().max()) < 1e-4

@@ -89,10 +89,12 @@ def test_headline_stream_on_card(dev, tmp_path):
         torch, dev, np.random.default_rng(1), detector,
         os.path.join(str(tmp_path), "kitti360"))
     # the serving path's kernels; V5's solver, the PointPillars rotated
-    # NMS and the relative cut's peak pass never run here
+    # NMS, the relative cut's peak pass and the training assigner's IoU
+    # never run here
     assert launches == {"inside_counts": 1, "mask_assemble": 1,
                         "mask_count": 1, "nms": 1, "lap": 0,
-                        "rotated_nms": 0, "mask_peak": 0}
+                        "rotated_nms": 0, "mask_peak": 0,
+                        "rotated_iou_pairs": 0}
     assert 0.2 < times["kept_share"] < 0.5
     assert times["frames_many"] == 32
     assert times["launches_many"] == {k: 4 * n for k, n in launches.items()}

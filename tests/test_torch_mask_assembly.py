@@ -436,20 +436,41 @@ def test_batch_launch_equals_launch_per_frame():
 
 
 @pytest.mark.cuda
-def test_wrapper_raises_on_width_not_multiple_of_4_and_cpu_tensors(rng):
+@pytest.mark.parametrize("width", [W - 1, W - 2, W - 3])
+def test_kernels_serve_width_not_multiple_of_4(rng, width):
+    """K3, K2 (plain cut and guarded) and the peak pass at a width of 1, 2
+    and 3 mod 4 equal the twins, one launch each."""
+    dev = _card()
+    table, boxes, valid = _small_case(rng)
+    boxes[:3] = [[width - 3, 0, width, H], [width - 1.5, 5, width + 9, 40],
+                 [0, 0, width + 100, H + 1]]
+    ops = ma.prepare_operands(_t(table)[None].to(dev), _t(boxes)[None].to(dev),
+                              _t(valid)[None].to(dev), H, width, 0.5)
+    before = dict(kernel_lib.LAUNCHES)
+    counts = ma.count_above_cuda(ops)
+    assert torch.equal(counts, ma.count_above_plain(ops))
+    assert torch.equal(ma.assemble_masks_cuda(ops),
+                       ma.assemble_masks_plain(ops))
+    guard = ma.Guard(counts, 0.2, 40)
+    assert torch.equal(ma.assemble_masks_cuda(ops, guard),
+                       ma.assemble_masks_plain(ops, guard))
+    assert torch.equal(ma.peak_cuda(ops).view(torch.int32),
+                       ma.peak_plain(ops).view(torch.int32))
+    assert int(counts.sum()) > 0
+    assert kernel_lib.LAUNCHES["mask_count"] == before["mask_count"] + 1
+    assert kernel_lib.LAUNCHES["mask_assemble"] == \
+        before["mask_assemble"] + 2
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_on_cpu_tensors_and_wrong_shapes(rng):
     dev = _card()
     table, boxes, valid = _small_case(rng)
     cpu = ma.prepare_operands(_t(table)[None], _t(boxes)[None],
                               _t(valid)[None], H, W, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
         ma.count_above_cuda(cpu)
-    odd = ma.prepare_operands(_t(table)[None].to(dev), _t(boxes)[None].to(dev),
-                              _t(valid)[None].to(dev), H, W - 2, 0.5)
     before = dict(kernel_lib.LAUNCHES)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        ma.assemble_masks_cuda(odd)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        ma.count_above_cuda(odd)
     ops = ma.prepare_operands(_t(table)[None].to(dev), _t(boxes)[None].to(dev),
                               _t(valid)[None].to(dev), H, W, 0.5)
     with pytest.raises(ValueError, match="shape"):

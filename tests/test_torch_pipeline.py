@@ -194,17 +194,6 @@ def test_cli_writes_what_the_function_api_writes(tree, tmp_path, pinned):
         == _parts(os.path.join(api_out, "master_car_statistics.csv.xlsx"))
 
 
-@pytest.mark.parametrize("argv", [
-    ["pointpillars-train", "--dataset", "x", "--head", "center",
-     "--aggregate-sweeps"],
-    ["pointpillars-train", "--dataset", "x", "--steps", "2"],
-])
-def test_cli_refuses_what_is_not_ported(tree, argv):
-    argv = [tree if a == "TREE" else a for a in argv]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item"):
-        cli.main(argv)
-
-
 @pytest.mark.parametrize("argv,reason", [
     (["depth-maps", "--dataset", "TREE", "--detector", "yolo", "--weights",
       "ORBAX_DIR", "--device", "cpu"], "orbax.checkpoint, which imports JAX"),

@@ -339,14 +339,6 @@ def test_committed_network_matches_jax_on_small_grid(rng, committed, head):
     assert logits.std() > 0.5
 
 
-def test_training_is_refused(rng):
-    _, tcfg = configs(TINY_GRID, **TINY)
-    pts, valid = random_points(rng, 1, 100, TINY_GRID)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpp.PointPillars(tcfg)(torch.from_numpy(pts),
-                               torch.from_numpy(valid), train=True)
-
-
 # ---------------------------------------------------------------------------
 # decoding, fed the same raw heads
 # ---------------------------------------------------------------------------

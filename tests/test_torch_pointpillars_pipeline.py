@@ -24,6 +24,7 @@ import json
 import os
 import warnings
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -38,6 +39,7 @@ from lidar_object_detection_tpu.pipelines import cli as jcli
 from lidar_object_detection_tpu.pipelines import pointpillars as jpipe
 from lidar_object_detection_tpu_torch.data import poses as tposes
 from lidar_object_detection_tpu_torch.data.kitti360 import Kitti360Dataset
+from lidar_object_detection_tpu_torch.models import pointpillars as tpp
 from lidar_object_detection_tpu_torch.models.pointpillars import (
     PillarGridConfig, PillarsConfig, boxes7_to_corners)
 from lidar_object_detection_tpu_torch.ops import kernel_lib
@@ -306,3 +308,212 @@ def test_checkpoint_sidecar_is_checked_as_in_jax(tmp_path):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tpipe.load_pillars_variables(bare)
+
+
+# ---------------------------------------------------------------------------
+# training: batches, the split, train_pointpillars and pointpillars-train
+# ---------------------------------------------------------------------------
+
+TINY = dict(embed_dim=16, backbone_channels=(16, 32, 64),
+            backbone_layers=(1, 1, 1), up_channels=16)
+TRAIN_STEPS = 2
+
+
+def tiny_configs(head, assign_iou="aabb"):
+    """The small grid at the TINY widths, in both packages."""
+    return (JaxConfig(grid=JaxGrid(**SMALL_GRID), head=head,
+                      assign_iou=assign_iou, **TINY),
+            PillarsConfig(grid=PillarGridConfig(**SMALL_GRID), head=head,
+                          assign_iou=assign_iou, **TINY))
+
+
+def test_training_batch_pack_and_split_match_jax(tree, tmp_path):
+    """``load_training_batch`` (points, masks and validity exact, GT boxes
+    within 2e-5: a float32 corner transform in another library),
+    ``pack_frames`` on the same frames (bit for bit) and ``spatial_split``
+    (eval picks, separations, leakage counts and masks exact; the same
+    refusals) on a tree in ``tmp_path``."""
+    jds, tds = JaxDataset(tree), Kitti360Dataset(tree)
+    tb, tgt, tcls, tv = tpipe.load_training_batch(tds, [100, 103])
+    jb, jgt, jcls, jv = jpipe.load_training_batch(jds, [100, 103])
+    np.testing.assert_array_equal(tb.points, jb.points)
+    np.testing.assert_array_equal(tb.point_valid, jb.point_valid)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tcls, jcls)
+    np.testing.assert_allclose(tgt, jgt, rtol=0, atol=2e-5)
+    assert tgt.shape == (2, tpipe.MAX_GT, 7) == (2, jpipe.MAX_GT, 7)
+    assert tv.sum() == 8
+    frames = jpipe.load_aggregated_frames(jds, FRAMES, max_points=MAX_POINTS)
+    for got, ref in zip(tpipe.pack_frames(frames, 5000, 3),
+                        jpipe.pack_frames(frames, 5000, 3), strict=True):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    grid = PillarGridConfig(**SMALL_GRID)
+    jgrid = JaxGrid(**SMALL_GRID)
+    for kw in (dict(n_eval=1), dict(eval_frames=[101]),
+               dict(n_eval=1, train_frames=[100]),
+               dict(eval_frames=[100, 103])):
+        got = tpipe.spatial_split(tds, grid=grid, **kw)
+        ref = jpipe.spatial_split(jds, grid=jgrid, **kw)
+        assert got.summary() == ref.summary()
+        assert got.min_separation_m == ref.min_separation_m > 0
+        assert got.overlap_masks.keys() == ref.overlap_masks.keys()
+        for k in ref.overlap_masks:
+            np.testing.assert_array_equal(got.overlap_masks[k],
+                                          ref.overlap_masks[k])
+    got, ref = tpipe.spatial_split(tds), jpipe.spatial_split(jds)
+    assert got.summary() == ref.summary()
+    assert got.eval_gt_overlapped == got.eval_gt_total == 8
+    for kw, match in ((dict(n_eval=3), "n_eval"),
+                      (dict(eval_frames=[102]), "without GT"),
+                      (dict(eval_frames=[100], train_frames=[100]),
+                       "also in train")):
+        for split, ds in ((tpipe.spatial_split, tds),
+                          (jpipe.spatial_split, jds)):
+            with pytest.raises(ValueError, match=match):
+                split(ds, **kw)
+
+
+def test_train_pointpillars_matches_jax(tree, monkeypatch, capsys):
+    """``train_pointpillars`` (aggregated sweeps, augmentation on, 2 steps
+    of 4 frames, the closing rotated-NMS evaluation) in both packages
+    from JAX's initial variables and the same aggregated frames (the
+    port's loader is held above): every batch bit for bit, the loss
+    history within 1e-4 relative (a float32 network's sums in another
+    order), the logged lines' step numbers and num_pos equal, and the
+    evaluation's counts equal."""
+    jcfg, tcfg = tiny_configs("ssd")
+    batches = {"jax": [], "port": []}
+    init = {}
+
+    class JaxTrainer(jpipe.PillarsTrainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            init["variables"] = self.state.variables
+
+        def train_step(self, *arrays):
+            batches["jax"].append([np.array(a) for a in arrays])
+            return super().train_step(*arrays)
+
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        train as ttrain)
+
+    def port_init(model, seed):
+        model.load_state_dict(tpp.pillars_state_from_flax(
+            jax.tree_util.tree_map(np.asarray, init["variables"])))
+        return model
+
+    real_step = ttrain.PillarsTrainer.train_step
+
+    def port_step(self, *arrays):
+        batches["port"].append([np.array(a) for a in arrays])
+        return real_step(self, *arrays)
+
+    monkeypatch.setattr(jpipe, "PillarsTrainer", JaxTrainer)
+    monkeypatch.setattr(ttrain, "initialize", port_init)
+    monkeypatch.setattr(ttrain.PillarsTrainer, "train_step", port_step)
+    kw = dict(steps=TRAIN_STEPS, aggregate=True, max_points=MAX_POINTS,
+              log_every=1)
+    ref = jpipe.train_pointpillars(tree, cfg=jcfg, **kw)
+    jax_log = capsys.readouterr().out
+    frames = jpipe.load_aggregated_frames(JaxDataset(tree), list(FRAMES),
+                                          grid=jcfg.grid,
+                                          max_points=MAX_POINTS)
+    monkeypatch.setattr(tpipe, "load_aggregated_frames",
+                        lambda *a, **k: frames)
+    got = tpipe.train_pointpillars(tree, cfg=tcfg, device="cpu", **kw)
+    port_log = capsys.readouterr().out
+    assert len(batches["port"]) == len(batches["jax"]) == TRAIN_STEPS
+    for gb, rb in zip(batches["port"], batches["jax"]):
+        for g, r in zip(gb, rb, strict=True):
+            assert g.dtype == r.dtype
+            np.testing.assert_array_equal(g, r)
+    assert batches["port"][0][2].shape == (4, tpipe.MAX_GT, 7)
+    # the augmentation moved the boxes (rotation, flip, scale)
+    gt0 = batches["port"][0][2][0, :4]
+    assert not np.allclose(gt0, frames[0][1], atol=1e-2)
+    np.testing.assert_allclose(got["loss_history"], ref["loss_history"],
+                               rtol=1e-4, atol=0)
+    num_pos = lambda log: [line.split("num_pos=")[1] for line in
+                           log.splitlines() if "num_pos=" in line]
+    assert num_pos(port_log) == num_pos(jax_log) and len(num_pos(jax_log)) \
+        == TRAIN_STEPS
+    counts = lambda res: [(e.matched, e.total_gt, e.total_det)
+                          for e in res["eval"]]
+    assert counts(got) == counts(ref)
+    assert sum(e.total_gt for e in got["eval"]) == 3 * 4
+    assert got["trainer"].state.step == TRAIN_STEPS
+    assert got["checkpoint"] is None
+
+
+@pytest.mark.parametrize("head", ["ssd", "center"])
+def test_cli_pointpillars_train_writes_checkpoint_both_packages_read(
+        tree, tmp_path, monkeypatch, capsys, head):
+    """``pointpillars-train --surround --aggregate-sweeps --checkpoint-dir
+    --device cpu`` (the surround preset cut to the small grid and TINY
+    widths in both packages) prints the JAX CLI's final line and writes
+    ``pp_<head>_step2.msgpack`` and its sidecar, which the port's
+    ``pointpillars-infer --ckpt``, JAX's ``load_pillars_variables`` and
+    flax's ``from_bytes`` against JAX's trainer state all read; flax's
+    ``to_bytes`` of what it restored gives the file's bytes back."""
+    from flax import serialization
+    from lidar_object_detection_tpu.parallel.mesh import make_mesh
+
+    jcfg, tcfg = tiny_configs(head, assign_iou="rotated")
+    for config, cfg in ((JaxConfig, jcfg), (PillarsConfig, tcfg)):
+        monkeypatch.setattr(config, "kitti360_surround",
+                            staticmethod(lambda c=cfg: dataclasses.replace(
+                                c, head="ssd")))
+    ckpt_dir = str(tmp_path / "ckpt")
+    argv = ["pointpillars-train", "--dataset", tree, "--surround",
+            "--aggregate-sweeps", "--head", head, "--steps",
+            str(TRAIN_STEPS), "--max-points", str(MAX_POINTS),
+            "--checkpoint-dir", ckpt_dir, "--device", "cpu"]
+    before = dict(kernel_lib.LAUNCHES)
+    assert cli.main(argv) == 0
+    assert kernel_lib.LAUNCHES == before
+    text = capsys.readouterr().out.splitlines()
+    assert text[-1].startswith("final loss: ") and \
+        text[-1].endswith("/12") and "eval recall=" in text[-1]
+    path = os.path.join(ckpt_dir, f"pp_{head}_step{TRAIN_STEPS}.msgpack")
+    assert sorted(os.listdir(ckpt_dir)) == sorted(
+        [os.path.basename(path), os.path.basename(path) + ".json"])
+    with open(path + ".json") as f:
+        assert json.load(f) == jpipe.pillars_config_meta(jcfg)
+
+    # the port's reader and pointpillars-infer
+    variables, step = tpipe.load_pillars_variables(path, expect_cfg=tcfg)
+    assert step == TRAIN_STEPS
+    out_dir = str(tmp_path / "infer")
+    assert cli.main(["pointpillars-infer", "--dataset", tree, "--ckpt", path,
+                     "--surround", "--aggregate-sweeps", "--head", head,
+                     "--max-points", str(MAX_POINTS), "--score-threshold",
+                     "0.05", "--output", out_dir, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(f"{len(FRAMES)} frames")
+    assert len(os.listdir(out_dir)) == len(FRAMES)
+
+    # JAX's readers
+    jvars, jstep = jpipe.load_pillars_variables(path, expect_cfg=jcfg)
+    assert jstep == TRAIN_STEPS
+    flat = dict(jax.tree_util.tree_flatten_with_path(variables)[0])
+    for p, v in jax.tree_util.tree_flatten_with_path(jvars)[0]:
+        np.testing.assert_array_equal(np.asarray(v), flat[p])
+    trainer = jpipe.PillarsTrainer(jcfg, make_mesh(jax.devices()[:1]),
+                                   num_points=MAX_POINTS)
+    template = (trainer.state.variables, trainer.state.opt_state,
+                trainer.state.step)
+    with open(path, "rb") as f:
+        data = f.read()
+    v, o, s = serialization.from_bytes(template, data)
+    assert int(s) == TRAIN_STEPS and int(o[0].count) == TRAIN_STEPS
+    assert jax.tree_util.tree_structure(v) == \
+        jax.tree_util.tree_structure(template[0])
+    assert jax.tree_util.tree_structure(o) == \
+        jax.tree_util.tree_structure(template[1])
+    for p, x in jax.tree_util.tree_flatten_with_path(v)[0]:
+        np.testing.assert_array_equal(np.asarray(x), flat[p])
+    moved = [not np.array_equal(np.asarray(a), np.asarray(b)) for a, b in
+             zip(jax.tree_util.tree_leaves(o[0].mu),
+                 jax.tree_util.tree_leaves(template[1][0].mu))]
+    assert all(moved)
+    assert serialization.to_bytes(jax.device_get((v, o, s))) == data
