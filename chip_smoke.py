@@ -108,7 +108,19 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    candidate pairs (4 x 64 x 512), a seeded heavy overlap and degenerate
    boxes (some pairs through the ring routine), IoUs within 1e-5, the
    step's assignment replayed from the kernel's IoUs, and timed;
-10. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
+10. trains YOLO11n-seg at full width (80 classes, 192 x 640, 32 targets
+   a frame) on a KITTI-360 tree of the two committed frames and their
+   mirrors, each scan built around the n checkpoint's detections: the
+   distillation runner's labels built on the card equal the CPU's; one
+   step from the committed n variables on the card against the CPU's
+   (loss parts, gradients within a fixed share of each tensor's largest
+   entry; the CPU's one-ulp spread printed beside); the runner's ``main``
+   twice at ``--steps 8 --ema-decay 0.9``, byte-equal checkpoints, its
+   closing evaluation launching K5 and K2 once each and a step nothing;
+   ``--eval-only`` with the same TP, FP and FN on the card and the CPU;
+   CUDA-event times of the n step (forward, loss, backward, AdamW, EMA)
+   and of the committed x variables' step, and a traced n step;
+11. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
    images cut from the committed frames at KITTI's shapes (375 x 1242,
    370 x 1224, 376 x 1241), labelled with the n checkpoint's cars and a
    KITTI-like calib: the CLI's ``kitti2d`` on the card (YOLO11x's
@@ -120,7 +132,7 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
    the per-image forward and decode times (CUDA events) and the CLI's
    host seconds;
-11. decodes the n float32 detector's raw outputs on the committed frames
+12. decodes the n float32 detector's raw outputs on the committed frames
    (B = 4) in the modes the serving path does not run -- logit at 0.9,
    relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
    ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
@@ -129,12 +141,13 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
-12. prints one JSON line of the kernels (times, bounds, launches, errors;
+13. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
    PointPillars runs, ``pointpillars_train_launches`` of the four
-   training runs, ``kitti2d_launches`` of the card's ``kitti2d`` run and
-   ``relative_decode_launches``), the card's name and power limit, and
+   training runs, ``yolo_train_launches`` of a YOLO step and of the
+   runner's first run, ``kitti2d_launches`` of the card's ``kitti2d`` run
+   and ``relative_decode_launches``), the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -1497,18 +1510,19 @@ def csv_eval_phase(torch, dev, smi, images, scenes, tmp):
     return launches, root
 
 
-def run_cli(argv):
-    """Run the port's CLI, echo its output, and return the output; a
-    non-zero exit raises."""
+def run_cli(argv, entry=None):
+    """Run the port's CLI (or another ``main(argv)``, ``entry``) in this
+    process, echo its output, and return the output; a non-zero exit
+    raises."""
     from lidar_object_detection_tpu_torch.pipelines import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        code = cli.main(argv)
+        code = (entry or cli.main)(argv)
     text = buf.getvalue()
     print(text, end="", flush=True)
     if code != 0:
-        raise AssertionError(f"the CLI exited {code}: {argv}")
+        raise AssertionError(f"{argv} exited {code}")
     return text
 
 
@@ -2140,14 +2154,16 @@ def training_step_grads(torch, cfg, state, batch, device, nudge=None):
             pillars_flax_from_state(grads)["params"])
 
 
-def grad_spread(got, ref):
+def grad_spread(got, ref, skip=(), path=()):
     """The largest difference of two gradient trees, in units of each
-    tensor's largest entry in ``ref``."""
+    tensor's largest entry in ``ref``; the leaves whose "/"-joined paths
+    are in ``skip`` are left out."""
     worst = 0.0
     for key, value in ref.items():
+        where = (*path, key)
         if isinstance(value, dict):
-            worst = max(worst, grad_spread(got[key], value))
-        else:
+            worst = max(worst, grad_spread(got[key], value, skip, where))
+        elif "/".join(where) not in skip:
             scale = max(float(np.abs(value).max()), 1e-30)
             worst = max(worst, float(np.abs(got[key] - value).max()) / scale)
     return worst
@@ -2213,6 +2229,7 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
     Returns the runs' launches, a summary, and the step's real candidate
     pairs on the card (anchors, top-k indices, GTs, GT validity)."""
     from lidar_object_detection_tpu_torch.data import Kitti360Dataset
+    from lidar_object_detection_tpu_torch.models.common import repeatable
     from lidar_object_detection_tpu_torch.models.pointpillars import (
         PillarsConfig, pillars_state_from_flax)
     from lidar_object_detection_tpu_torch.models.pointpillars import (
@@ -2316,7 +2333,7 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
         return tr.model(b[0], b[1], train=True)
 
     def forward_deterministic():
-        with ptrain.repeatable():
+        with repeatable():
             return forward()
 
     times = {
@@ -2354,6 +2371,348 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
     print(json.dumps({"pointpillars_train": summary}), flush=True)
     phase("PointPillars training", t0)
     return launches, summary, (anchors, idx, gt, gv)
+
+
+# ---------------------------------------------------------------------------
+# YOLO11-seg training and the distillation runner
+# ---------------------------------------------------------------------------
+
+# one full-width float32 n step at B = 4 from the committed variables, card
+# against the CPU port: loss parts within YOLO_STEP_LOSS_RTOL relative, and
+# every gradient tensor within YOLO_STEP_GRAD_TOL of its largest entry on
+# the CPU, but YOLO_ZERO_GRAD_LEAVES.  The limits are PointPillars'
+# (PP_STEP_*): the port on the CPU agrees with JAX's step within 2.3e-4 of
+# each tensor's largest (tests/test_torch_yolo_train.py).  The CPU's
+# one-ulp spread (every weight and every input pixel moved one ulp) is
+# printed beside them and gates nothing
+YOLO_STEP_LOSS_RTOL, YOLO_STEP_GRAD_TOL = PP_STEP_LOSS_RTOL, PP_STEP_GRAD_TOL
+# The biases of three BatchNorms of layer 10 (C2PSA: the attention's
+# positional and output convolutions, the feed-forward's second) that no
+# activation follows: a constant shift of their output reaches the loss
+# only through 1x1 convolutions into a train-mode BatchNorm, which takes
+# it out again, so their gradients are 0 but for rounding (2e-9 to 5e-9
+# of the step's largest gradient; the smallest other gradient that is not
+# 0 is 4e-6 of it, tests/test_torch_yolo_train.py's step).  Each is held
+# to YOLO_ZERO_GRAD_SHARE of the step's largest gradient on both sides,
+# not to its own largest entry
+YOLO_ZERO_GRAD_LEAVES = ("layer10/m0/attn/pe/bn/bias",
+                         "layer10/m0/attn/proj/bn/bias",
+                         "layer10/m0/ffn1/bn/bias")
+YOLO_ZERO_GRAD_SHARE = 1e-7
+YOLO_TRAIN_STEPS = 8
+
+
+def yolo_train_tree(torch, dev, root):
+    """A KITTI-360 tree of the two committed frames and their mirrors
+    (frames 300-303), each scan built around the committed n float32
+    detector's detections of its frame on the card (``make_scene``:
+    65536 points and 24 box slots a frame).  Returns the frames' cars."""
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        load_serving_checkpoint)
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    real = [read_png_rgb(path) for path in FRAMES]
+    images = np.ascontiguousarray(np.stack(real + [im[:, ::-1]
+                                                   for im in real]))
+    det = load_serving_checkpoint(CKPT, (H0, W0), tta="none",
+                                  device=dev)[0]
+    first = det.detect(images)
+    rng = np.random.default_rng(14)
+    frames, cars = [], 0
+    for b in range(len(images)):
+        valid = first["det_valid"][b].cpu().numpy()
+        points, pvalid, corners, bvalid = make_scene(
+            rng, first["boxes"][b].float().cpu().numpy(), valid,
+            num_points=65536, num_boxes=24, num_valid=16)
+        image = FRAMES[b] if b < len(FRAMES) else images[b]
+        frames.append((300 + b, image, points[pvalid], corners[bvalid]))
+        cars += int(valid.sum())
+    write_kitti360_tree(root, frames)
+    return cars
+
+
+def yolo_step_grads(torch, variables, images, targets, device, nudge=None):
+    """One n training step's loss parts and gradients (Flax layout, on the
+    host) from ``variables`` on ``device``; ``nudge`` a seed moves every
+    weight and every input pixel one ulp first (``nudge_one_ulp``)."""
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.models.yolo.weights import (
+        yolo_flax_from_state)
+    from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
+
+    tr = YoloTrainer(YoloConfig(scale="n"), device=device)
+    tr.load(variables)
+    imgs, tg = tr.put(images, targets)
+    if nudge is not None:
+        nudge_one_ulp(torch, [*tr.model.parameters(), imgs], nudge)
+    loss, parts = tr.loss(imgs, tg)
+    grads = tr.gradients(loss)
+    return ({"loss": float(loss.detach()),
+             **{k: float(v.detach()) for k, v in parts.items()}},
+            yolo_flax_from_state(grads)["params"])
+
+
+def largest(tree):
+    return max(largest(v) if isinstance(v, dict) else float(np.abs(v).max())
+               for v in tree.values())
+
+
+def zero_grad_share(grads):
+    """The largest entry of the YOLO_ZERO_GRAD_LEAVES of a gradient tree,
+    in units of the tree's largest entry."""
+    def leaf(path):
+        tree = grads
+        for key in path.split("/"):
+            tree = tree[key]
+        return float(np.abs(tree).max())
+    return max(map(leaf, YOLO_ZERO_GRAD_LEAVES)) / largest(grads)
+
+
+def check_yolo_grads(card, cpu):
+    """The card's gradient tree against the CPU's: returns (the worst
+    error in units of each tensor's largest, the YOLO_ZERO_GRAD_LEAVES'
+    shares on the card and on the CPU); raises past the limits."""
+    err = grad_spread(card, cpu, YOLO_ZERO_GRAD_LEAVES)
+    zero = zero_grad_share(card), zero_grad_share(cpu)
+    if err > YOLO_STEP_GRAD_TOL or max(zero) > YOLO_ZERO_GRAD_SHARE:
+        raise AssertionError(
+            f"the card's YOLO gradients differ from the CPU's by {err} "
+            f"(limit {YOLO_STEP_GRAD_TOL}); the leaves that are 0 but for "
+            f"rounding at {zero} of the largest gradient (limit "
+            f"{YOLO_ZERO_GRAD_SHARE})")
+    return err, zero
+
+
+def eval_counts(text):
+    """(TP, FP, FN) and the JSON line of an evaluation's output."""
+    line = json.loads(text.strip().splitlines()[-1])
+    return (line["detections_tp"], line["fp"], line["fn"]), line
+
+
+def run_distill(argv):
+    """The distillation runner's ``main`` through ``run_cli``."""
+    from lidar_object_detection_tpu_torch.pipelines import yolo_distill
+
+    return run_cli(argv, yolo_distill.main)
+
+
+def yolo_train_phase(torch, dev, smi, tmp):
+    """YOLO11-seg training and the distillation runner on the card, on
+    ``yolo_train_tree``'s 4 frames at 376 x 1408 (192 x 640 letterboxed,
+    YOLO11n-seg at full width, 80 classes, MAX_T = 32):
+
+    * the labels built on the card (its point-in-box tests) equal the
+      CPU's, array by array;
+    * one training step launches no kernel;
+    * one step from the committed n variables on the card against the
+      CPU's (YOLO_STEP_*, YOLO_ZERO_GRAD_*: ``check_yolo_grads``; the
+      CPU's one-ulp spread printed beside);
+    * the runner's ``main`` twice at ``--steps 8 --ema-decay 0.9``,
+      counters zeroed before each: byte-equal ``.msgpack``, ``.opt`` and
+      ``.json`` files; its closing evaluation launches K5 and K2 once
+      each and nothing else;
+    * ``--eval-only`` on the card and with ``--device cpu``, on the
+      trained checkpoint and on a checkpoint of the committed n
+      variables: the same TP, FP and FN;
+    * CUDA-event times of the n step at B = 4, split into the train-mode
+      forward, the loss (on one forward's outputs), the backward (of one
+      loss, its graph kept), AdamW and the EMA; the committed x
+      variables' step at B = 4 (the card only); a traced n step.
+
+    Returns the launches of a step and of the runner's first run, and a
+    summary."""
+    from lidar_object_detection_tpu_torch.models.common import (
+        full_float32, repeatable)
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.parallel import optim
+    from lidar_object_detection_tpu_torch.parallel.train import (
+        YoloTrainer, detection_loss)
+    from lidar_object_detection_tpu_torch.pipelines import yolo_distill as yd
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "yolo_kitti360")
+    cars = yolo_train_tree(torch, dev, root)
+    cache = os.path.join(tmp, "labels.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        labels = yd.build_labels(root, cache=cache, device=dev)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ref = yd.build_labels(root, device="cpu")
+        cpu_s = time.perf_counter() - t
+    for key, value in ref.items():
+        if labels[key].dtype != value.dtype \
+                or not np.array_equal(labels[key], value):
+            raise AssertionError(f"the card's labels differ from the CPU's "
+                                 f"in {key}")
+    n_targets = int(labels["valid"].sum())
+    if n_targets < 4:
+        raise AssertionError(f"the tree gave {n_targets} targets")
+    print(f"labels: {n_targets} targets over {len(labels['images'])} frames "
+          f"({cars} detections behind the scans), equal on the card and "
+          f"the CPU ({card_s:.2f} s and {cpu_s:.2f} s)", flush=True)
+    phase("YOLO training: labels", t0)
+
+    # the step's operands: every frame, letterboxed on the device
+    n_vars = read_flax_msgpack(CKPT)["variables"]
+    targets = {"boxes": labels["boxes_lb"], "classes": labels["classes"],
+               "valid": labels["valid"], "masks": labels["masks_pr"]}
+    images = yd.letterboxed(labels["images"], dev)
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    tr = YoloTrainer(YoloConfig(scale="n"), device=dev, ema_decay=0.9)
+    tr.load(n_vars)
+    b_imgs, b_tg = tr.put(images, targets)
+    kernel_lib.reset_launches()
+    tr.train_step(b_imgs, b_tg)
+    torch.cuda.synchronize()
+    step_launches = dict(kernel_lib.LAUNCHES)
+    if step_launches != zero:
+        raise AssertionError(f"a training step launched {step_launches}")
+
+    # card against the CPU, from the committed n variables
+    t = time.perf_counter()
+    cpu_images = images.cpu()
+    card_parts, card_grads = yolo_step_grads(torch, n_vars, images, targets,
+                                             dev)
+    cpu_parts, cpu_grads = yolo_step_grads(torch, n_vars, cpu_images,
+                                           targets, "cpu")
+    spread = grad_spread(yolo_step_grads(torch, n_vars, cpu_images, targets,
+                                         "cpu", nudge=0)[1], cpu_grads,
+                         YOLO_ZERO_GRAD_LEAVES)
+    loss_err = max(abs(card_parts[k] - cpu_parts[k])
+                   / max(abs(cpu_parts[k]), 1e-12) for k in cpu_parts)
+    compare_s = time.perf_counter() - t
+    print(f"one n step at B = {len(images)} from the committed variables: "
+          f"card {card_parts}, CPU {cpu_parts}; loss parts within "
+          f"{loss_err:.3g} relative (limit {YOLO_STEP_LOSS_RTOL})",
+          flush=True)
+    if loss_err > YOLO_STEP_LOSS_RTOL:
+        raise AssertionError(f"the card's YOLO step differs from the CPU's: "
+                             f"loss parts {loss_err}")
+    grad_err, zero_share = check_yolo_grads(card_grads, cpu_grads)
+    print(f"gradients within {grad_err:.3g} of each tensor's largest (limit "
+          f"{YOLO_STEP_GRAD_TOL}; the CPU's one-ulp spread {spread:.3g}), "
+          f"the {len(YOLO_ZERO_GRAD_LEAVES)} leaves that are 0 but for "
+          f"rounding at {zero_share[0]:.3g} (card) and "
+          f"{zero_share[1]:.3g} (CPU) of the largest gradient "
+          f"{largest(cpu_grads):.4g} (limit "
+          f"{YOLO_ZERO_GRAD_SHARE}) ({compare_s:.1f} s)", flush=True)
+    phase("YOLO training: card step against the CPU", t0)
+
+    # the runner twice, byte-equal files; its evaluation's kernels
+    runs, walls, run_launches = [], {}, {}
+    want = dict(zero, nms=1, mask_assemble=1)
+    for run in ("first", "again"):
+        ckpt = os.path.join(tmp, f"yolo_{run}.msgpack")
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        t = time.perf_counter()
+        text = run_distill(["--dataset", root, "--cache", cache, "--ckpt",
+                            ckpt, "--steps", str(YOLO_TRAIN_STEPS),
+                            "--ema-decay", "0.9", "--device", str(dev)])
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t
+        run_launches[run] = dict(kernel_lib.LAUNCHES)
+        if run_launches[run] != want:
+            raise AssertionError(f"the runner's {run} run launched "
+                                 f"{run_launches[run]}, expected {want}")
+        losses = [float(m) for m in re.findall(r" loss (\S+) ", text)]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"the runner printed losses {losses}")
+        runs.append(ckpt)
+    for suffix in ("", ".opt", ".json"):
+        if read_bytes(runs[0] + suffix) != read_bytes(runs[1] + suffix):
+            raise AssertionError(f"two runs wrote different "
+                                 f"{suffix or '.msgpack'} files")
+    print(f"yolo_distill: two runs of {YOLO_TRAIN_STEPS} steps wrote the "
+          f"same .msgpack, .opt and .json bytes; losses {losses}; wall s "
+          f"{walls}", flush=True)
+
+    # --eval-only on the card and the CPU, trained and committed weights
+    committed = os.path.join(tmp, "yolo_committed.msgpack")
+    yd.save_ckpt(committed, n_vars, tr.opt_state_dict(), 12000)
+    evals = {}
+    for name, ckpt in (("trained", runs[0]), ("committed", committed)):
+        got = {}
+        for device in (str(dev), "cpu"):
+            got[device] = eval_counts(run_distill(
+                ["--dataset", root, "--cache", cache, "--ckpt", ckpt,
+                 "--eval-only", "--device", device]))
+        if got[str(dev)][0] != got["cpu"][0]:
+            raise AssertionError(f"--eval-only of the {name} checkpoint: "
+                                 f"card {got[str(dev)][1]}, CPU "
+                                 f"{got['cpu'][1]}")
+        evals[name] = got[str(dev)][1]
+    if evals["committed"]["detections_tp"] == 0:
+        raise AssertionError(f"the committed n checkpoint matched no label: "
+                             f"{evals['committed']}")
+    phase("YOLO training: the runner", t0)
+
+    # times of the n step at B = 4, and of the x step
+    del tr
+    tr = YoloTrainer(YoloConfig(scale="n"), device=dev, ema_decay=0.9,
+                     learning_rate=optim.warmup_cosine_decay_schedule(
+                         0.0, 2e-3, 1, 8, 2e-5))
+    tr.load(n_vars)
+
+    def forward():
+        tr.model.train()
+        with full_float32():
+            return tr.model(b_imgs)
+
+    def loss_of(out):
+        with full_float32():
+            return detection_loss(out, b_tg, 80, tr.level_shapes)[0]
+
+    params = list(tr.state.params().values())
+
+    def backward(loss):
+        # the graph kept, so that each call runs the same backward
+        with full_float32(), repeatable():
+            return torch.autograd.grad(loss, params, retain_graph=True)
+
+    times = {"step_ms": time_events(
+        torch, lambda: tr.train_step(b_imgs, b_tg), 10)[0]}
+    times["forward_ms"], out = time_events(torch, forward, 10)
+    times["loss_ms"], loss = time_events(torch, lambda: loss_of(out), 10)
+    times["backward_ms"], grads = time_events(torch, lambda: backward(loss),
+                                              10)
+    grads = dict(zip(tr.state.params(), grads))
+    times["adamw_ms"] = time_events(torch, lambda: optim.adamw_update(
+        tr.state.params(), grads, tr.state.opt_state, 2e-3, 5e-4), 10)[0]
+    times["ema_ms"] = time_events(torch, tr.update_ema, 10)[0]
+    del out, loss
+    print(f"YOLO11n-seg training step at B = {len(images)}, 192 x 640, on "
+          f"{smi}: {json.dumps(times)}", flush=True)
+    print("traced n training step (B = 4):", flush=True)
+    profile_once(torch, lambda: tr.train_step(b_imgs, b_tg))
+    del tr, grads
+    x_tr = YoloTrainer(YoloConfig(scale="x"), device=dev)
+    x_tr.load(read_flax_msgpack(CKPT_X)["variables"])
+    times["x_step_ms"], m = time_events(
+        torch, lambda: x_tr.train_step(b_imgs, b_tg), 3)
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"the x step's loss is {m['loss']}")
+    print(f"YOLO11x-seg training step at B = {len(images)}, 192 x 640, on "
+          f"{smi}: {times['x_step_ms']:.3f} ms", flush=True)
+    del x_tr
+    torch.cuda.empty_cache()
+    summary = {"targets": n_targets, "labels_card_s": card_s,
+               "labels_cpu_s": cpu_s, "step_loss_rel_err": loss_err,
+               "step_grad_err": grad_err, "step_grad_spread": spread,
+               "step_zero_grad_share": {"card": zero_share[0],
+                                        "cpu": zero_share[1]},
+               "card_step_parts": card_parts, "runner_wall_s": walls,
+               "evaluations": evals, **times}
+    print(json.dumps({"yolo_train": summary}), flush=True)
+    phase("YOLO training", t0)
+    return {"step": step_launches, "runner": run_launches["first"]}, summary
 
 
 def pair_cases(torch, dev, rng, real):
@@ -3717,6 +4076,8 @@ def main() -> int:
     del pairs
     phase("PointPillars training kernel against its twin", t0)
     with tempfile.TemporaryDirectory() as tmp:
+        yolo_launches, _ = yolo_train_phase(torch, dev, smi, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
         k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
     peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
     # the solver's main path is the V5 run
@@ -3755,6 +4116,8 @@ def main() -> int:
         k["relative_decode_launches"] = peak_launches[k["name"]]
         k["pointpillars_train_launches"] = {
             run: n[k["name"]] for run, n in train_launches.items()}
+        k["yolo_train_launches"] = {run: n[k["name"]]
+                                    for run, n in yolo_launches.items()}
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,187 @@
+"""What the port's two model families share: Flax's BatchNorm, Flax's
+default initializer, and the numerics scopes and division that keep a
+network's bits equal across runs and devices.
+
+* :class:`BatchNorm` and :func:`_update_running`: Flax's ``nn.BatchNorm``
+  over NCHW, in evaluation and in training.
+* :func:`flax_default_init`: Flax's default distributions drawn from a
+  ``torch.Generator``.
+* :func:`full_float32`: cuDNN convolutions and cuBLAS products in IEEE
+  float32 (no TF32), as the JAX package computes.
+* :func:`repeatable`: cuDNN's deterministic algorithms, for a backward
+  that gives the same bits each run.
+* :func:`true_div`: IEEE division by a scalar on every device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+# Flax's variance_scaling divides the standard deviation by the standard
+# deviation of a standard normal truncated to (-2, 2)
+TRUNCATED_STD = 0.87962566103423978
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over NCHW; ``eps`` and ``momentum`` default
+    to the YOLO11 blocks' (ultralytics').
+
+    ``forward(x)`` evaluates with the running statistics, with the rounding
+    of Flax's under ``jax.jit``.  Flax computes the multiplier ``rsqrt(var
+    + eps) * gamma`` in the dtype the checkpoint stores the statistics in
+    (bfloat16 for the x checkpoint and for folded bf16 trees), ``eps``
+    rounded to it first.  Compiled by XLA, as the JAX detector serves it,
+    the sum and the ``rsqrt`` round to that dtype and the product stays
+    float32; op by op the product rounds too.  Loading a state dict records
+    the dtype, so the multiplier rounds as the jitted forward's whatever
+    dtype the module was cast to.  A folded tree's multiplier is exactly 1
+    either way.
+
+    ``forward(x, train=True)`` takes the batch's statistics over (N, H,
+    W): mean ``E[x]`` and the biased variance ``max(E[x^2] - E[x]^2, 0)``
+    (Flax's ``use_fast_variance``), in float32; the output is ``(x - mean)
+    * (rsqrt(var + eps) * scale) + bias``; and, with no gradient,
+    ``running = m * running + (1 - m) * batch`` (m = ``momentum``, Flax's
+    convention: ``torch.nn.BatchNorm2d``'s momentum would be 1 - m, and it
+    keeps the unbiased variance).
+    """
+
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.97):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self._set_stats_dtype(torch.float32)
+
+    def _set_stats_dtype(self, dtype: torch.dtype) -> None:
+        self.stats_dtype = dtype
+        self._eps = float(torch.tensor(self.eps, dtype=dtype))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        var = state_dict.get(prefix + "running_var")
+        gamma = state_dict.get(prefix + "weight")
+        if var is not None and gamma is not None:
+            self._set_stats_dtype(torch.promote_types(var.dtype, gamma.dtype))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x, train: bool = False):
+        if train:
+            x = x.float()
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            _update_running(self, mean, var)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            return (x - mean[:, None, None]) * mul[:, None, None] \
+                + self.bias[:, None, None]
+        # rounded to the statistics' dtype after the sum and after the rsqrt
+        # (taken in float32: PyTorch's bfloat16 rsqrt on the CPU is not
+        # correctly rounded); the product is float32
+        sd = self.stats_dtype
+        r = torch.rsqrt((self.running_var.to(sd) + self._eps).float())
+        mul = r.to(sd).float() * self.weight
+        y = (x.float() - self.running_mean.float()[:, None, None]) \
+            * mul[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+
+def _update_running(bn: nn.Module, mean, var) -> None:
+    """Flax's running-average update of ``bn``'s buffers, no gradient."""
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+
+
+def _fan_in(module: nn.Module, weight: torch.Tensor) -> int:
+    if isinstance(module, nn.ConvTranspose2d):     # (in, out, kh, kw)
+        return weight.shape[0] * weight.shape[2] * weight.shape[3]
+    return math.prod(weight.shape[1:])             # (out, in, ...) layouts
+
+
+@torch.no_grad()
+def flax_default_init(model: nn.Module, seed: int = 0,
+                      biases: Optional[Dict[str, float]] = None,
+                      fan_ins: Optional[Dict[str, int]] = None
+                      ) -> nn.Module:
+    """Initialize ``model``'s parameters and BatchNorm statistics in place
+    from ``seed`` with Flax's defaults; ``biases`` maps a module's name to
+    the constant of its bias (0 elsewhere), ``fan_ins`` to the fan-in of
+    its kernel where Flax's differs from the layer's own.  Returns the
+    model.
+
+    Every kernel of two or more dimensions: Flax's ``lecun_normal``, a
+    normal truncated at two standard deviations and scaled to variance 1 /
+    fan_in; BatchNorm scales 1, running means 0 and variances 1.  The draws
+    are made on the CPU in the order of ``named_parameters`` and copied to
+    the model's device, so a seed gives the same bits on any device."""
+    biases, fan_ins = biases or {}, fan_ins or {}
+    gen = torch.Generator().manual_seed(seed)
+    modules = dict(model.named_modules())
+    for name, param in model.named_parameters():
+        stem, leaf = name.rsplit(".", 1)
+        module = modules[stem]
+        if leaf == "weight" and param.dim() >= 2:
+            fan_in = fan_ins.get(stem) or _fan_in(module, param)
+            std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
+            value = torch.empty(param.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(value, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gen)
+        elif leaf == "weight":                     # a BatchNorm scale
+            value = torch.ones(param.shape)
+        else:
+            value = torch.full(param.shape, biases.get(stem, 0.0))
+        param.copy_(value)
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.zero_()
+        elif name.endswith("running_var"):
+            buf.fill_(1.0)
+    return model
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN convolutions and cuBLAS products in IEEE float32 (no TF32)
+    inside the scope; the caller's settings are restored after it."""
+    conv = torch.backends.cudnn.conv
+    matmul = torch.backends.cuda.matmul
+    saved = conv.fp32_precision, matmul.fp32_precision
+    conv.fp32_precision = "ieee"
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision, matmul.fp32_precision = saved
+
+
+@contextlib.contextmanager
+def repeatable():
+    """cuDNN's deterministic algorithms and no autotuning inside the scope
+    (the convolutions' weight gradients otherwise may sum in an order
+    that varies); the caller's settings are restored after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def true_div(x, scalar: float):
+    """``x / scalar`` rounded as IEEE division on every device.  PyTorch's
+    CUDA kernel multiplies by the reciprocal of a Python-scalar divisor,
+    which can round a quotient at or next to an integer to the other side
+    of it: a point by a pillar's edge would fall into the neighbouring
+    pillar on the card only.  A divisor on the tensor's device is divided
+    by."""
+    return x / torch.full((), scalar, dtype=x.dtype, device=x.device)

@@ -18,10 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lidar_object_detection_tpu_torch.models.common import true_div
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
     top_k_lowest_index)
-from lidar_object_detection_tpu_torch.models.pointpillars.voxelize import (
-    true_div)
 
 
 class CenterHead(nn.Module):

@@ -35,12 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lidar_object_detection_tpu_torch.models.common import (
+    BatchNorm, _update_running, full_float32)
 from lidar_object_detection_tpu_torch.models.pointpillars.voxelize import (
     PillarGridConfig, point_features, scatter_bev)
-from lidar_object_detection_tpu_torch.models.yolo.blocks import (
-    BatchNormEval)
-from lidar_object_detection_tpu_torch.models.yolo.detector import (
-    full_float32)
 
 BN_EPS = 1e-3   # the Flax modules' epsilon
 
@@ -116,41 +114,6 @@ class ConvBN(nn.Module):
 
     def forward(self, x, train: bool = False):
         return F.relu(self.bn(self.conv(x), train))
-
-
-class BatchNorm(BatchNormEval):
-    """Flax's ``nn.BatchNorm`` over NCHW.  Evaluation is
-    :class:`BatchNormEval`'s.  In training the statistics are the batch's
-    over (N, H, W): mean ``E[x]`` and the biased variance ``max(E[x^2] -
-    E[x]^2, 0)`` (Flax's ``use_fast_variance``), in float32; the output is
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``; and, with no
-    gradient, ``running = m * running + (1 - m) * batch`` (m =
-    ``momentum``, Flax's convention: ``torch.nn.BatchNorm2d``'s momentum
-    would be 1 - m, and it keeps the unbiased variance)."""
-
-    def __init__(self, c: int, eps: float = BN_EPS, momentum: float = 0.9):
-        super().__init__(c, eps=eps)
-        self.momentum = momentum
-
-    def forward(self, x, train: bool = False):
-        if not train:
-            return super().forward(x)
-        x = x.float()
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
-        _update_running(self, mean, var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-
-
-def _update_running(bn: nn.Module, mean, var) -> None:
-    """Flax's running-average update of ``bn``'s buffers, no gradient."""
-    m = bn.momentum
-    with torch.no_grad():
-        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
-        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -8,15 +8,15 @@ one jitted program on a one-device mesh; here it runs op by op on
 ``device`` (the card by default), gradients by autograd as JAX's come from
 ``jax.value_and_grad``: no operation of the step has a custom backward.
 
-The optimizer is :func:`adamw_update`, ``optax.adamw``'s arithmetic
-written out (``torch.optim.AdamW`` orders its operations otherwise):
-b1 = 0.9, b2 = 0.999, eps = 1e-8 added after ``sqrt(nu_hat)``, bias
-correction, then the decoupled decay ``wd * p`` added to the update of
-every parameter (optax's ``mask=None``: biases and BatchNorm scales too),
-then the update scaled by ``-lr`` and added.
+The optimizer is :func:`..parallel.optim.adamw_update`, ``optax.adamw``'s
+arithmetic written out (``torch.optim.AdamW`` orders its operations
+otherwise): b1 = 0.9, b2 = 0.999, eps = 1e-8 added after
+``sqrt(nu_hat)``, bias correction, then the decoupled decay ``wd * p``
+added to the update of every parameter (optax's ``mask=None``: biases and
+BatchNorm scales too), then the update scaled by ``-lr`` and added.
 
 The step runs in full float32 (TF32 off, ``full_float32``); its backward
-runs in :func:`repeatable` (cuDNN's deterministic algorithms, the
+runs in :func:`..common.repeatable` (cuDNN's deterministic algorithms, the
 caller's settings restored after it), so that a run on the card gives the
 same bits each time.  The forward needs no flag: its convolutions'
 algorithms repeat their bits as they are.
@@ -24,13 +24,14 @@ algorithms repeat their bits as they are.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from lidar_object_detection_tpu_torch.models.common import (
+    full_float32, repeatable)
 from lidar_object_detection_tpu_torch.models.pointpillars.center import (
     starve_weights)
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
@@ -43,72 +44,8 @@ from lidar_object_detection_tpu_torch.models.pointpillars.model import (
     PillarsConfig, PointPillars)
 from lidar_object_detection_tpu_torch.models.pointpillars.weights import (
     pillars_flax_from_state)
-from lidar_object_detection_tpu_torch.models.yolo.detector import (
-    full_float32)
-
-
-@dataclasses.dataclass
-class AdamWState:
-    """optax's ``ScaleByAdamState``: the step count and the first and
-    second moments, keyed by parameter name."""
-
-    count: int
-    mu: Dict[str, torch.Tensor]
-    nu: Dict[str, torch.Tensor]
-
-    @staticmethod
-    def zeros(params: Dict[str, torch.Tensor]) -> "AdamWState":
-        return AdamWState(
-            count=0, mu={k: torch.zeros_like(v) for k, v in params.items()},
-            nu={k: torch.zeros_like(v) for k, v in params.items()})
-
-
-@torch.no_grad()
-def adamw_update(params: Dict[str, torch.Tensor],
-                 grads: Dict[str, torch.Tensor], state: AdamWState,
-                 learning_rate: float, weight_decay: float,
-                 b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8) -> AdamWState:
-    """One ``optax.adamw`` step, the parameters updated in place; returns
-    the new state.  Per parameter, in optax's order:
-
-        mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g^2 + b2 * nu
-        u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
-        p = p + (-lr) * (u + wd * p)
-
-    The bias corrections ``1 - b^t`` are taken in float64 and rounded to
-    float32, as optax takes them under JAX's 64-bit mode.
-    """
-    count = state.count + 1
-    mu, nu = {}, {}
-    first = next(iter(params.values()))
-    # device tensors, so that the divisions below are IEEE divisions
-    bc1 = torch.tensor(1 - b1 ** count, dtype=first.dtype,
-                       device=first.device)
-    bc2 = torch.tensor(1 - b2 ** count, dtype=first.dtype,
-                       device=first.device)
-    for name, p in params.items():
-        g = grads[name]
-        mu[name] = (1 - b1) * g + b1 * state.mu[name]
-        nu[name] = (1 - b2) * (g * g) + b2 * state.nu[name]
-        u = (mu[name] / bc1) / (torch.sqrt(nu[name] / bc2 + 0.0) + eps)
-        u = u + weight_decay * p
-        p.copy_(p + (-learning_rate) * u)
-    return AdamWState(count=count, mu=mu, nu=nu)
-
-
-@contextlib.contextmanager
-def repeatable():
-    """cuDNN's deterministic algorithms and no autotuning inside the scope
-    (the convolutions' weight gradients otherwise may sum in an order
-    that varies); the caller's settings are restored after it."""
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.benchmark = saved
+from lidar_object_detection_tpu_torch.parallel.optim import (
+    AdamWState, adamw_state_dict, adamw_update)
 
 
 @dataclasses.dataclass
@@ -130,12 +67,10 @@ class TrainState:
         EmptyState(), EmptyState())``, as flax's ``to_state_dict`` lays
         them out (tuples as maps keyed "0", "1", ...), numpy arrays."""
         variables = pillars_flax_from_state(self.model.state_dict())
-        moments = {key: pillars_flax_from_state(tree)["params"]
-                   for key, tree in (("mu", self.opt_state.mu),
-                                     ("nu", self.opt_state.nu))}
-        opt = {"0": {"count": np.array(self.opt_state.count, np.int32),
-                     **moments},
-               "1": {}, "2": {}}
+        opt = adamw_state_dict(
+            self.opt_state,
+            lambda tree: pillars_flax_from_state(tree)["params"],
+            schedule=False)
         return variables, opt, np.array(self.step, np.int32)
 
 

@@ -34,6 +34,8 @@ from typing import Tuple
 
 import torch
 
+from lidar_object_detection_tpu_torch.models.common import true_div
+
 
 @dataclasses.dataclass(frozen=True)
 class PillarGridConfig:
@@ -68,16 +70,6 @@ def deterministic_algorithms():
         yield
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
-
-
-def true_div(x, scalar: float):
-    """``x / scalar`` rounded as IEEE division on every device.  PyTorch's
-    CUDA kernel multiplies by the reciprocal of a Python-scalar divisor,
-    which can round a quotient at or next to an integer to the other side
-    of it: a point by a pillar's edge would fall into the neighbouring
-    pillar on the card only.  A divisor on the tensor's device is divided
-    by."""
-    return x / torch.full((), scalar, dtype=x.dtype, device=x.device)
 
 
 def pillar_ids(points, valid, cfg: PillarGridConfig):

@@ -11,7 +11,11 @@ yields a state dict with ultralytics' keys.  BatchNorm evaluates with
 running statistics in the Flax form, ``(x - mean) * (gamma *
 rsqrt(var + eps)) + beta``, the multiplier rounded as the JAX package's
 jitted forward rounds it, so folded and unfolded weights round as the JAX
-package serves them.
+package serves them.  A module in training mode (``Yolo11.train()``)
+normalizes with the batch's statistics and moves the running ones, as
+Flax's ``apply(..., train=True, mutable=["batch_stats"])`` does
+(:class:`..common.BatchNorm`); ``nn.Module`` starts in training mode, so a
+serving network is put in eval mode (``YoloDetector`` does).
 """
 
 from __future__ import annotations
@@ -23,67 +27,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-BN_EPS = 1e-3   # ultralytics' BatchNorm epsilon
-
-
-class BatchNormEval(nn.Module):
-    """Inference BatchNorm with the rounding of Flax's under ``jax.jit``.
-
-    Flax computes the multiplier ``rsqrt(var + eps) * gamma`` in the dtype
-    the checkpoint stores the statistics in (bfloat16 for the x checkpoint
-    and for folded bf16 trees), ``eps`` rounded to it first.  Compiled by
-    XLA, as the JAX detector serves it, the sum and the ``rsqrt`` round to
-    that dtype and the product stays float32; op by op the product rounds
-    too.  Loading a state dict records the dtype, so the multiplier rounds
-    as the jitted forward's whatever dtype the module was cast to.  A
-    folded tree's multiplier is exactly 1 either way.
-    """
-
-    def __init__(self, c: int, eps: float = BN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("running_mean", torch.zeros(c))
-        self.register_buffer("running_var", torch.ones(c))
-        self._set_stats_dtype(torch.float32)
-
-    def _set_stats_dtype(self, dtype: torch.dtype) -> None:
-        self.stats_dtype = dtype
-        self._eps = float(torch.tensor(self.eps, dtype=dtype))
-
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        var = state_dict.get(prefix + "running_var")
-        gamma = state_dict.get(prefix + "weight")
-        if var is not None and gamma is not None:
-            self._set_stats_dtype(torch.promote_types(var.dtype, gamma.dtype))
-        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
-
-    def forward(self, x):
-        # rounded to the statistics' dtype after the sum and after the rsqrt
-        # (taken in float32: PyTorch's bfloat16 rsqrt on the CPU is not
-        # correctly rounded); the product is float32
-        sd = self.stats_dtype
-        r = torch.rsqrt((self.running_var.to(sd) + self._eps).float())
-        mul = r.to(sd).float() * self.weight
-        y = (x.float() - self.running_mean.float()[:, None, None]) \
-            * mul[:, None, None] + self.bias.float()[:, None, None]
-        return y.to(x.dtype)
+from lidar_object_detection_tpu_torch.models.common import BatchNorm
 
 
 class ConvBNAct(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU -- ultralytics ``Conv``."""
+    """Conv2d (no bias) + BatchNorm + SiLU -- ultralytics ``Conv``.  The
+    BatchNorm takes the batch's statistics in training mode (ultralytics'
+    and the JAX package's momentum, 0.97 in Flax's convention)."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  g: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, k, s, k // 2, groups=g,
                               bias=False)
-        self.bn = BatchNormEval(c_out)
+        self.bn = BatchNorm(c_out)
         self.act = act
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self.bn(self.conv(x), self.training)
         return F.silu(x) if self.act else x
 
 
@@ -254,8 +215,13 @@ class Proto(nn.Module):
 
 
 def upsample2x(x):
-    """Nearest-neighbour 2x upsample (the head's ``nn.Upsample``)."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest-neighbour 2x upsample (the head's ``nn.Upsample``), as a
+    broadcast: its gradient is a sum over the copies, where an indexed
+    repeat's would add them with atomics on the card, in no fixed
+    order."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from lidar_object_detection_tpu_torch.models.common import full_float32
 from lidar_object_detection_tpu_torch.models.yolo.model import (
     Yolo11, YoloConfig)
 from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
@@ -29,21 +30,6 @@ from lidar_object_detection_tpu_torch.models.yolo.tta import (
     postprocess_tta, validate_tta_params)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
     fold_serving_variables, from_flax_variables)
-
-
-@contextlib.contextmanager
-def full_float32():
-    """cuDNN convolutions and cuBLAS products in IEEE float32 (no TF32)
-    inside the scope; the caller's settings are restored after it."""
-    conv = torch.backends.cudnn.conv
-    matmul = torch.backends.cuda.matmul
-    saved = conv.fp32_precision, matmul.fp32_precision
-    conv.fp32_precision = "ieee"
-    matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        conv.fp32_precision, matmul.fp32_precision = saved
 
 
 class YoloDetector:

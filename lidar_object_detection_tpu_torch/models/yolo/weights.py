@@ -15,7 +15,8 @@ Conv kernels go HWIO <-> OIHW; the Proto transposed-conv kernel keeps its
 bias are weight / bias and the running statistics buffers.
 
 * :func:`from_flax_variables`: a Flax tree -> the port's state dict (its
-  keys are ultralytics').
+  keys are ultralytics'); :func:`yolo_flax_from_state` is its inverse
+  (the trainer's checkpoints).
 * :func:`convert_state_dict`: an ultralytics state dict -> a Flax tree,
   as the JAX package's function of the same name fills its template, with
   this module's own copy of the mapping; :func:`flax_template` gives the
@@ -155,6 +156,26 @@ def _flax_leaf(value: np.ndarray, path) -> np.ndarray:
     return value
 
 
+def yolo_flax_from_state(state_dict: Dict[str, torch.Tensor],
+                         segment: bool = True) -> dict:
+    """A :class:`models.yolo.model.Yolo11` state dict -> the Flax
+    ``{"params", "batch_stats"}`` tree of numpy arrays, in the state
+    dict's dtypes: the inverse of :func:`from_flax_variables`, bit for
+    bit.  Every key must translate back to itself."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        if "num_batches_tracked" in key:
+            continue
+        collection, *path = _torch_key_to_flax_path(key, segment)
+        back = _torch_key(*_flax_path_to_torch_key(tuple(path)), collection)
+        if back != key:
+            raise KeyError(f"{key} maps to flax {'/'.join(path)}, which "
+                           f"maps back to {back}")
+        _set(tree, (collection, *path), np.ascontiguousarray(
+            _flax_leaf(value.detach().cpu().numpy(), path)))
+    return tree
+
+
 def flax_template(cfg) -> dict:
     """The Flax tree of ``Yolo11(cfg)``, float32 numpy leaves of the Flax
     shapes (values of a random init), built from the port's module: the
@@ -165,18 +186,8 @@ def flax_template(cfg) -> dict:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         sd = Yolo11(cfg).state_dict()
-    tree: dict = {}
-    for key, value in sd.items():
-        if "num_batches_tracked" in key:
-            continue
-        collection, *path = _torch_key_to_flax_path(key, cfg.segment)
-        back = _torch_key(*_flax_path_to_torch_key(tuple(path)), collection)
-        if back != key:
-            raise KeyError(f"{key} maps to flax {'/'.join(path)}, which "
-                           f"maps back to {back}")
-        _set(tree, (collection, *path),
-             _flax_leaf(value.float().numpy(), path))
-    return tree
+    return yolo_flax_from_state({k: v.float() for k, v in sd.items()},
+                                cfg.segment)
 
 
 def convert_state_dict(state_dict: Dict[str, np.ndarray],

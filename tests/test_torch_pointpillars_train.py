@@ -41,6 +41,7 @@ from lidar_object_detection_tpu.models.pointpillars import loss as jloss
 from lidar_object_detection_tpu.models.pointpillars import model as jmodel
 from lidar_object_detection_tpu.ops import rotated_iou as jiou
 from lidar_object_detection_tpu_torch.models import pointpillars as tpp
+from lidar_object_detection_tpu_torch.models.common import TRUNCATED_STD
 from lidar_object_detection_tpu_torch.models.pointpillars import (
     augment as taug)
 from lidar_object_detection_tpu_torch.models.pointpillars import (
@@ -699,7 +700,7 @@ def test_initializer_matches_flax_distributions(full_width_init, head):
         if leaf == "kernel":
             n_kernels += 1
             fan_in = int(np.prod(ref.shape[:-1]))
-            std = np.sqrt(1.0 / fan_in) / tinit.TRUNCATED_STD
+            std = np.sqrt(1.0 / fan_in) / TRUNCATED_STD
             assert abs(value.std() / ref.std() - 1) < 0.10, path
             assert abs(value.mean()) < 0.1 * std, path
             assert np.abs(value).max() <= 2 * std * (1 + 1e-6), path

@@ -19,8 +19,8 @@ eps) * gamma`` in bfloat16; compiled, XLA keeps the product in float32,
 and op by op it rounds the product too, which the x network amplifies to
 a difference of up to 2.4 between JAX's two modes on these crops
 (channels whose variance is near zero carry multipliers in the hundreds).
-``blocks.BatchNormEval`` rounds as the jitted forward does.  Stated
-tolerances:
+``common.BatchNorm`` evaluates with the rounding of the jitted forward.
+Stated tolerances:
 
 * checkpoint arrays: bit-equal to ``flax.serialization.msgpack_restore``;
 * the float32 network on the same letterboxed input, against JAX's jitted
@@ -336,7 +336,8 @@ def test_x_bf16_drift_is_within_jax(served):
 @pytest.mark.parametrize("case", ["x checkpoint", "folded bf16",
                                   "float32"])
 def test_batchnorm_rounds_as_flax_under_jit(case):
-    """``BatchNormEval`` against Flax's ``BatchNorm`` under ``jax.jit``:
+    """The port's ``BatchNorm`` in evaluation against Flax's ``BatchNorm``
+    under ``jax.jit``:
 
     * the statistics of every BatchNorm channel of the x checkpoint, stored
       in bfloat16, float32 inputs: within 1e-5 of the jitted output (the
@@ -350,8 +351,7 @@ def test_batchnorm_rounds_as_flax_under_jit(case):
       not correctly rounded in XLA)."""
     from flax import linen as fnn
 
-    from lidar_object_detection_tpu_torch.models.yolo.blocks import (
-        BatchNormEval)
+    from lidar_object_detection_tpu_torch.models.common import BatchNorm
 
     rng = np.random.default_rng(11)
     c = 512
@@ -384,7 +384,7 @@ def test_batchnorm_rounds_as_flax_under_jit(case):
     op_by_op = np.asarray(flax_bn.apply(variables, xj), np.float32)
     to_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
         getattr(torch, stats))
-    bn = BatchNormEval(c)
+    bn = BatchNorm(c)
     bn.load_state_dict({"weight": to_t(j["scale"]), "bias": to_t(j["bias"]),
                         "running_mean": to_t(j["mean"]),
                         "running_var": to_t(j["var"])})
