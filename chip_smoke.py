@@ -120,7 +120,19 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``--eval-only`` with the same TP, FP and FN on the card and the CPU;
    CUDA-event times of the n step (forward, loss, backward, AdamW, EMA)
    and of the committed x variables' step, and a traced n step;
-11. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
+11. runs the scale-out layer (``scale_out_phase``): a world of one on NCCL
+   in this process, where the mesh trainer's full-width n step is
+   byte-equal to the one-card step and point-sharded and frame-sharded
+   fusion of the main path's 4 scans equal ``fuse_batch`` (K1 once per
+   frame, once per batch); then two ranks on the one card over gloo
+   (fresh processes): the n step at data 2 and at model 2 and the
+   PointPillars SSD step at the surround grid (2 + 2 frames) against
+   the one-process steps, point-sharded fusion, the pipeline against the
+   sequential chain, and the distillation runner twice under 2 ranks
+   (rank 0 alone writes, the same bytes); step times (one card and mesh
+   alternated, and the mesh with local BatchNorm statistics), all-reduce
+   times and a traced mesh step;
+12. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
    images cut from the committed frames at KITTI's shapes (375 x 1242,
    370 x 1224, 376 x 1241), labelled with the n checkpoint's cars and a
    KITTI-like calib: the CLI's ``kitti2d`` on the card (YOLO11x's
@@ -132,7 +144,7 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
    the per-image forward and decode times (CUDA events) and the CLI's
    host seconds;
-12. decodes the n float32 detector's raw outputs on the committed frames
+13. decodes the n float32 detector's raw outputs on the committed frames
    (B = 4) in the modes the serving path does not run -- logit at 0.9,
    relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
    ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
@@ -141,12 +153,13 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
-13. prints one JSON line of the kernels (times, bounds, launches, errors;
+14. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
    PointPillars runs, ``pointpillars_train_launches`` of the four
    training runs, ``yolo_train_launches`` of a YOLO step and of the
-   runner's first run, ``kitti2d_launches`` of the card's ``kitti2d`` run
+   runner's first run, ``scale_out_launches`` of each scale-out path,
+   ``kitti2d_launches`` of the card's ``kitti2d`` run
    and ``relative_decode_launches``), the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -1370,7 +1383,7 @@ def main_path(torch, dev, smi, detector, images, scenes):
                 calib, params)
     profile_once(torch, run)
     phase("main path", t0)
-    return launches
+    return launches, det
 
 
 def csv_eval_phase(torch, dev, smi, images, scenes, tmp):
@@ -2226,8 +2239,9 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
       forward + loss, backward and the optimizer; a traced step and a
       traced train-mode forward.
 
-    Returns the runs' launches, a summary, and the step's real candidate
-    pairs on the card (anchors, top-k indices, GTs, GT validity)."""
+    Returns the runs' launches, a summary, the step's real candidate
+    pairs on the card (anchors, top-k indices, GTs, GT validity), and the
+    step's batch of 4 frames (numpy)."""
     from lidar_object_detection_tpu_torch.data import Kitti360Dataset
     from lidar_object_detection_tpu_torch.models.common import repeatable
     from lidar_object_detection_tpu_torch.models.pointpillars import (
@@ -2370,7 +2384,7 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
                "card_step_parts": card_parts, **times}
     print(json.dumps({"pointpillars_train": summary}), flush=True)
     phase("PointPillars training", t0)
-    return launches, summary, (anchors, idx, gt, gv)
+    return launches, summary, (anchors, idx, gt, gv), batch
 
 
 # ---------------------------------------------------------------------------
@@ -2713,6 +2727,469 @@ def yolo_train_phase(torch, dev, smi, tmp):
     print(json.dumps({"yolo_train": summary}), flush=True)
     phase("YOLO training", t0)
     return {"step": step_launches, "runner": run_launches["first"]}, summary
+
+
+# ---------------------------------------------------------------------------
+# scale-out: the (data, model) mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+# the pipeline check's chain (tests/test_pipeline_parallel.py's stage):
+# width, micro-batch rows, stages, micro-batches
+PIPE_D, PIPE_MB, PIPE_S, PIPE_M = 16, 4, 2, 3
+SCALE_OUT_TIMEOUT = 300
+
+
+def flat_tree(tree, path=()):
+    """A nested dict of arrays as {"a/b/c": copy of the array}."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_tree(value, (*path, key)))
+        else:
+            out["/".join((*path, key))] = np.array(value)
+    return out
+
+
+def pipeline_case():
+    rng = np.random.default_rng(15)
+    return (rng.normal(0, 0.5, (PIPE_S, PIPE_D, PIPE_D)).astype(np.float32),
+            rng.normal(0, 0.1, (PIPE_S, PIPE_D)).astype(np.float32),
+            rng.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32),
+            rng.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32))
+
+
+def yolo_mesh_step(torch, mesh, variables, images, targets, device):
+    """One n step in the trainer's pieces over ``mesh``: the whole batch's
+    loss parts and the full gradients (Flax layout, on the host)."""
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.models.yolo.weights import (
+        yolo_flax_from_state)
+    from lidar_object_detection_tpu_torch.parallel import collectives
+    from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
+
+    tr = YoloTrainer(YoloConfig(scale="n"), device=device, mesh=mesh)
+    tr.load(variables)
+    imgs, tg = tr.local_batch(*tr.put(images, targets))
+    loss, parts = tr.loss(imgs, tg)
+    grads = tr.gradients(loss)
+    shares = {"loss": loss, **parts}
+    total = collectives.all_reduce_coalesced(
+        [v.detach() for v in shares.values()], tr.data_group)
+    return tr, ({k: float(v) for k, v in zip(shares, total)},
+                yolo_flax_from_state(tr.full_tree(grads))["params"])
+
+
+def scale_out_ranks(job, device="cuda"):
+    """What each of two ranks on the one card (gloo) checks; returns numpy
+    results and each part's kernel launches on this rank.  ``device``
+    "cpu" runs the same checks on the CPU, to rehearse them."""
+    import torch
+    import torch.distributed as dist
+
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, FusionParams, PipelineVersion)
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, PillarsTrainer, pillars_flax_from_state,
+        pillars_state_from_flax)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.parallel import (
+        collectives, make_mesh, pipeline_apply, pipeline_loss_fn,
+        point_sharded_fuse_frame)
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    data = dict(np.load(os.path.join(job, "inputs.npz")))
+    n_vars = read_flax_msgpack(CKPT)["variables"]
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "launches": {}}
+    images = torch.from_numpy(data["images"]).to(dev)
+    targets = {k: data[k] for k in ("boxes", "classes", "valid", "masks")}
+
+    # YOLO: data 2, then model 2 (the kernels in halves over the ranks)
+    for name, mp in (("yolo_data2", 1), ("yolo_model2", 2)):
+        kernel_lib.reset_launches()
+        tr, out[name] = yolo_mesh_step(torch, make_mesh(dev.type, mp),
+                                       n_vars, images, targets, dev)
+        sync()
+        out["launches"][name] = dict(kernel_lib.LAUNCHES)
+        if mp == 1:
+            out["yolo_data2_step_ms"] = time_events(
+                torch, lambda: tr.train_step(images, targets), 3)[0]
+            grads = [torch.ones_like(p) for p in tr.state.params().values()]
+            out["allreduce_w2_ms"] = time_events(
+                torch, lambda: collectives.all_reduce_coalesced(
+                    grads, tr.data_group), 5)[0]
+        del tr
+
+    # PointPillars: the SSD step at the surround grid, 2 + 2 frames
+    cfg = dataclasses.replace(PillarsConfig.kitti360_surround(), head="ssd")
+    pp = PillarsTrainer(cfg, device=dev, mesh=make_mesh(dev.type))
+    pp.model.load_state_dict(pillars_state_from_flax(
+        read_flax_msgpack(PP_CKPTS["ssd"])["0"]))
+    batch = pp.local_batch(*pp.batch_tensors(
+        *(data[f"pp{i}"] for i in range(5))))
+    kernel_lib.reset_launches()
+    parts = pp.loss(*batch)
+    grads = pp.gradients(parts["loss"])
+    sync()
+    out["launches"]["pp_step"] = dict(kernel_lib.LAUNCHES)
+    keys = ["loss", "cls", "box", "dir"]
+    total = collectives.all_reduce_coalesced(
+        [parts[k].detach() for k in keys], pp.data_group)
+    out["pp_step"] = ({**{k: float(v) for k, v in zip(keys, total)},
+                       "num_pos": float(parts["num_pos"])},
+                      pillars_flax_from_state(grads)["params"])
+    del pp, grads, parts
+
+    # point-sharded fusion: each scan's points in halves over the ranks
+    mesh = make_mesh(dev.type, 2)
+    params = FusionParams.from_config(
+        FusionConfig.for_version(PipelineVersion.CSV_EVAL))
+    calib = [torch.from_numpy(m).to(dev)
+             for m in (VELO_TO_RECT, CAM_TO_VELO, INTRINSICS)]
+    scans = [torch.from_numpy(data[f"fuse{i}"]).to(dev) for i in range(6)]
+    kernel_lib.reset_launches()
+    fused = [point_sharded_fuse_frame(mesh, *(s[b] for s in scans), *calib,
+                                      params)
+             for b in range(len(scans[0]))]
+    sync()
+    out["launches"]["point_sharded"] = dict(kernel_lib.LAUNCHES)
+    out["point_sharded"] = {k: np.stack([f[k].cpu().numpy() for f in fused])
+                            for k in ("counts", "total_points", "best_box",
+                                      "matched")}
+
+    # the pipeline over 2 stages against the sequential chain
+    w, b, x, y = (torch.from_numpy(a).to(dev) for a in pipeline_case())
+    stage = lambda prm, h: torch.relu(h @ prm["w"] + prm["b"])
+    mse = lambda o, t: torch.mean((o - t) ** 2)
+    params_p = {"w": w.clone().requires_grad_(True),
+                "b": b.clone().requires_grad_(True)}
+    loss = pipeline_loss_fn(mesh, stage, mse)(params_p, x, y)
+    pipe = (float(loss.detach()), *(g.cpu().numpy() for g in
+                                    torch.autograd.grad(loss, [
+                                        params_p["w"], params_p["b"]])))
+    with torch.no_grad():
+        pipe_out = pipeline_apply(mesh, stage, params_p, x).cpu().numpy()
+    ws, bs = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    seq_out = []
+    for mb in x:
+        h = mb
+        for i in range(PIPE_S):
+            h = stage({"w": ws[i], "b": bs[i]}, h)
+        seq_out.append(h)
+    seq_out = torch.stack(seq_out)
+    seq_loss = mse(seq_out, y)
+    seq = (float(seq_loss.detach()), *(g.cpu().numpy() for g in
+                                       torch.autograd.grad(seq_loss,
+                                                           [ws, bs])))
+    out["pipeline"] = {"out": pipe_out, "seq_out": seq_out.detach().cpu()
+                       .numpy(), "grads": pipe, "seq_grads": seq}
+    return out
+
+
+def scale_out_runner(argv):
+    """The distillation runner's ``main`` on this rank, as torchrun starts
+    it; returns this rank's kernel launches."""
+    import torch
+
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines import yolo_distill
+
+    kernel_lib.reset_launches()
+    yolo_distill.main(argv)
+    torch.cuda.synchronize()
+    return dict(kernel_lib.LAUNCHES)
+
+
+def scale_out_phase(torch, dev, smi, tmp, scenes, serving_det, pp_batch):
+    """The scale-out layer on the card:
+
+    * a world of one on NCCL in this process (``make_mesh`` brings it
+      up): the full-width n step (80 classes, 192 x 640, MAX_T 32, B = 4,
+      the committed variables, EMA on) through the mesh trainer byte-equal
+      to the one-card trainer's (metrics, variables, EMA, AdamW state);
+      ``point_sharded_fuse_frame`` over each of the main path's 4 scans
+      (P = 131072, G = 384, csv_eval's erosion, the serving detections'
+      masks) and ``sharded_fuse_batch`` equal to ``fuse_batch`` bit for
+      bit, K1 once per frame and once per batch; step times (one card,
+      mesh, the mesh with each rank's own BatchNorm statistics, then
+      back) and all-reduce times;
+    * two ranks on this one card over gloo (NCCL refuses two ranks on a
+      device; ``scale_out_ranks``): the n step at data 2 and at model 2
+      against the one-process step (``check_yolo_grads``); the
+      PointPillars SSD step at the surround grid from the committed
+      variables, 2 + 2 frames, against the one-process step (PP_STEP_*),
+      the assigner's IoU kernel once per rank; point-sharded fusion over
+      2 ranks, counts exact; the pipeline over 2 stages against the
+      sequential chain; the world-2 step's time, two processes sharing
+      one card (not a scaling number);
+    * the distillation runner under 2 ranks (``--steps 4``; gloo, as the
+      ranks outnumber the card), twice: rank 0 alone prints and writes,
+      the two runs' files byte-equal, K5 and K2 once each on rank 0 (its
+      evaluation), nothing on rank 1.
+
+    Prints ``{"scale_out": ...}`` and returns each path's launches of
+    every kernel."""
+    import torch.distributed as dist
+
+    from lidar_object_detection_tpu_torch.config import (
+        FusionConfig, FusionParams, PipelineVersion)
+    from lidar_object_detection_tpu_torch.fusion.associate import fuse_batch
+    from lidar_object_detection_tpu_torch.models.common import split_batch
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, pillars_state_from_flax)
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.parallel import (
+        collectives, distributed, make_mesh, point_sharded_fuse_frame,
+        sharded_fuse_batch)
+    from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
+    from lidar_object_detection_tpu_torch.pipelines import yolo_distill as yd
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "yolo_kitti360")
+    cache = os.path.join(tmp, "labels.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        labels = yd.build_labels(root, cache=cache, device=dev)
+    targets = {"boxes": labels["boxes_lb"], "classes": labels["classes"],
+               "valid": labels["valid"], "masks": labels["masks_pr"]}
+    images = yd.letterboxed(labels["images"], dev)
+    n_vars = read_flax_msgpack(CKPT)["variables"]
+    summary, launches = {}, {}
+
+    # --- a world of one on NCCL, in this process ---
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before the phase")
+    mesh = make_mesh("cuda")
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        raise AssertionError(f"make_mesh brought up {dist.get_backend()} "
+                             f"at world {dist.get_world_size()}")
+    runs, trainers = {}, {}
+    for name, m in (("one_card", None), ("mesh", mesh)):
+        tr = YoloTrainer(YoloConfig(scale="n"), device=dev, ema_decay=0.9,
+                         mesh=m)
+        tr.load(n_vars)
+        metrics = [tr.train_step(images, targets) for _ in range(2)]
+        torch.cuda.synchronize()
+        runs[name] = ({k: float(v) for k, v in metrics[-1].items()},
+                      flat_tree(tr.variables()), flat_tree(tr.ema_variables()),
+                      flat_tree(tr.opt_state_dict()))
+        trainers[name] = tr
+    a, b = runs["one_card"], runs["mesh"]
+    if a[0] != b[0] or any(x.keys() != y.keys() or any(
+            x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])
+            for k in x) for x, y in zip(a[1:], b[1:])):
+        raise AssertionError(f"the world-of-one mesh step differs from the "
+                             f"one-card step: {a[0]} / {b[0]}")
+    # the steps' times, in the order one card, mesh, mesh with each rank's
+    # own BatchNorm statistics (no collective in the forward), then back;
+    # the last ablates the BatchNorm all-reduces
+    tr = trainers["mesh"]
+    for name in ("one_card", "mesh", "mesh_bn_local", "mesh_bn_local",
+                 "mesh", "one_card"):
+        split_batch(tr.model, None if name == "mesh_bn_local"
+                    else tr.data_group)
+        step = trainers["one_card" if name == "one_card" else "mesh"]
+        summary.setdefault(f"step_w1_{name}_ms", []).append(time_events(
+            torch, lambda: step.train_step(images, targets), 5)[0])
+    print("traced n step through the world-of-one mesh trainer (B = 4):",
+          flush=True)
+    profile_once(torch, lambda: tr.train_step(images, targets))
+    grads = [torch.ones_like(p) for p in tr.state.params().values()]
+    summary["allreduce_w1_ms"] = time_events(
+        torch, lambda: collectives.all_reduce_coalesced(
+            grads, tr.data_group), 10)[0]
+    summary["allreduce_mb"] = sum(g.numel() for g in grads) * 4 / 1e6
+    del grads, tr, trainers
+    print(f"world of one on NCCL: two n steps (B = 4, 192 x 640, EMA) "
+          f"through the mesh trainer byte-equal to the one-card trainer's "
+          f"(metrics {b[0]}, variables, EMA, AdamW state); step ms, timed "
+          f"one card, mesh, mesh with local BatchNorm statistics, then "
+          f"back: mesh {summary['step_w1_mesh_ms']}, one card "
+          f"{summary['step_w1_one_card_ms']}, local BatchNorm "
+          f"{summary['step_w1_mesh_bn_local_ms']}; gradient all-reduce "
+          f"{summary['allreduce_w1_ms']:.3f} ms for "
+          f"{summary['allreduce_mb']:.2f} MB, CUDA events, on {smi}",
+          flush=True)
+
+    points, pvalid, corners, bvalid = (
+        torch.from_numpy(np.stack([s[i] for s in scenes])).to(dev)
+        for i in range(4))
+    calib = [torch.from_numpy(m).to(dev)
+             for m in (VELO_TO_RECT, CAM_TO_VELO, INTRINSICS)]
+    params = FusionParams.from_config(
+        FusionConfig.for_version(PipelineVersion.CSV_EVAL))
+    batch = (points, pvalid, serving_det["mask_bits"],
+             serving_det["det_valid"], corners, bvalid)
+    ref = fuse_batch(*batch, *calib, params=params)
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    frames = [point_sharded_fuse_frame(mesh, *(t[i] for t in batch), *calib,
+                                       params) for i in range(len(points))]
+    torch.cuda.synchronize()
+    launches["point_sharded_w1"] = dict(kernel_lib.LAUNCHES)
+    kernel_lib.reset_launches()
+    whole = sharded_fuse_batch(mesh, batch, calib, params)
+    torch.cuda.synchronize()
+    launches["frame_sharded_w1"] = dict(kernel_lib.LAUNCHES)
+    for key in ("counts", "total_points", "best_box", "points_inside",
+                "matched"):
+        if not torch.equal(torch.stack([f[key] for f in frames]), ref[key]):
+            raise AssertionError(f"point-sharded fusion's {key} differs "
+                                 f"from fuse_batch's")
+    for key, value in ref.items():
+        if not torch.equal(whole[key], value):
+            raise AssertionError(f"sharded_fuse_batch's {key} differs from "
+                                 f"fuse_batch's")
+    want_k1 = {"point_sharded_w1": len(points), "frame_sharded_w1": 1}
+    for name, n in want_k1.items():
+        if launches[name] != {k: n if k == "inside_counts" else 0
+                              for k in kernel_lib.LAUNCHES}:
+            raise AssertionError(f"{name} launched {launches[name]}")
+    counted = int(ref["counts"].sum())
+    print(f"world of one: point-sharded fusion of the main path's "
+          f"{len(points)} scans ({points.shape[1]} points, "
+          f"{corners.shape[1]} boxes, csv_eval) and sharded_fuse_batch equal "
+          f"fuse_batch bit for bit ({counted} counted, "
+          f"{int(ref['matched'].sum())} matched); K1 launches "
+          f"{want_k1}", flush=True)
+    del frames, whole, ref
+    dist.destroy_process_group()
+    phase("scale-out: world of one on NCCL", t0)
+
+    # --- two ranks on the one card over gloo ---
+    job = os.path.join(tmp, "scale_out_ranks")
+    os.makedirs(job)
+    np.savez(os.path.join(job, "inputs.npz"),
+             images=images.cpu().numpy(),
+             **{k: np.asarray(v) for k, v in targets.items()},
+             **{f"pp{i}": np.asarray(a) for i, a in enumerate(pp_batch)},
+             **{f"fuse{i}": t.cpu().numpy() for i, t in enumerate(batch)})
+    cfg = dataclasses.replace(PillarsConfig.kitti360_surround(), head="ssd")
+    state = pillars_state_from_flax(read_flax_msgpack(PP_CKPTS["ssd"])["0"])
+    one_yolo = yolo_step_grads(torch, n_vars, images, targets, dev)
+    one_pp = training_step_grads(torch, cfg, state, pp_batch, dev)
+    k1_counts = fuse_batch(*batch, *calib, params=params)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ranks = [r.value for r in distributed.spawn(
+        "chip_smoke:scale_out_ranks", 2, (job,), timeout=SCALE_OUT_TIMEOUT,
+        device="cuda", path=[REPO],
+        workdir=os.path.join(job, "run"))]
+    summary["ranks_w2_wall_s"] = time.perf_counter() - t
+    checks = {}
+    for res in ranks:
+        if res["backend"] != "gloo":
+            raise AssertionError(f"two ranks on one card came up on "
+                                 f"{res['backend']}, not gloo")
+        for name in ("yolo_data2", "yolo_model2"):
+            parts, grads = res[name]
+            err = max(abs(parts[k] - one_yolo[0][k])
+                      / max(abs(one_yolo[0][k]), 1e-12) for k in parts)
+            if err > YOLO_STEP_LOSS_RTOL:
+                raise AssertionError(f"{name} on rank {res['rank']}: loss "
+                                     f"parts {parts} against {one_yolo[0]}")
+            checks[f"{name}_rank{res['rank']}"] = (
+                err, *check_yolo_grads(grads, one_yolo[1]))
+        parts, grads = res["pp_step"]
+        loss_err = max(abs(parts[k] - one_pp[0][k])
+                       / max(abs(one_pp[0][k]), 1e-12)
+                       for k in ("loss", "cls", "box", "dir"))
+        grad_err = grad_spread(grads, one_pp[1])
+        if not steps_agree(parts, one_pp[0], loss_err, grad_err):
+            raise AssertionError(f"the PointPillars step on rank "
+                                 f"{res['rank']}: {parts} against "
+                                 f"{one_pp[0]}, gradients {grad_err}")
+        checks[f"pp_step_rank{res['rank']}"] = (loss_err, grad_err)
+        if res["launches"]["pp_step"]["rotated_iou_pairs"] != 1:
+            raise AssertionError(f"rank {res['rank']}'s PointPillars step "
+                                 f"launched {res['launches']['pp_step']}")
+        for key, value in res["point_sharded"].items():
+            if not np.array_equal(value, k1_counts[key].cpu().numpy()):
+                raise AssertionError(f"rank {res['rank']}'s point-sharded "
+                                     f"{key} differs from fuse_batch's")
+        if res["launches"]["point_sharded"]["inside_counts"] != len(points):
+            raise AssertionError(f"rank {res['rank']}'s point-sharded "
+                                 f"fusion launched "
+                                 f"{res['launches']['point_sharded']}")
+        pipe = res["pipeline"]
+        scale = max(float(np.abs(pipe["seq_out"]).max()), 1e-30)
+        pipe_err = max(
+            float(np.abs(pipe["out"] - pipe["seq_out"]).max()) / scale,
+            abs(pipe["grads"][0] - pipe["seq_grads"][0])
+            / abs(pipe["seq_grads"][0]),
+            *(float(np.abs(g - s).max()) / max(float(np.abs(s).max()),
+                                                1e-30)
+              for g, s in zip(pipe["grads"][1:], pipe["seq_grads"][1:])))
+        if pipe_err > 1e-5:
+            raise AssertionError(f"the pipeline on rank {res['rank']} is "
+                                 f"{pipe_err} off the sequential chain")
+        checks[f"pipeline_rank{res['rank']}"] = pipe_err
+    summary["step_w2_gloo_ms"] = [r["yolo_data2_step_ms"] for r in ranks]
+    summary["step_w2_gloo_note"] = ("two processes sharing one card over "
+                                    "gloo: not a scaling number")
+    summary["allreduce_w2_gloo_ms"] = [r["allreduce_w2_ms"] for r in ranks]
+    launches["ranks_w2"] = [r["launches"] for r in ranks]
+    print(f"two ranks on one card over gloo: every check passed {checks} "
+          f"(YOLO: loss parts' error, gradients' error, the zero leaves' "
+          f"shares; PointPillars: loss parts, gradients; pipeline); the "
+          f"data-2 n step {summary['step_w2_gloo_ms']} ms and its gradient "
+          f"all-reduce {summary['allreduce_w2_gloo_ms']} ms per rank, two "
+          f"processes sharing one card (not a scaling number), CUDA "
+          f"events, on {smi}", flush=True)
+    phase("scale-out: two ranks on one card", t0)
+
+    # --- the distillation runner under two ranks, twice ---
+    files, runner = [], []
+    for run in ("first", "again"):
+        ckpt = os.path.join(tmp, f"yolo_w2_{run}.msgpack")
+        t = time.perf_counter()
+        rank_runs = distributed.spawn(
+            "chip_smoke:scale_out_runner", 2,
+            (["--dataset", root, "--cache", cache, "--ckpt", ckpt,
+              "--steps", "4", "--ema-decay", "0.9", "--device", "cuda"],),
+            timeout=SCALE_OUT_TIMEOUT, device="cuda", path=[REPO],
+            workdir=os.path.join(tmp, f"runner_{run}"))
+        summary.setdefault("runner_w2_wall_s", []).append(
+            time.perf_counter() - t)
+        zero, one = rank_runs
+        if one.stdout or f"[train] ckpt -> {ckpt} @ 4" not in zero.stdout:
+            raise AssertionError(f"the runner's ranks printed "
+                                 f"{zero.stdout!r} and {one.stdout!r}")
+        want = {k: 0 for k in kernel_lib.LAUNCHES}
+        if one.value != want or zero.value != dict(want, nms=1,
+                                                   mask_assemble=1):
+            raise AssertionError(f"the runner's ranks launched "
+                                 f"{zero.value} and {one.value}")
+        runner.append([zero.value, one.value])
+        files.append([read_bytes(ckpt + s) for s in ("", ".opt", ".json")])
+        eval_line = zero.stdout.strip().splitlines()[-1]
+    if files[0] != files[1]:
+        raise AssertionError("two runner runs under 2 ranks wrote different "
+                             "files")
+    launches["runner_w2"] = runner[0]
+    print(f"yolo_distill under 2 ranks (gloo, one card), twice: rank 0 "
+          f"alone printed and wrote, the same .msgpack, .opt and .json bytes; "
+          f"its evaluation {eval_line}; wall s "
+          f"{summary['runner_w2_wall_s']} (host clock) on {smi}",
+          flush=True)
+    summary["checks"] = checks
+    summary["card"] = smi
+    print(json.dumps({"scale_out": summary}), flush=True)
+    phase("scale-out", t0)
+    return launches, summary
 
 
 def pair_cases(torch, dev, rng, real):
@@ -4040,7 +4517,8 @@ def main() -> int:
     kernels.append(check_nms(torch, dev, rng, detector, images))
     phase("kernels against twins", t0)
 
-    launches = main_path(torch, dev, smi, detector, images, scenes)
+    launches, serving_det = main_path(torch, dev, smi, detector, images,
+                                      scenes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4070,13 +4548,16 @@ def main() -> int:
         check_pp_aabb(torch, dev, pp_aabb))
     phase("PointPillars kernels against twins", t0)
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, _, pairs = pointpillars_train_phase(torch, dev, smi,
-                                                            tmp)
+        train_launches, _, pairs, pp_batch = pointpillars_train_phase(
+            torch, dev, smi, tmp)
     assigner = check_rotated_iou_pairs(torch, dev, rng, pairs)
     del pairs
     phase("PointPillars training kernel against its twin", t0)
     with tempfile.TemporaryDirectory() as tmp:
         yolo_launches, _ = yolo_train_phase(torch, dev, smi, tmp)
+        scale_launches, _ = scale_out_phase(torch, dev, smi, tmp, scenes,
+                                            serving_det, pp_batch)
+    del serving_det, pp_batch
     with tempfile.TemporaryDirectory() as tmp:
         k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
     peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
@@ -4118,6 +4599,15 @@ def main() -> int:
             run: n[k["name"]] for run, n in train_launches.items()}
         k["yolo_train_launches"] = {run: n[k["name"]]
                                     for run, n in yolo_launches.items()}
+        k["scale_out_launches"] = {
+            "point_sharded_w1": scale_launches["point_sharded_w1"][
+                k["name"]],
+            "frame_sharded_w1": scale_launches["frame_sharded_w1"][
+                k["name"]],
+            "ranks_w2": [{part: n[k["name"]] for part, n in rank.items()}
+                         for rank in scale_launches["ranks_w2"]],
+            "runner_w2": [n[k["name"]]
+                          for n in scale_launches["runner_w2"]]}
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -11,6 +11,12 @@ network's bits equal across runs and devices.
 * :func:`repeatable`: cuDNN's deterministic algorithms, for a backward
   that gives the same bits each run.
 * :func:`true_div`: IEEE division by a scalar on every device.
+* :func:`split_batch`, :func:`batch_mean`, :func:`batch_sum` and
+  :func:`global_sum`: a training batch split over the ranks of a
+  ``torch.distributed`` group (the scale-out mesh's ``data`` axis) takes
+  its statistics and normalisers over the whole batch, as JAX's step on a
+  sharded batch does.  With no group each returns its input itself, so
+  the one-card step is unchanged.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # Flax's variance_scaling divides the standard deviation by the standard
@@ -44,7 +51,11 @@ class BatchNorm(nn.Module):
 
     ``forward(x, train=True)`` takes the batch's statistics over (N, H,
     W): mean ``E[x]`` and the biased variance ``max(E[x^2] - E[x]^2, 0)``
-    (Flax's ``use_fast_variance``), in float32; the output is ``(x - mean)
+    (Flax's ``use_fast_variance``), in float32, over the whole batch when
+    it is split over the ranks of ``batch_group``
+    (:func:`batch_mean`: each rank's ``E[x]`` and
+    ``E[x^2]`` averaged over the ranks, with their gradients); the output
+    is ``(x - mean)
     * (rsqrt(var + eps) * scale) + bias``; and, with no gradient,
     ``running = m * running + (1 - m) * batch`` (m = ``momentum``, Flax's
     convention: ``torch.nn.BatchNorm2d``'s momentum would be 1 - m, and it
@@ -60,6 +71,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self._set_stats_dtype(torch.float32)
+        # the process group a training batch is split over
+        # (split_batch); None: this rank's batch
+        self.batch_group = None
 
     def _set_stats_dtype(self, dtype: torch.dtype) -> None:
         self.stats_dtype = dtype
@@ -75,9 +89,10 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool = False):
         if train:
             x = x.float()
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, mean_sq = batch_mean(
+                self.batch_group, x.mean(dim=(0, 2, 3)),
+                (x * x).mean(dim=(0, 2, 3)))
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             _update_running(self, mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             return (x - mean[:, None, None]) * mul[:, None, None] \
@@ -91,6 +106,68 @@ class BatchNorm(nn.Module):
         y = (x.float() - self.running_mean.float()[:, None, None]) \
             * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# a training batch split over ranks
+# ---------------------------------------------------------------------------
+
+def split_batch(model: nn.Module, group) -> None:
+    """Make ``model``'s train-mode BatchNorms take their statistics over
+    the batch split over ``group`` (None: the rank's own batch): sets the
+    ``batch_group`` of every module that has one."""
+    for module in model.modules():
+        if hasattr(module, "batch_group"):
+            module.batch_group = group
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over a group of each rank's share; the backward sums the
+    gradients, since every rank's share depends on the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def batch_mean(group, *stats: torch.Tensor):
+    """The means of the whole batch from each rank's means over its own
+    rows (each rank holds as many rows as any other: the batch divides):
+    their sum over ``group``, divided by its size, through
+    :class:`AllReduceSum`; the means as they are when ``group`` is None.
+    Returns a tuple."""
+    if group is None:
+        return stats
+    summed = AllReduceSum.apply(torch.stack(stats), group)
+    n = torch.full((), dist.get_world_size(group), dtype=summed.dtype,
+                   device=summed.device)
+    return tuple((summed / n).unbind(0))
+
+
+def batch_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial sum, with its
+    gradient (:class:`AllReduceSum`); ``x`` when ``group`` is None."""
+    return x if group is None else AllReduceSum.apply(x, group)
+
+
+def global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A normaliser summed over ``group``, detached (a count or a sum of
+    targets: no gradient flows through it, as none does in JAX's step);
+    ``x`` when ``group`` is None."""
+    if group is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def _update_running(bn: nn.Module, mean, var) -> None:

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lidar_object_detection_tpu_torch.models.common import true_div
+from lidar_object_detection_tpu_torch.models.common import (
+    global_sum, true_div)
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
     top_k_lowest_index)
 
@@ -161,17 +162,20 @@ def penalty_reduced_focal(logits, targets, alpha: float = 2.0,
 
 def center_loss(outputs, gt_boxes7, gt_classes, gt_valid, cfg,
                 heat_weight: float = 1.0, reg_weight: float = 2.0,
-                gt_pos_weight=None):
+                gt_pos_weight=None, group=None):
     """Batched CenterPoint loss, the keys of
     :func:`.loss.pointpillars_loss` (``dir`` is 0).  ``gt_pos_weight``
     (B, G) >= 1 weights each GT's positive heatmap cell and regression
-    term (:func:`starve_weights`)."""
+    term (:func:`starve_weights`); ``group`` as
+    :func:`.loss.pointpillars_loss`'s."""
     targets = render_center_targets(gt_boxes7, gt_classes, gt_valid, cfg)
     heat_logits = outputs["heat"].to(torch.float32)
     b = heat_logits.shape[0]
     h, w = _head_shape(cfg)
     nc = cfg.num_classes
-    num_pos = torch.clamp(targets["mask"].sum(), min=1).to(torch.float32)
+    num_pos = torch.clamp(global_sum(targets["mask"].sum(),
+                                                 group),
+                          min=1).to(torch.float32)
 
     pw_map = None
     gt_w = None

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
+from lidar_object_detection_tpu_torch.models.common import global_sum
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
     anchor_grid, bev_aabb, encode_boxes)
 from lidar_object_detection_tpu_torch.models.pointpillars.model import (
@@ -159,8 +160,8 @@ def pointpillars_loss(outputs, gt_boxes7, gt_classes, gt_valid,
                       cfg: PillarsConfig,
                       cls_weight: float = 1.0, box_weight: float = 2.0,
                       dir_weight: float = 0.2,
-                      gt_pos_weight=None,
-                      anchors=None) -> Dict[str, torch.Tensor]:
+                      gt_pos_weight=None, anchors=None,
+                      group=None) -> Dict[str, torch.Tensor]:
     """Batched loss.
 
     Args:
@@ -170,6 +171,9 @@ def pointpillars_loss(outputs, gt_boxes7, gt_classes, gt_valid,
       gt_valid: (B, MAX_GT) bool.
       anchors: (N, 7), by default ``anchor_grid(cfg)`` on the outputs'
         device.
+      group: the process group the batch is split over (None: this
+        rank's batch): ``num_pos`` is then the whole batch's, and the
+        loss and its parts this rank's share of the whole batch's.
 
     With ``cfg.head == "center"`` the outputs are the center heads and the
     loss is :func:`.center.center_loss` (the same keys).  Returns loss,
@@ -179,7 +183,7 @@ def pointpillars_loss(outputs, gt_boxes7, gt_classes, gt_valid,
         from lidar_object_detection_tpu_torch.models.pointpillars.center \
             import center_loss
         return center_loss(outputs, gt_boxes7, gt_classes, gt_valid, cfg,
-                           gt_pos_weight=gt_pos_weight)
+                           gt_pos_weight=gt_pos_weight, group=group)
     b = outputs["cls"].shape[0]
     nc = cfg.num_classes
     if anchors is None:
@@ -204,7 +208,7 @@ def pointpillars_loss(outputs, gt_boxes7, gt_classes, gt_valid,
               == torch.arange(nc, device=matched.device)).to(torch.float32) \
         * posf[..., None]
     weights = (pos | neg).to(torch.float32)[..., None]
-    num_pos = torch.clamp(pos.sum(), min=1)
+    num_pos = torch.clamp(global_sum(pos.sum(), group), min=1)
     cls_loss = torch.sum(focal_loss(cls_logits, labels) * weights) / num_pos
 
     # regression on positives (sin for the yaw channel)

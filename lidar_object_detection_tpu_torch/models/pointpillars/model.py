@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lidar_object_detection_tpu_torch.models.common import (
-    BatchNorm, _update_running, full_float32)
+    BatchNorm, _update_running, batch_sum, full_float32, global_sum)
 from lidar_object_detection_tpu_torch.models.pointpillars.voxelize import (
     PillarGridConfig, point_features, scatter_bev)
 
@@ -121,7 +121,9 @@ class MaskedBatchNorm(nn.Module):
     ``(x - mean) * rsqrt(var + eps)``, then ``* scale + bias`` (the JAX
     module's order).  In training the mean and the biased variance are
     weighted by ``mask`` (two passes over the rows, n = max(sum(mask),
-    1)), and the running statistics update as :class:`BatchNorm`'s."""
+    1)), summed over the ranks of ``batch_group`` when the batch is split
+    over them (:func:`..common.batch_sum`), and the running
+    statistics update as :class:`BatchNorm`'s."""
 
     def __init__(self, c: int, eps: float = BN_EPS, momentum: float = 0.9):
         super().__init__()
@@ -131,14 +133,17 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.batch_group = None     # as BatchNorm's
 
     def forward(self, x, mask=None, train: bool = False):
         if train:
             w = mask.to(torch.float32)[:, None]
-            n = torch.clamp(w.sum(), min=1.0)
+            group = self.batch_group
+            n = torch.clamp(global_sum(w.sum(), group), min=1.0)
             x = x.float()
-            mean = (x * w).sum(dim=0) / n
-            var = (((x - mean) ** 2) * w).sum(dim=0) / n
+            mean = batch_sum((x * w).sum(dim=0), group) / n
+            var = batch_sum(
+                (((x - mean) ** 2) * w).sum(dim=0), group) / n
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -1,12 +1,24 @@
 """PointPillars training step: forward in train mode, loss, backward and
-an AdamW update, one frame batch per step.
+an AdamW update, one frame batch per step, on one card or data parallel
+over a mesh.
 
 Counterpart of ``lidar_object_detection_tpu/models/pointpillars/train.py``
 (``PillarsTrainer``, ``_train_step``) and of the ``TrainState`` of
 ``lidar_object_detection_tpu/parallel/train.py:364-373``.  The JAX step is
-one jitted program on a one-device mesh; here it runs op by op on
-``device`` (the card by default), gradients by autograd as JAX's come from
-``jax.value_and_grad``: no operation of the step has a custom backward.
+one jitted program on a mesh; here it runs op by op on ``device`` (the
+card by default), gradients by autograd as JAX's come from
+``jax.value_and_grad``.
+
+With a mesh (``PillarsTrainer(..., mesh=...)``) the step is JAX's on its
+mesh: the frames split over ``data`` and the variables replicated
+(JAX's ``P()``).  Each rank takes its rows of the global batch;
+train-mode BatchNorm, the pillar net's masked one included, takes the
+whole batch's statistics and the loss the whole batch's ``num_pos``
+(:mod:`..common`), so each rank's loss is its share of the
+global loss and the gradients are summed over ``data``; AdamW then runs
+alike on every rank.  The SSD assigner launches ``rotated_iou_pairs``
+once per rank a step, on the rank's frames.  With ``mesh=None`` the
+trainer is the one-card trainer, unchanged.
 
 The optimizer is :func:`..parallel.optim.adamw_update`, ``optax.adamw``'s
 arithmetic written out (``torch.optim.AdamW`` orders its operations
@@ -31,7 +43,7 @@ import numpy as np
 import torch
 
 from lidar_object_detection_tpu_torch.models.common import (
-    full_float32, repeatable)
+    full_float32, repeatable, split_batch)
 from lidar_object_detection_tpu_torch.models.pointpillars.center import (
     starve_weights)
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
@@ -44,6 +56,9 @@ from lidar_object_detection_tpu_torch.models.pointpillars.model import (
     PillarsConfig, PointPillars)
 from lidar_object_detection_tpu_torch.models.pointpillars.weights import (
     pillars_flax_from_state)
+from lidar_object_detection_tpu_torch.parallel import collectives
+from lidar_object_detection_tpu_torch.parallel.mesh import (
+    DATA_AXIS, data_sharding)
 from lidar_object_detection_tpu_torch.parallel.optim import (
     AdamWState, adamw_state_dict, adamw_update)
 
@@ -81,16 +96,22 @@ class PillarsTrainer:
     (the JAX trainer's ``PRNGKey(seed)`` draws cannot be reproduced), and
     the anchor grid is built once, on the device.  The JAX trainer's
     ``num_points`` (the shape of its initialization) has no counterpart:
-    the port's network takes any cloud size.
+    the port's network takes any cloud size.  With a ``mesh`` a batch is
+    the global batch, whose frames the ``data`` axis divides, and every
+    rank calls :meth:`train_step` together.
     """
 
     def __init__(self, cfg: PillarsConfig, learning_rate: float = 2e-3,
-                 weight_decay: float = 1e-4, seed: int = 0, device="cuda"):
+                 weight_decay: float = 1e-4, seed: int = 0, device="cuda",
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.data_group = None if mesh is None else mesh.get_group(DATA_AXIS)
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.device = torch.device(device)
         model = initialize(PointPillars(cfg), seed).to(self.device)
+        split_batch(model, self.data_group)
         self.state = TrainState(
             model=model, opt_state=AdamWState.zeros(
                 dict(model.named_parameters())), step=0)
@@ -112,9 +133,17 @@ class PillarsTrainer:
                 self._put(gt_boxes7, torch.float32), self._put(gt_classes),
                 self._put(gt_valid))
 
+    def local_batch(self, *batch):
+        """This rank's rows of a global batch (:meth:`batch_tensors`'s),
+        split over ``data``; the batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        return tuple(data_sharding(self.mesh, t) for t in batch)
+
     def loss(self, points, valid, gt_boxes7, gt_classes, gt_valid):
         """The train-mode forward (BatchNorm statistics updated) and the
-        loss dict, on device tensors."""
+        loss dict, on device tensors; with a mesh, this rank's rows
+        (:meth:`local_batch`) and its share of the global loss."""
         cfg = self.cfg
         gt_pw = None
         if cfg.head == "center" and cfg.starve_weight > 0:
@@ -122,12 +151,17 @@ class PillarsTrainer:
         self.model.train()
         out = self.model(points, valid, train=True)
         return pointpillars_loss(out, gt_boxes7, gt_classes, gt_valid, cfg,
-                                 gt_pos_weight=gt_pw, anchors=self.anchors)
+                                 gt_pos_weight=gt_pw, anchors=self.anchors,
+                                 group=self.data_group)
 
     def gradients(self, loss) -> Dict[str, torch.Tensor]:
+        """The parameters' gradients; with a mesh, of the global loss:
+        the shares' gradients summed over ``data`` in one all-reduce."""
         params = self.state.params()
         with full_float32(), repeatable():
             grads = torch.autograd.grad(loss, list(params.values()))
+        if self.data_group is not None:
+            grads = collectives.all_reduce_coalesced(grads, self.data_group)
         return dict(zip(params, grads))
 
     def update(self, grads: Dict[str, torch.Tensor]) -> None:
@@ -138,14 +172,20 @@ class PillarsTrainer:
 
     def train_step(self, points, valid, gt_boxes7, gt_classes,
                    gt_valid) -> Dict[str, Any]:
-        """One step on a batch (numpy arrays or tensors): returns the
-        loss, cls, box, dir and num_pos of the batch before the update,
-        as tensors on the device."""
-        batch = self.batch_tensors(points, valid, gt_boxes7, gt_classes,
-                                   gt_valid)
+        """One step on a (global) batch (numpy arrays or tensors):
+        returns the loss, cls, box, dir and num_pos of the batch before
+        the update, as tensors on the device."""
+        batch = self.local_batch(*self.batch_tensors(
+            points, valid, gt_boxes7, gt_classes, gt_valid))
         losses = self.loss(*batch)
         self.update(self.gradients(losses["loss"]))
-        return {k: v.detach() for k, v in losses.items()}
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if self.data_group is not None:
+            # num_pos is the global count already; the rest are shares
+            keys = [k for k in metrics if k != "num_pos"]
+            metrics.update(zip(keys, collectives.all_reduce_coalesced(
+                [metrics[k] for k in keys], self.data_group)))
+        return metrics
 
     @torch.no_grad()
     def apply(self, points, valid):

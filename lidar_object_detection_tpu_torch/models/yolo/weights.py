@@ -114,6 +114,16 @@ def _torch_key(stem: str, leaf: str, collection: str) -> str:
     return f"{stem}.{names[leaf]}"
 
 
+def flax_kernel_axes(key: str) -> Tuple[int, ...]:
+    """The dims of the 4-D kernel ``key`` (a state-dict key) in the order
+    of its Flax kernel's axes: OIHW -> HWIO, but the Proto's
+    transposed-conv kernel, which the JAX package keeps in its (in, out,
+    2, 2) layout."""
+    if key.rsplit(".", 1)[0].endswith("upsample"):
+        return (0, 1, 2, 3)
+    return (2, 3, 1, 0)
+
+
 def _torch_entry(stem: str, leaf: str, collection: str, value):
     t = _as_tensor(value)
     if leaf == "kernel" and not stem.endswith("upsample"):

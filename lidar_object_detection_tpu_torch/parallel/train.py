@@ -1,6 +1,6 @@
-"""YOLO11-seg training step on one card: the v8-family detection loss under
+"""YOLO11-seg training step: the v8-family detection loss under
 task-aligned assignment, the Segment head's mask loss, AdamW and an EMA of
-the weights.
+the weights, on one card or over a (data, model) mesh.
 
 Counterpart of ``lidar_object_detection_tpu/parallel/train.py:40-473``:
 
@@ -21,8 +21,19 @@ Counterpart of ``lidar_object_detection_tpu/parallel/train.py:40-473``:
   ``e = d * e + (1 - d) * v`` over every variable, parameters and
   BatchNorm statistics, with ``d = min(decay, (1 + t) / (10 + t))``.
 
-The JAX trainer's mesh and ``param_shardings`` have no counterpart on one
-card, and only float32 training is ported (the JAX trainer's ``dtype``
+With a mesh (``YoloTrainer(..., mesh=...)``, :mod:`.mesh`) the step is
+JAX's step on its mesh, where GSPMD inserts the reductions, and not
+``DistributedDataParallel``'s: each rank takes its rows of the global
+batch (``data``); train-mode BatchNorm takes the whole batch's
+statistics, and the TAL, mask-loss and center-assigner normalisers are
+the whole batch's (:mod:`..models.common`); each rank's loss is its share of
+the whole batch's, so the gradients are summed over ``data``, not
+averaged; AdamW, the schedule and the EMA then run alike on every rank.
+:func:`param_shardings` is JAX's rule for the ``model`` axis: a conv
+kernel whose Flax output axis the axis size divides is held in slices
+along it, one a rank, with its AdamW moments and EMA entry; the forward
+all-gathers it.  With ``mesh=None`` the trainer is the one-card trainer,
+unchanged.  Only float32 training is ported (the JAX trainer's ``dtype``
 may be bfloat16).
 
 Ties follow JAX's rules: the argmax over GTs takes the first maximum,
@@ -50,12 +61,15 @@ import torch.nn.functional as F
 
 from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
 from lidar_object_detection_tpu_torch.models.common import (
-    full_float32, repeatable)
+    full_float32, global_sum, repeatable, split_batch)
 from lidar_object_detection_tpu_torch.models.yolo.init import initialize
 from lidar_object_detection_tpu_torch.models.yolo.model import (
     REG_MAX, STRIDES, Yolo11, YoloConfig)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
-    from_flax_variables, yolo_flax_from_state)
+    flax_kernel_axes, from_flax_variables, yolo_flax_from_state)
+from lidar_object_detection_tpu_torch.parallel import collectives
+from lidar_object_detection_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, axis_size, data_sharding)
 from lidar_object_detection_tpu_torch.parallel.optim import (
     AdamWState, Schedule, adamw_state_dict, adamw_state_from_dict,
     adamw_update, rate_at)
@@ -178,7 +192,8 @@ def _dfl(logp, tgt_ltrb, weights, norm):
 def detection_loss(outputs, targets, num_classes: int,
                    level_shapes: LevelShapes, cls_weight: float = 0.5,
                    box_weight: float = 7.5, dfl_weight: float = 1.5,
-                   assigner: str = "tal", seg_weight: float = 1.0):
+                   assigner: str = "tal", seg_weight: float = 1.0,
+                   group=None):
     """The loss of one batch: ``(total, parts)``.
 
     Args:
@@ -190,6 +205,9 @@ def detection_loss(outputs, targets, num_classes: int,
       level_shapes: (h, w) per level.
       assigner: "tal", or "center" (one anchor per GT, at its centre's
         cell on the level of its size).
+      group: the process group the batch is split over (None: this
+        rank's batch): the normalisers are then the whole batch's, and the
+        loss and its parts this rank's share of the whole batch's.
     """
     b = targets["boxes"].shape[0]
     box_flat = _flat(outputs["box"], b, 4 * REG_MAX)
@@ -202,16 +220,17 @@ def detection_loss(outputs, targets, num_classes: int,
                    targets["masks"])
         return _tal_loss(box_flat, cls_flat, targets, num_classes,
                          level_shapes, cls_weight, box_weight, dfl_weight,
-                         seg=seg, seg_weight=seg_weight)
+                         seg=seg, seg_weight=seg_weight, group=group)
     if assigner != "center":
         raise ValueError(f"assigner must be 'tal' or 'center', got "
                          f"{assigner!r}")
     return _center_loss(box_flat, cls_flat, targets, num_classes,
-                        level_shapes, cls_weight, box_weight, dfl_weight)
+                        level_shapes, cls_weight, box_weight, dfl_weight,
+                        group)
 
 
 def _center_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
-                 cls_weight, box_weight, dfl_weight):
+                 cls_weight, box_weight, dfl_weight, group=None):
     """``detection_loss(..., assigner="center")``
     (``parallel/train.py:160-223`` of the JAX package)."""
     dev = box_flat.device
@@ -234,7 +253,8 @@ def _center_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
     anchor_idx = level_offset[lvl] + cy * lw + cx              # (B, T)
     tvalid = targets["valid"]
     fvalid = tvalid.float()
-    n_valid = torch.clamp(fvalid.sum(), min=1.0)
+    n_valid = torch.clamp(global_sum(fvalid.sum(), group),
+                          min=1.0)
 
     # classification: BCE over every anchor, one-hot (max) at assignments
     batch_ix = torch.arange(b, device=dev)[:, None]
@@ -278,7 +298,7 @@ def _center_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
 
 def _tal_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
               cls_weight, box_weight, dfl_weight, seg=None,
-              seg_weight: float = 1.0):
+              seg_weight: float = 1.0, group=None):
     """The anchor-centric v8 loss under task-aligned assignment: BCE with
     soft (alignment-normalized) targets, IoU + DFL regression on positives
     weighted by the soft target, and the mask loss when ``seg`` is
@@ -305,7 +325,7 @@ def _tal_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
 
     # classification: BCE with soft targets (ultralytics v8)
     labels = F.one_hot(gt_cls, nc).float() * soft[..., None]
-    norm = torch.clamp(soft.sum(), min=1.0)
+    norm = torch.clamp(global_sum(soft.sum(), group), min=1.0)
     cls_loss = sigmoid_bce(cls_flat.float(), labels).sum() / norm
 
     # IoU loss on positives, weighted by the soft target
@@ -333,14 +353,16 @@ def _tal_loss(box_flat, cls_flat, targets, num_classes, level_shapes,
     if seg is not None:
         proto, coef_flat, gt_masks = seg
         seg_l = segmentation_loss(proto, coef_flat, assign, gt_masks,
-                                  targets["boxes"], level_shapes)
+                                  targets["boxes"], level_shapes,
+                                  group=group)
         total = total + seg_weight * seg_l
         parts["seg"] = seg_l
     return total, parts
 
 
 def segmentation_loss(proto, coef_flat, assign, gt_masks, gt_boxes,
-                      level_shapes: LevelShapes, max_pos: int = 64):
+                      level_shapes: LevelShapes, max_pos: int = 64,
+                      group=None):
     """The Segment head's instance-mask loss (ultralytics v8-seg): for the
     ``max_pos`` anchors of largest soft target a frame (a stable
     descending sort, lowest index first among ties, as ``jax.lax.top_k``),
@@ -352,6 +374,8 @@ def segmentation_loss(proto, coef_flat, assign, gt_masks, gt_boxes,
       proto: (B, Hp, Wp, nm) prototypes; coef_flat: (B, N, nm).
       assign: :func:`task_aligned_assign`'s dict.
       gt_masks: (B, T, Hp, Wp) {0, 1}; gt_boxes: (B, T, 4) letterbox px.
+      group: as :func:`detection_loss`'s (the weights' sum is the whole
+        batch's).
     """
     b, hp, wp, nm = proto.shape
     scale = hp / (level_shapes[0][0] * STRIDES[0])   # letterbox -> proto
@@ -380,7 +404,8 @@ def segmentation_loss(proto, coef_flat, assign, gt_masks, gt_boxes,
     area = torch.clamp(in_box.sum((-2, -1)), min=1.0)
     per_inst = (bce * in_box).sum((-2, -1)) / area
     w = (top_w > 0).float() * top_w
-    return torch.sum(per_inst * w) / torch.clamp(w.sum(), min=1.0)
+    return torch.sum(per_inst * w) / torch.clamp(
+        global_sum(w.sum(), group), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +427,25 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
+def param_shardings(mesh, model: Yolo11) -> Dict[str, Optional[int]]:
+    """JAX's rule for the ``model`` axis, per parameter name: the dim a
+    parameter is sliced along over ``model``, or None where it is
+    replicated.  A 4-D kernel whose Flax kernel's last (output) axis the
+    axis size tp divides, with tp > 1, is sliced along that axis: dim 0
+    of a ``Conv2d`` weight (OIHW); dim 3 of the Proto's
+    ``ConvTranspose2d`` weight, whose Flax kernel keeps torch's (in, out,
+    2, 2) layout, so that its last axis is the kernel's width
+    (:func:`..models.yolo.weights.flax_kernel_axes`).  Everything else is
+    replicated."""
+    tp = axis_size(mesh, MODEL_AXIS)
+    rule = {}
+    for name, p in model.named_parameters():
+        dim = flax_kernel_axes(name)[-1] if p.dim() == 4 else None
+        rule[name] = (dim if dim is not None and tp > 1
+                      and p.shape[dim] % tp == 0 else None)
+    return rule
+
+
 class YoloTrainer:
     """YOLO11-seg training on ``device``, one batch per
     :meth:`train_step`.
@@ -414,13 +458,22 @@ class YoloTrainer:
     shapes the JAX trainer's compiled step takes: images of
     ``image_size`` and ``max_targets`` target slots a frame (:meth:`put`
     refuses others).
+
+    With a ``mesh`` (:func:`.mesh.make_mesh`) the batch is the global
+    batch, whose frames the ``data`` axis divides; :meth:`train_step`
+    takes this rank's rows of it, and the trainer holds this rank's
+    slices of the kernels :func:`param_shardings` names, with their AdamW
+    moments and EMA entries.  Every rank calls :meth:`train_step`,
+    :meth:`variables`, :meth:`ema_variables` and :meth:`opt_state_dict`
+    together: they are collective.
     """
 
     def __init__(self, cfg: YoloConfig, image_size=(192, 640),
                  max_targets: int = 32,
                  learning_rate: Union[float, Schedule] = 1e-3,
                  weight_decay: float = 5e-4, seg_weight: float = 1.0,
-                 ema_decay: float = 0.0, seed: int = 0, device="cuda"):
+                 ema_decay: float = 0.0, seed: int = 0, device="cuda",
+                 mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but CUDA is not "
@@ -439,6 +492,16 @@ class YoloTrainer:
         # overwrites: keep the caller's global generator untouched
         with torch.random.fork_rng(devices=[]):
             model = initialize(Yolo11(cfg), seed).to(self.device)
+        self.mesh = mesh
+        self.data_group = self.model_group = None
+        self.shard_dims: Dict[str, int] = {}
+        if mesh is not None:
+            self.data_group = mesh.get_group(DATA_AXIS)
+            self.model_group = mesh.get_group(MODEL_AXIS)
+            self.shard_dims = {k: d for k, d in param_shardings(
+                mesh, model).items() if d is not None}
+            self._keep_own_slices(model)
+            split_batch(model, self.data_group)
         self.state = TrainState(
             model=model,
             opt_state=AdamWState.zeros(dict(model.named_parameters())),
@@ -448,6 +511,35 @@ class YoloTrainer:
     def model(self) -> Yolo11:
         return self.state.model
 
+    def _keep_own_slices(self, model) -> None:
+        """Replace each sharded parameter by this rank's slice of it."""
+        modules = dict(model.named_modules())
+        with torch.no_grad():
+            for name, dim in self.shard_dims.items():
+                stem, leaf = name.rsplit(".", 1)
+                full = getattr(modules[stem], leaf)
+                setattr(modules[stem], leaf, torch.nn.Parameter(
+                    self._own(full, name).clone()))
+
+    def _own(self, full: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's slice of the full tensor of parameter ``name``
+        (the tensor itself where it is replicated)."""
+        dim = self.shard_dims.get(name)
+        if dim is None:
+            return full
+        return collectives.own_slice(full, dim, self.model_group)
+
+    def full_tree(self, tree: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """A name-keyed tree (parameters, gradients, moments, a state
+        dict) with each sharded entry gathered over ``model`` whole
+        (collective)."""
+        if not self.shard_dims:
+            return tree
+        return {k: collectives.all_gather_cat(v, self.model_group,
+                                              self.shard_dims[k])
+                if k in self.shard_dims else v for k, v in tree.items()}
+
     def _ema_copy(self, model) -> Optional[Dict[str, torch.Tensor]]:
         if self.ema_decay <= 0:
             return None
@@ -455,20 +547,41 @@ class YoloTrainer:
 
     # -- the step ------------------------------------------------------------
 
+    def forward(self, images):
+        """The network's forward on ``images``, its sharded kernels
+        all-gathered over ``model`` first."""
+        if not self.shard_dims:
+            return self.model(images)
+        params = self.state.params()
+        names = list(self.shard_dims)
+        full = collectives.gather_shards(
+            [params[k] for k in names], [self.shard_dims[k] for k in names],
+            self.model_group)
+        return torch.func.functional_call(self.model, dict(zip(names, full)),
+                                          (images,))
+
     def loss(self, images, targets):
         """The train-mode forward (BatchNorm statistics updated) and
-        ``(total, parts)`` on device tensors (:meth:`put`)."""
+        ``(total, parts)`` on device tensors (:meth:`put`; with a mesh,
+        this rank's rows, :meth:`local_batch`): with a mesh, this rank's
+        share of the global batch's loss and parts."""
         self.model.train()
         with full_float32():
-            out = self.model(images)
+            out = self.forward(images)
             return detection_loss(out, targets, self.cfg.num_classes,
                                   self.level_shapes,
-                                  seg_weight=self.seg_weight)
+                                  seg_weight=self.seg_weight,
+                                  group=self.data_group)
 
     def gradients(self, loss) -> Dict[str, torch.Tensor]:
+        """The gradients of the parameters this rank holds; with a mesh,
+        of the global batch's loss: the shares' gradients summed over
+        ``data`` in one all-reduce."""
         params = self.state.params()
         with full_float32(), repeatable():
             grads = torch.autograd.grad(loss, list(params.values()))
+        if self.data_group is not None:
+            grads = collectives.all_reduce_coalesced(grads, self.data_group)
         return dict(zip(params, grads))
 
     def rate(self) -> float:
@@ -499,7 +612,8 @@ class YoloTrainer:
             e.copy_(e * d + v.to(e.dtype) * keep)
 
     def put(self, images, targets) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """A batch on the device: images (B, H, W, 3) float32 in [0, 1];
+        """A batch on the device (with a mesh, the global batch):
+        images (B, H, W, 3) float32 in [0, 1];
         targets (B, T, ...) ``boxes`` float32, ``classes`` int64,
         ``valid`` bool and ``masks`` float32 (numpy arrays or tensors)."""
         dtypes = {"boxes": torch.float32, "classes": torch.int64,
@@ -516,51 +630,76 @@ class YoloTrainer:
                              f"{got[0]} and {got[1]}")
         return images, targets
 
+    def local_batch(self, images, targets):
+        """This rank's rows of a global batch (:meth:`put`'s), split over
+        ``data``; the batch itself without a mesh."""
+        if self.mesh is None:
+            return images, targets
+        return (data_sharding(self.mesh, images),
+                {k: data_sharding(self.mesh, v) for k, v in targets.items()})
+
     def train_step(self, images, targets) -> Dict[str, Any]:
-        """One optimizer step: the loss and its parts of the batch before
-        the update, as device tensors, and the new step."""
-        images, targets = self.put(images, targets)
+        """One optimizer step: the loss and its parts of the (global)
+        batch before the update, as device tensors, and the new step."""
+        images, targets = self.local_batch(*self.put(images, targets))
         loss, parts = self.loss(images, targets)
         self.update(self.gradients(loss))
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in parts.items()},
-                "step": self.state.step}
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        if self.data_group is not None:
+            keys = list(metrics)
+            metrics = dict(zip(keys, collectives.all_reduce_coalesced(
+                [metrics[k] for k in keys], self.data_group)))
+        return {**metrics, "step": self.state.step}
 
     # -- checkpoints ---------------------------------------------------------
 
     def variables(self) -> dict:
-        """The Flax ``{"params", "batch_stats"}`` tree, numpy arrays."""
-        return yolo_flax_from_state(self.model.state_dict(),
+        """The Flax ``{"params", "batch_stats"}`` tree, numpy arrays (the
+        full tree on every rank)."""
+        return yolo_flax_from_state(self.full_tree(self.model.state_dict()),
                                     self.cfg.segment)
 
     def ema_variables(self) -> Optional[dict]:
         if self.state.ema is None:
             return None
-        return yolo_flax_from_state(self.state.ema, self.cfg.segment)
+        return yolo_flax_from_state(self.full_tree(self.state.ema),
+                                    self.cfg.segment)
 
     def opt_state_dict(self) -> dict:
         """``optax.adamw``'s state as flax's ``to_state_dict`` lays it out
-        (:func:`.optim.adamw_state_dict`)."""
+        (:func:`.optim.adamw_state_dict`), the full moments."""
+        opt = self.state.opt_state
+        full = AdamWState(count=opt.count, mu=self.full_tree(opt.mu),
+                          nu=self.full_tree(opt.nu))
         return adamw_state_dict(
-            self.state.opt_state,
-            lambda tree: yolo_flax_from_state(tree,
-                                              self.cfg.segment)["params"],
+            full, lambda tree: yolo_flax_from_state(
+                tree, self.cfg.segment)["params"],
             schedule=callable(self.learning_rate))
+
+    def _own_tree(self, tree: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        return {k: self._own(v, k).contiguous() for k, v in tree.items()}
 
     def load(self, variables: dict, step: int = 0,
              ema_variables: Optional[dict] = None) -> None:
         """Take a Flax variables tree (a checkpoint's), the step count and,
-        where the EMA is on, the EMA's tree (``variables`` when None)."""
-        self.model.load_state_dict(from_flax_variables(variables),
-                                   strict=True)
+        where the EMA is on, the EMA's tree (``variables`` when None);
+        with a mesh, this rank keeps its slices."""
+        self.model.load_state_dict(
+            self._own_tree(from_flax_variables(variables)), strict=True)
         self.state.step = int(step)
         if self.state.ema is not None:
-            src = from_flax_variables(ema_variables or variables)
+            src = self._own_tree(from_flax_variables(ema_variables
+                                                     or variables))
             self.state.ema = {k: src[k].to(self.device, v.dtype)
                               for k, v in self.state.ema.items()}
 
     def load_opt_state(self, tree: dict) -> None:
         """Take an optimizer state in :meth:`opt_state_dict`'s layout."""
-        self.state.opt_state = adamw_state_from_dict(
+        opt = adamw_state_from_dict(
             tree, lambda moments: from_flax_variables({"params": moments}),
             self.device)
+        self.state.opt_state = AdamWState(
+            count=opt.count, mu=self._own_tree(opt.mu),
+            nu=self._own_tree(opt.nu))

@@ -24,6 +24,19 @@ Stages:
 ``--dataset`` defaults to ``$LIDAR_TPU_KITTI360``; one of them is
 required.  Training runs on the card unless ``--device cpu`` is given.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) it trains data parallel over
+every rank, as the JAX example trains over ``make_mesh()``: each rank
+takes its rows of the batch (the frames divide by the world size), and
+the step is the one-card step of the whole batch (:mod:`..parallel.
+train`).  Rank 0 alone writes the label cache, the checkpoint and the
+evaluation and prints; the others print nothing.  The ranks talk over
+NCCL, or over gloo where they outnumber the cards (NCCL refuses two
+ranks on one card):
+
+    torchrun --nproc-per-node 2 -m \
+        lidar_object_detection_tpu_torch.pipelines.yolo_distill \
+        --dataset ROOT --steps 3000 --ckpt OUT.msgpack --cache LABELS.npz
+
 The files are the JAX runner's, byte for byte for the same state:
 ``OUT.msgpack`` holds ``{variables, step, ema_variables?}``,
 ``OUT.msgpack.opt`` ``{opt_state}`` (optax's AdamW state as flax's
@@ -35,6 +48,7 @@ packages read them.  The labels are the JAX runner's bit for bit
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -43,6 +57,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lidar_object_detection_tpu_torch.data import Kitti360Dataset
 from lidar_object_detection_tpu_torch.geom.boxes import (
@@ -54,6 +69,8 @@ from lidar_object_detection_tpu_torch.models.yolo.model import YoloConfig
 from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     LetterboxSpec, letterbox_image)
 from lidar_object_detection_tpu_torch.ops.masks import unpack_masks
+from lidar_object_detection_tpu_torch.parallel import distributed
+from lidar_object_detection_tpu_torch.parallel.mesh import make_mesh
 from lidar_object_detection_tpu_torch.parallel.optim import (
     warmup_cosine_decay_schedule)
 from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
@@ -280,18 +297,20 @@ def letterboxed(images, device):
 def train(labels, steps: int, lr: float, ckpt: str, scale: str = "n",
           resume: bool = False, log_every: int = 25, save_every: int = 250,
           seed: int = 0, seg_weight: float = 1.0, ema_decay: float = 0.0,
-          device="cuda"):
+          device="cuda", mesh=None):
     """Train on every frame of ``labels`` as one batch for ``steps``
     steps in all (``resume`` starts from ``ckpt``'s step), AdamW under a
     warm-up and cosine schedule peaking at ``lr``; checkpoints every
-    ``save_every`` steps and at the end.  Returns the trainer."""
+    ``save_every`` steps and at the end.  With a ``mesh`` every rank
+    calls this, the batch splits over its ``data`` axis and rank 0
+    writes the checkpoints.  Returns the trainer."""
     cfg = YoloConfig(scale=scale, num_classes=80, segment=True)
     schedule = warmup_cosine_decay_schedule(
         0.0, lr, min(100, max(steps // 10, 1)), max(steps, 2), lr * 1e-2)
     trainer = YoloTrainer(cfg, image_size=IMAGE_SIZE, max_targets=MAX_T,
                           learning_rate=schedule, seed=seed,
                           seg_weight=seg_weight, ema_decay=ema_decay,
-                          device=device)
+                          device=device, mesh=mesh)
 
     if resume and os.path.exists(ckpt):
         raw = read_flax_msgpack(ckpt)
@@ -320,10 +339,13 @@ def train(labels, steps: int, lr: float, ckpt: str, scale: str = "n",
             print(f"[train] step {s + 1}/{steps} loss {loss:.4f} {parts} "
                   f"({dt:.2f}s/step)", flush=True)
         if (s + 1) % save_every == 0 or s + 1 == steps:
-            save_ckpt(ckpt, trainer.variables(), trainer.opt_state_dict(),
-                      s + 1, ema_variables=trainer.ema_variables(),
-                      scale=scale)
-            print(f"[train] ckpt -> {ckpt} @ {s + 1}", flush=True)
+            # collective with a mesh: every rank gathers, rank 0 writes
+            state = (trainer.variables(), trainer.opt_state_dict(),
+                     trainer.ema_variables())
+            if distributed.is_primary():
+                save_ckpt(ckpt, state[0], state[1], s + 1,
+                          ema_variables=state[2], scale=scale)
+                print(f"[train] ckpt -> {ckpt} @ {s + 1}", flush=True)
     return trainer
 
 
@@ -419,17 +441,44 @@ def main(argv=None) -> int:
         ap.error("--device cuda was asked for, but CUDA is not available; "
                  "pass --device cpu to run on the CPU")
 
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        run(args)
+        return 0
+    created = distributed.initialize(device=args.device)
+    try:
+        mesh = make_mesh(torch.device(args.device).type)
+        with contextlib.ExitStack() as quiet:
+            if not distributed.is_primary():
+                devnull = quiet.enter_context(open(os.devnull, "w"))
+                quiet.enter_context(contextlib.redirect_stdout(devnull))
+            run(args, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return 0
+
+
+def run(args, mesh=None) -> None:
+    """The stages ``args`` asks for; with a mesh on every rank: rank 0
+    builds (and caches) the labels first, the others after it; all train;
+    rank 0 evaluates."""
+    primary = distributed.is_primary()
+    if mesh is not None and not primary:
+        dist.barrier()      # rank 0's label cache first
     labels = build_labels(args.dataset, cache=args.cache,
                           device=args.device)
+    if mesh is not None and primary:
+        dist.barrier()
     if args.make_labels:
-        return 0
+        return
     if not args.eval_only:
         train(labels, args.steps, args.lr, args.ckpt, scale=args.scale,
               seg_weight=args.seg_weight, ema_decay=args.ema_decay,
-              resume=args.resume, seed=args.seed, device=args.device)
-    evaluate(labels, args.ckpt, scale=args.scale, conf=args.conf,
-             device=args.device)
-    return 0
+              resume=args.resume, seed=args.seed, device=args.device,
+              mesh=mesh)
+    if primary:
+        evaluate(labels, args.ckpt, scale=args.scale, conf=args.conf,
+                 device=args.device)
 
 
 if __name__ == "__main__":
