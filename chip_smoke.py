@@ -153,14 +153,28 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
-14. prints one JSON line of the kernels (times, bounds, launches, errors;
+14. runs the PointPillars tools and the long cloud
+   (``pillars_tools_phase``), each stage timed by
+   ``utils.profiling.StageTimer``: the surround runner
+   (``pipelines.pillars_surround``, full surround grid, 65536 points a
+   frame, 4 frames a step) resumed twice from a full checkpoint of the
+   committed SSD variables at step 15000, for 3 steps and its evaluation,
+   the two runs' checkpoints, caches and reports equal; the gate on both
+   committed checkpoints, its line the same on the card and the CPU; the
+   diagnosis tool on the runner's checkpoint, and the rotated NMS at
+   M = 128 on its candidates against the twin; ``pipelines.longcloud`` on
+   a 20-sweep aggregate of 1,310,720 points, and K1 against its twin on
+   those operands and tiled to 5,242,880 points (past 132 blocks of
+   32,768);
+15. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
    PointPillars runs, ``pointpillars_train_launches`` of the four
    training runs, ``yolo_train_launches`` of a YOLO step and of the
    runner's first run, ``scale_out_launches`` of each scale-out path,
-   ``kitti2d_launches`` of the card's ``kitti2d`` run
-   and ``relative_decode_launches``), the card's name and power limit, and
+   ``kitti2d_launches`` of the card's ``kitti2d`` run,
+   ``relative_decode_launches`` and ``pillars_tools_launches``), the
+   card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Any failed phase raises, and the script exits non-zero without the last
@@ -1965,33 +1979,18 @@ def replay_rotated_nms(rows, idx, keep, scores, valid, thr):
     return gaps, first_close
 
 
-def check_rotated_nms(torch, dev, rng, path):
-    """The rotated-NMS kernel against its twin on the card: the SSD
-    path's own candidates (``path``: each frame's 512 top boxes7, scores
-    and validity from the card's heads, (4, 512, ...)), the same with
-    every candidate valid, and seeded cases at B = 4, N = 512, M = 64
-    (heavy overlap, all invalid, NaN scores, equal scores) and B = 64
-    (degenerate boxes).  The kernel's IoU rows (each step's pick against
-    every candidate) must agree with the twin's matrix rows within
-    PP_IOU_TOL, and its picks with the twin's up to the first step with a
-    deciding IoU within PP_IOU_TOL of the threshold (the smallest such gap
-    is printed).  The degenerate case must send some pairs through the
-    kernel's ring routine (counted by the kernel).  Timed at B = 1 on each
-    path frame (the launch the decode makes per frame) and at B = 4 on the
-    seeded overlap, also per step of the longest frame's chain of picks;
-    the twin on the card beside it."""
+def compare_rotated_nms(torch, dev, cases, thr, m):
+    """The rotated-NMS kernel against its twin on each case (``name ->
+    (boxes7, scores, valid)`` on the card) at M = ``m``: each frame's picks
+    up to the first step with a deciding IoU within PP_IOU_TOL of the
+    threshold, and the kernel's IoU rows against the twin's matrix rows.
+    Returns (per-case stats, the largest IoU error, the smallest deciding
+    gap, the failures, the twin's clipped pairs and the kernel's
+    ring-routine pairs per case)."""
     from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
     from lidar_object_detection_tpu_torch.ops.rotated_iou import (
         rotated_iou_matrix)
 
-    thr, m = PP_IOU_THRESHOLD, PP_MAX_DETECTIONS
-    on_card = lambda arrays: tuple(torch.from_numpy(a).to(dev)
-                                   for a in arrays)
-    boxes, scores, valid = path
-    cases = {"SSD path B=4": path,
-             "SSD path, all valid": (boxes, scores, torch.ones_like(valid))}
-    cases.update({name: on_card(c)
-                  for name, c in rotated_nms_cases(rng).items()})
     stats, max_err, min_gap, failed, pairs_of = {}, 0.0, np.inf, [], {}
     slow_of = {}
     for name, (bx, sc, va) in cases.items():
@@ -2027,6 +2026,36 @@ def check_rotated_nms(torch, dev, rng, path):
         stats[name] = {"picks": keep_h.sum(axis=1).tolist(),
                        "min_gap": min(gaps), "close_step": close,
                        "max_abs_err": case_err}
+    return stats, max_err, min_gap, failed, pairs_of, slow_of
+
+
+def check_rotated_nms(torch, dev, rng, path):
+    """The rotated-NMS kernel against its twin on the card: the SSD
+    path's own candidates (``path``: each frame's 512 top boxes7, scores
+    and validity from the card's heads, (4, 512, ...)), the same with
+    every candidate valid, and seeded cases at B = 4, N = 512, M = 64
+    (heavy overlap, all invalid, NaN scores, equal scores) and B = 64
+    (degenerate boxes).  The kernel's IoU rows (each step's pick against
+    every candidate) must agree with the twin's matrix rows within
+    PP_IOU_TOL, and its picks with the twin's up to the first step with a
+    deciding IoU within PP_IOU_TOL of the threshold (the smallest such gap
+    is printed).  The degenerate case must send some pairs through the
+    kernel's ring routine (counted by the kernel).  Timed at B = 1 on each
+    path frame (the launch the decode makes per frame) and at B = 4 on the
+    seeded overlap, also per step of the longest frame's chain of picks;
+    the twin on the card beside it."""
+    from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
+
+    thr, m = PP_IOU_THRESHOLD, PP_MAX_DETECTIONS
+    on_card = lambda arrays: tuple(torch.from_numpy(a).to(dev)
+                                   for a in arrays)
+    boxes, scores, valid = path
+    cases = {"SSD path B=4": path,
+             "SSD path, all valid": (boxes, scores, torch.ones_like(valid))}
+    cases.update({name: on_card(c)
+                  for name, c in rotated_nms_cases(rng).items()})
+    stats, max_err, min_gap, failed, pairs_of, slow_of = \
+        compare_rotated_nms(torch, dev, cases, thr, m)
     print(f"rotated NMS cases: {stats}; pairs through the ring routine "
           f"{slow_of}", flush=True)
     if failed or max_err > PP_IOU_TOL:
@@ -4483,6 +4512,406 @@ def profile_once(torch, run):
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the PointPillars tools and the long cloud
+# ---------------------------------------------------------------------------
+
+# the surround runner resumes a full checkpoint of the committed SSD
+# variables at this step and runs PP_RUNNER_STEPS more
+PP_RESUME_STEP, PP_RUNNER_STEPS = 15000, 3
+# the diagnosis tool decodes with this many picks a frame
+PP_DIAGNOSE_PICKS = 128
+# the long cloud: sweeps of this many points each (>= 2^20 in all), and
+# K1's edge case past 132 blocks of 32768 points on one frame
+LONG_SWEEPS, LONG_SWEEP_POINTS, LONG_MIN_POINTS = 20, 65536, 1 << 20
+LONG_EDGE_POINTS = 5 * (1 << 20)
+
+
+def full_checkpoint(src, dst, step):
+    """A full surround-runner checkpoint at ``dst``: ``src``'s variables,
+    optax's initial AdamW moments (zeros) with the Adam and schedule
+    counts at ``step``, the step, and ``src``'s sidecar."""
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack, write_flax_msgpack)
+
+    variables = read_flax_msgpack(src)["0"]
+    zeros = lambda tree: {k: zeros(v) if isinstance(v, dict)
+                          else np.zeros_like(v) for k, v in tree.items()}
+    count = np.array(step, np.int32)
+    write_flax_msgpack(dst, {"0": variables, "1": {
+        "0": {"count": count, "mu": zeros(variables["params"]),
+              "nu": zeros(variables["params"])},
+        "1": {}, "2": {"count": count.copy()}}, "2": count.copy()})
+    shutil.copyfile(src + ".json", dst + ".json")
+
+
+def long_tree(root, rng):
+    """A KITTI-360 tree of LONG_SWEEPS frames (100, 101, ...): each sweep
+    LONG_SWEEP_POINTS points of one street (``pillars_world``) seen from
+    its frame's ego pose, every frame with its cars' boxes, and the first
+    frame with a committed camera frame (the stub detector projects its
+    boxes into it)."""
+    import torch
+
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        boxes7_to_corners)
+
+    world, cars = pillars_world(rng)
+    v2r = VELO_TO_RECT.astype(np.float64)
+    corners0 = boxes7_to_corners(torch.from_numpy(cars)).numpy()
+    frames = []
+    for k in range(LONG_SWEEPS):
+        pose = ego_pose(k)
+        to_k = np.linalg.inv(pose @ v2r) @ v2r
+        pts = world[rng.choice(len(world), LONG_SWEEP_POINTS,
+                               replace=False)].copy()
+        pts[:, :3] = pts[:, :3] @ to_k[:3, :3].T + to_k[:3, 3]
+        to_cam = np.linalg.inv(pose) @ v2r
+        cam = corners0 @ to_cam[:3, :3].T + to_cam[:3, 3]
+        frames.append((100 + k, FRAMES[0] if k == 0 else None,
+                       pts.astype(np.float32), cam.astype(np.float32)))
+    write_kitti360_tree(root, frames)
+
+
+def check_rotated_nms_m128(torch, dev, rng, path):
+    """The rotated NMS at the diagnosis tool's M = PP_DIAGNOSE_PICKS
+    against its twin (``compare_rotated_nms``): the tool's own candidates
+    (``path``: each cached frame's 512 top boxes7, scores and validity at
+    its lowest score cut), the same with every candidate valid (the M
+    picks all taken), and the seeded heavy overlap; timed at B = 1 on each
+    path frame, with the bound of the twin's pairs, and the twin beside."""
+    from lidar_object_detection_tpu_torch.ops import rotated_nms as rn
+
+    thr, m = PP_IOU_THRESHOLD, PP_DIAGNOSE_PICKS
+    boxes, scores, valid = path
+    cases = {"diagnosis path": path,
+             "diagnosis path, all valid": (boxes, scores,
+                                           torch.ones_like(valid)),
+             "heavy overlap": tuple(torch.from_numpy(a).to(dev) for a in
+                                    rotated_nms_cases(rng)["heavy overlap"])}
+    stats, max_err, min_gap, failed, pairs_of, slow_of = \
+        compare_rotated_nms(torch, dev, cases, thr, m)
+    if failed or max_err > PP_IOU_TOL:
+        raise AssertionError(f"the rotated NMS at M = {m} differs from its "
+                             f"twin: {failed}, IoU rows off by up to "
+                             f"{max_err}")
+    if max(stats["diagnosis path, all valid"]["picks"]) <= 64:
+        raise AssertionError(f"M = {m}: no frame took more than 64 picks: "
+                             f"{stats}")
+    per_frame, bounds = [], []
+    for f in range(boxes.shape[0]):
+        one = tuple(t[f:f + 1].contiguous() for t in path)
+        per_frame.append(time_gpu(rotated_nms_launcher(torch, dev, *one, thr,
+                                                       m)))
+        _, keep, pairs = rn.rotated_nms_plain(*one, thr, m,
+                                              return_pairs=True)
+        bounds.append(rotated_nms_bound(int(pairs.sum()), 1, boxes.shape[1],
+                                        m, min(m, int(keep.sum()) + 1)))
+    mid = int(np.argsort(per_frame)[len(per_frame) // 2])
+    one = tuple(t[:1].contiguous() for t in cases["diagnosis path, all "
+                                                  "valid"])
+    full = time_gpu(rotated_nms_launcher(torch, dev, *one, thr, m))
+    out = {"ms_m128": float(np.median(per_frame)),
+           "ms_m128_per_frame": per_frame,
+           "bound_ms_m128": bounds[mid][0], "bound_by_m128": bounds[mid][1],
+           "ms_m128_all_valid": full,
+           "plain_ms_m128": time_gpu(
+               lambda: rn.rotated_nms_plain(*one, thr, m), reps=3, warmup=1,
+               head_start=False),
+           "max_abs_err_m128": max_err, "min_gap_m128": min_gap,
+           "picks_m128": {k: v["picks"] for k, v in stats.items()},
+           "pairs_m128": pairs_of, "ring_routine_pairs_m128": slow_of}
+    print(f"rotated NMS at M = {m}: equal to the twin ({out['picks_m128']} "
+          f"picks; IoU rows within {max_err:.3g}, smallest deciding gap "
+          f"{min_gap:.3g}); the diagnosis path B=1 {out['ms_m128']:.4f} ms "
+          f"({per_frame}; bound {out['bound_ms_m128']:.3g} by "
+          f"{out['bound_by_m128']}), all valid {full:.4f}; twin "
+          f"{out['plain_ms_m128']:.3f} ms", flush=True)
+    return out
+
+
+def check_runner_pairs(torch, dev, batch):
+    """The assigner's IoU kernel against its twin on the surround runner's
+    own candidate pairs (the first timed step's batch: 4 augmented frames,
+    the surround grid's anchors, each valid GT's top candidates): IoUs
+    within PP_IOU_TOL, 0 for invalid GTs."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, anchor_grid)
+    from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
+        iou_bound, top_candidates)
+    from lidar_object_detection_tpu_torch.ops import rotated_iou_pairs as rip
+
+    gt = torch.from_numpy(batch[2]).to(dev)
+    gv = torch.from_numpy(batch[4]).to(dev)
+    anchors = anchor_grid(PillarsConfig.kitti360_surround(),
+                          dev).reshape(-1, 7)
+    idx = top_candidates(iou_bound(anchors, gt))
+    got = rip.rotated_iou_pairs_cuda(anchors, idx, gt, gv)
+    ref = torch.where(gv[..., None],
+                      rip.rotated_iou_pairs_plain(anchors, idx, gt), 0.0)
+    err = float((got - ref).abs().max())
+    out = {"pairs": idx.numel(), "valid_gt": int(gv.sum()),
+           "max_abs_err": err, "over 0.6": int((got >= 0.6).sum())}
+    if err > PP_IOU_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"the assigner's IoU kernel on the runner's "
+                             f"pairs differs from its twin: {out}")
+    print(f"the assigner's IoU kernel on the surround runner's pairs: equal "
+          f"to the twin ({out})", flush=True)
+    return out
+
+
+def check_long_k1(torch, dev, operands):
+    """K1 on the long cloud's own operands (one frame, P >= 2^20, from
+    ``fuse_frame`` on the card) and on those points tiled to
+    LONG_EDGE_POINTS (more than 132 blocks of 32768): counts and totals
+    equal to the twin's; timed at the first, with its bound and the
+    twin's time."""
+    from lidar_object_detection_tpu_torch.ops.inside_counts import (
+        inside_counts_cuda, inside_counts_plain)
+
+    pts, bits, corners, mask = operands
+    reps = -(-LONG_EDGE_POINTS // pts.shape[1])
+    cases = {"long cloud": operands,
+             "tiled past 132 blocks": (
+                 pts.repeat(1, reps, 1)[:, :LONG_EDGE_POINTS].contiguous(),
+                 bits.repeat(1, reps)[:, :LONG_EDGE_POINTS].contiguous(),
+                 corners, mask)}
+    out = {}
+    for name, (p, b, c, m) in cases.items():
+        got = inside_counts_cuda(p, b, c, m, D)
+        ref = inside_counts_plain(p, b, c, m, D)
+        for g, r, what in zip(got, ref, ("counts", "totals")):
+            if not torch.equal(g, r):
+                raise AssertionError(f"K1 {what} differ from the twin on "
+                                     f"the {name} ({p.shape[1]} points): "
+                                     f"{int((g != r).sum())} entries")
+        out[name] = {"points": int(p.shape[1]),
+                     "active": int((b != 0).sum()),
+                     "total": int(got[1].sum())}
+    active, pairs, (bound, by) = k1_bound(pts, bits, corners, mask)
+    ms = time_gpu(k1_launcher(torch, dev, pts, bits, corners, mask))
+    plain = time_gpu(lambda: inside_counts_plain(pts, bits, corners, mask,
+                                                 D), reps=5, warmup=1,
+                     head_start=False)
+    print(f"K1 on the long cloud: equal to the twin ({out}); "
+          f"{ms:.4f} ms at P = {pts.shape[1]} ({active} active points, "
+          f"{pairs} pairs; bound {bound:.3g} by {by}); twin {plain:.3f} ms",
+          flush=True)
+    return {"ms_longcloud": ms, "bound_ms_longcloud": bound,
+            "bound_by_longcloud": by, "plain_ms_longcloud": plain,
+            "longcloud_cases": out, "max_abs_err_longcloud": 0}
+
+
+def pillars_tools_phase(torch, dev, smi, tmp, rng):
+    """The PointPillars tools and the long cloud on the card, each stage
+    timed by ``utils.profiling.StageTimer``, counters zeroed before each
+    run and read after it:
+
+    * the surround runner (``pipelines.pillars_surround``) at the full
+      surround grid, ``--subsample=65536``, 4 frames a step, on
+      ``pillars_tree``'s street, resumed from a full checkpoint of the
+      committed SSD variables at step PP_RESUME_STEP (optax's initial
+      moments) for PP_RUNNER_STEPS steps, then its evaluation of the 4
+      frames; run twice, the checkpoints, sidecars and caches byte-equal
+      and the reports equal but for ``elapsed_s``; the second run's steps
+      and evaluation timed, and the assigner's IoU kernel held to its
+      twin on its first step's pairs;
+    * the gate (``pipelines.pillars_gate``) on both committed checkpoints
+      on the card and on the CPU: the same JSON line;
+    * the diagnosis tool on the runner's checkpoint and cache, then the
+      rotated NMS at M = 128 on its candidates against the twin;
+    * ``pipelines.longcloud`` on a LONG_SWEEPS-sweep aggregate of at least
+      2^20 points, and K1 on its operands against the twin.
+
+    Returns the runs' launches, the rotated NMS's and K1's entries, and a
+    summary."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, PillarsTrainer, decode_predictions)
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        decode as pdecode)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.parallel.optim import (
+        cosine_decay_schedule)
+    from lidar_object_detection_tpu_torch.pipelines import (
+        longcloud, pillars_diagnose, pillars_gate, pillars_surround)
+    from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
+    from lidar_object_detection_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    # the runs, and apart from them the second runner run's parts
+    timer, parts = StageTimer(), StageTimer()
+    root = os.path.join(tmp, "pp_tools_kitti360")
+    pillars_tree(root, np.random.default_rng(4))
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    launches, summary = {}, {}
+
+    def counted(name, argv, entry, want):
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        with timer.stage(name) as h:
+            text = run_cli(argv, entry)
+            h.append(torch.ones(1, device=dev))
+        launches[name] = dict(kernel_lib.LAUNCHES)
+        if want is not None and launches[name] != dict(zero, **want):
+            raise AssertionError(f"{name} launched {launches[name]}, "
+                                 f"expected {want}")
+        return text
+
+    # the runner, twice; the second run's steps and evaluation timed
+    steps = PP_RESUME_STEP + PP_RUNNER_STEPS
+    n = len(PP_FRAMES)
+    runs = {}
+    real_step, real_eval = PillarsTrainer.train_step, \
+        pillars_surround.evaluate
+    first_batch = []
+    for run in ("runner", "runner_again"):
+        d = os.path.join(tmp, f"pp_tools_{run}")
+        os.makedirs(d)
+        ckpt = os.path.join(d, "ckpt.msgpack")
+        full_checkpoint(PP_CKPTS["ssd"], ckpt, PP_RESUME_STEP)
+        report = os.path.join(d, "report.json")
+        if run == "runner_again":
+            def timed_step(self, *batch):
+                if not first_batch:
+                    first_batch.extend(batch)
+                with parts.stage("runner step") as h:
+                    m = real_step(self, *batch)
+                    h.append(m)
+                return m
+
+            def timed_eval(*args, **kwargs):
+                with parts.stage("runner evaluation") as h:
+                    out = real_eval(*args, **kwargs)
+                    h.append(torch.ones(1, device=dev))
+                return out
+            PillarsTrainer.train_step = timed_step
+            pillars_surround.evaluate = timed_eval
+        try:
+            text = counted(run, [str(steps), report, f"--dataset={root}",
+                                 f"--ckpt={ckpt}",
+                                 f"--cache={os.path.join(d, 'frames.npz')}",
+                                 f"--device={dev}"],
+                           pillars_surround.main,
+                           {"rotated_iou_pairs": PP_RUNNER_STEPS,
+                            "rotated_nms": n})
+        finally:
+            PillarsTrainer.train_step = real_step
+            pillars_surround.evaluate = real_eval
+        if f"resumed from {ckpt} at step {PP_RESUME_STEP}" not in text:
+            raise AssertionError(f"the {run} did not resume at "
+                                 f"{PP_RESUME_STEP}")
+        with open(report) as f:
+            rep = json.load(f)
+        (entry,) = rep["chunks"]
+        if entry["step"] != steps or not np.isfinite(entry["loss"]):
+            raise AssertionError(f"the {run}'s report: {entry}")
+        entry.pop("elapsed_s")
+        runs[run] = {"dir": d, "report": rep, "ckpt": ckpt}
+    if runs["runner"]["report"] != runs["runner_again"]["report"]:
+        raise AssertionError(f"the runner's reports differ: {runs}")
+    for name in ("ckpt.msgpack", "ckpt.msgpack.json", "frames.npz"):
+        if read_bytes(os.path.join(runs["runner"]["dir"], name)) != \
+                read_bytes(os.path.join(runs["runner_again"]["dir"], name)):
+            raise AssertionError(f"the runner's second run wrote another "
+                                 f"{name}")
+    summary["runner"] = runs["runner"]["report"]["chunks"][0]
+    summary["runner_pairs"] = check_runner_pairs(torch, dev, first_batch)
+    print(f"surround runner: resumed at {PP_RESUME_STEP}, {PP_RUNNER_STEPS} "
+          f"steps, twice the same checkpoint, sidecar, cache and report "
+          f"({summary['runner']})", flush=True)
+
+    # the gate on both committed checkpoints, on the card and on the CPU
+    gate = {}
+    for head, ckpt in PP_CKPTS.items():
+        argv = [ckpt, "--dataset", root, "--head", head, "--min-recall", "0"]
+        if head == "ssd":
+            argv += ["--score-threshold", str(PP_SSD_THRESHOLD)]
+        card = counted(f"gate_{head}", argv + ["--device", str(dev)],
+                       pillars_gate.main,
+                       {"rotated_nms": n} if head == "ssd" else {})
+        with timer.stage(f"gate_{head} on the CPU"):
+            cpu = run_cli(argv + ["--device", "cpu"], pillars_gate.main)
+        line = card.splitlines()[-2]
+        if line != cpu.splitlines()[-2] or not card.endswith(
+                "PASS: recall " + json.loads(line)["recall"].split("/")[0]
+                + " >= 0\n"):
+            raise AssertionError(f"the {head} gate on the card printed "
+                                 f"{card!r}, on the CPU {cpu!r}")
+        gate[head] = json.loads(line)
+    summary["gate"] = gate
+
+    # the diagnosis on the runner's checkpoint, then its decode's rotated
+    # NMS at M = 128 against the twin, on the same candidates
+    runner_dir = runs["runner"]["dir"]
+    cache = os.path.join(runner_dir, "frames.npz")
+    text = counted("diagnose", [f"--ckpt={runs['runner']['ckpt']}",
+                                f"--cache={cache}", f"--device={dev}"],
+                   pillars_diagnose.main, {"rotated_nms": 4 * n})
+    if f"checkpoint step {steps}" not in text:
+        raise AssertionError(f"the diagnosis printed {text!r}")
+    summary["diagnose"] = text.splitlines()[1:10]
+    cfg = PillarsConfig.kitti360_surround()
+    trainer = PillarsTrainer(cfg, learning_rate=cosine_decay_schedule(
+        2e-3, 1000), device=dev)
+    pp.restore_pillars_checkpoint(runs["runner"]["ckpt"], trainer)
+    with np.load(cache) as z:
+        frames = [(z[f"p{i}"], z[f"b{i}"]) for i in range(int(z["n"]))]
+    e_pts, e_pv, _, _, _ = pp.pack_frames(frames, 1 << 18)
+    out = trainer.apply(e_pts, e_pv)
+    cands = []
+    for i in range(len(frames)):
+        with torch.no_grad():
+            boxes7, _, top_idx, top_scores, cand_valid = \
+                pdecode.decode_candidates({k: v[i] for k, v in out.items()},
+                                          cfg, 0.05)
+        cands.append((boxes7[top_idx], top_scores, cand_valid))
+    path = tuple(torch.stack(t).contiguous() for t in zip(*cands))
+    del trainer, out
+    rotated = check_rotated_nms_m128(torch, dev, rng, path)
+
+    # the long cloud
+    long_root = os.path.join(tmp, "longcloud_kitti360")
+    with timer.stage("long tree"):
+        long_tree(long_root, np.random.default_rng(5))
+    text = counted("longcloud", ["--dataset", long_root, "--frame", "100",
+                                 "--sweeps", str(LONG_SWEEPS), "--iters",
+                                 "5", "--min-points", str(LONG_MIN_POINTS),
+                                 "--device", str(dev)],
+                   longcloud.main, {"inside_counts": 7})
+    line = json.loads(text.splitlines()[-1])
+    if line["points"] < LONG_MIN_POINTS or line["detections_points"] <= 0:
+        raise AssertionError(f"the long cloud: {line}")
+    if text.splitlines()[-2] != f"[longcloud] {smi}":
+        raise AssertionError(f"the long cloud named {text.splitlines()[-2]}")
+    operands, _ = longcloud.fuse_operands(long_root, 100, LONG_SWEEPS,
+                                          LONG_MIN_POINTS, dev)
+    with torch.inference_mode():
+        fused = longcloud.fuse_frame(*operands)
+        plain = longcloud.fuse_frame(*operands[:-1], dataclasses.replace(
+            operands[-1], count_impl="plain"))
+    for key in ("counts", "total_points", "best_box", "points_inside"):
+        if not torch.equal(fused[key], plain[key]):
+            raise AssertionError(f"the long cloud's {key} differ from the "
+                                 f"run with the plain inside-count")
+    if int(fused["total_points"].sum()) != line["detections_points"]:
+        raise AssertionError(f"the long cloud's total differs from {line}")
+    k1 = check_long_k1(torch, dev, (
+        operands[0][None, :, :3].contiguous(),
+        fused["point_bits"][None].contiguous(),
+        fused["corners_velo"][None].contiguous(),
+        fused["box_visible"][None].contiguous()))
+    summary["longcloud"] = line
+    print(f"[stages] PointPillars tools and the long cloud, "
+          f"utils.profiling.StageTimer:\n{timer.report()}\n[stages] the "
+          f"second runner run's parts:\n{parts.report()}", flush=True)
+    summary["stage_ms"] = {k: v * 1e3 for t in (timer, parts)
+                           for k, v in t.times.items()}
+    summary["stage_counts"] = {**timer.counts, **parts.counts}
+    print(json.dumps({"pillars_tools": summary, "card": smi}), flush=True)
+    phase("PointPillars tools and the long cloud", t0)
+    return launches, rotated, k1, summary
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -4561,6 +4990,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
     peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_launches, rotated_m128, long_k1, _ = pillars_tools_phase(
+            torch, dev, smi, tmp, rng)
+    rotated.update(rotated_m128)
+    next(k for k in kernels if k["name"] == "inside_counts").update(long_k1)
     # the solver's main path is the V5 run
     lap.update(launches=match_launches["v5"]["lap"],
                csv_eval_launches=csv_launches["lap"],
@@ -4599,6 +5033,8 @@ def main() -> int:
             run: n[k["name"]] for run, n in train_launches.items()}
         k["yolo_train_launches"] = {run: n[k["name"]]
                                     for run, n in yolo_launches.items()}
+        k["pillars_tools_launches"] = {run: n[k["name"]]
+                                       for run, n in tools_launches.items()}
         k["scale_out_launches"] = {
             "point_sharded_w1": scale_launches["point_sharded_w1"][
                 k["name"]],

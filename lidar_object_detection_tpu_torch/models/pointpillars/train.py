@@ -21,9 +21,11 @@ once per rank a step, on the rank's frames.  With ``mesh=None`` the
 trainer is the one-card trainer, unchanged.
 
 The optimizer is :func:`..parallel.optim.adamw_update`, ``optax.adamw``'s
-arithmetic written out (``torch.optim.AdamW`` orders its operations
-otherwise): b1 = 0.9, b2 = 0.999, eps = 1e-8 added after
-``sqrt(nu_hat)``, bias correction, then the decoupled decay ``wd * p``
+arithmetic written out, at a constant rate or at a schedule's value at the
+update count (the JAX runners' ``optax.cosine_decay_schedule``,
+:func:`..parallel.optim.cosine_decay_schedule`); ``torch.optim.AdamW``
+orders its operations otherwise.  b1 = 0.9, b2 = 0.999, eps = 1e-8 added
+after ``sqrt(nu_hat)``, bias correction, then the decoupled decay ``wd * p``
 added to the update of every parameter (optax's ``mask=None``: biases and
 BatchNorm scales too), then the update scaled by ``-lr`` and added.
 
@@ -37,7 +39,7 @@ algorithms repeat their bits as they are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
@@ -55,12 +57,13 @@ from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
 from lidar_object_detection_tpu_torch.models.pointpillars.model import (
     PillarsConfig, PointPillars)
 from lidar_object_detection_tpu_torch.models.pointpillars.weights import (
-    pillars_flax_from_state)
+    pillars_flax_from_state, pillars_state_from_flax)
 from lidar_object_detection_tpu_torch.parallel import collectives
 from lidar_object_detection_tpu_torch.parallel.mesh import (
     DATA_AXIS, data_sharding)
 from lidar_object_detection_tpu_torch.parallel.optim import (
-    AdamWState, adamw_state_dict, adamw_update)
+    AdamWState, Schedule, adamw_state_dict, adamw_state_from_dict,
+    adamw_update, rate_at)
 
 
 @dataclasses.dataclass
@@ -71,6 +74,8 @@ class TrainState:
     model: PointPillars
     opt_state: AdamWState
     step: int
+    # the rate is a schedule: optax's state then carries its count
+    schedule: bool = False
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -79,13 +84,14 @@ class TrainState:
         """``(variables, opt_state, step)`` as the JAX package's trainer
         holds them: the Flax ``{"params", "batch_stats"}`` tree and
         ``optax.adamw``'s state ``(ScaleByAdamState(count, mu, nu),
-        EmptyState(), EmptyState())``, as flax's ``to_state_dict`` lays
-        them out (tuples as maps keyed "0", "1", ...), numpy arrays."""
+        EmptyState(), ScaleByScheduleState(count) or EmptyState())``, as
+        flax's ``to_state_dict`` lays them out (tuples as maps keyed "0",
+        "1", ...), numpy arrays."""
         variables = pillars_flax_from_state(self.model.state_dict())
         opt = adamw_state_dict(
             self.opt_state,
             lambda tree: pillars_flax_from_state(tree)["params"],
-            schedule=False)
+            schedule=self.schedule)
         return variables, opt, np.array(self.step, np.int32)
 
 
@@ -94,14 +100,16 @@ class PillarsTrainer:
 
     The network is initialized by :func:`.init.initialize` from ``seed``
     (the JAX trainer's ``PRNGKey(seed)`` draws cannot be reproduced), and
-    the anchor grid is built once, on the device.  The JAX trainer's
+    the anchor grid is built once, on the device.  ``learning_rate`` is a
+    float or a schedule of the update count.  The JAX trainer's
     ``num_points`` (the shape of its initialization) has no counterpart:
     the port's network takes any cloud size.  With a ``mesh`` a batch is
     the global batch, whose frames the ``data`` axis divides, and every
     rank calls :meth:`train_step` together.
     """
 
-    def __init__(self, cfg: PillarsConfig, learning_rate: float = 2e-3,
+    def __init__(self, cfg: PillarsConfig,
+                 learning_rate: Union[float, Schedule] = 2e-3,
                  weight_decay: float = 1e-4, seed: int = 0, device="cuda",
                  mesh=None):
         self.cfg = cfg
@@ -114,7 +122,8 @@ class PillarsTrainer:
         split_batch(model, self.data_group)
         self.state = TrainState(
             model=model, opt_state=AdamWState.zeros(
-                dict(model.named_parameters())), step=0)
+                dict(model.named_parameters())), step=0,
+            schedule=callable(learning_rate))
         self.anchors = (anchor_grid(cfg, self.device).reshape(-1, 7)
                         if cfg.head == "ssd" else None)
 
@@ -164,11 +173,42 @@ class PillarsTrainer:
             grads = collectives.all_reduce_coalesced(grads, self.data_group)
         return dict(zip(params, grads))
 
+    def rate(self) -> float:
+        """The learning rate of the next update."""
+        return rate_at(self.learning_rate, self.state.opt_state.count)
+
     def update(self, grads: Dict[str, torch.Tensor]) -> None:
         self.state.opt_state = adamw_update(
-            self.state.params(), grads, self.state.opt_state,
-            self.learning_rate, self.weight_decay)
+            self.state.params(), grads, self.state.opt_state, self.rate(),
+            self.weight_decay)
         self.state.step += 1
+
+    def restore(self, tree: dict) -> None:
+        """Take a full checkpoint's state tree, ``{"0": variables, "1":
+        opt_state, "2": step}`` (:meth:`TrainState.flax_tree`'s, which the
+        JAX surround runner and this port both write): the network, the
+        AdamW state and the step.  As flax's ``from_bytes`` against the
+        JAX trainer's state, it refuses a slim checkpoint (no "1"), and an
+        optimizer state whose schedule count the trainer's rate does not
+        match: a schedule's state has it, a constant rate's does not."""
+        if "1" not in tree:
+            raise ValueError(
+                "the checkpoint has no optimizer state (a slim, "
+                "inference-only export): it can be served, not resumed")
+        opt = tree["1"]
+        kind = lambda schedule: ("a schedule" if schedule
+                                 else "a constant rate")
+        if bool(opt.get("2")) != self.state.schedule:
+            raise ValueError(
+                f"the checkpoint's optimizer state was written at "
+                f"{kind(opt.get('2'))}, this trainer runs at "
+                f"{kind(self.state.schedule)}")
+        self.model.load_state_dict(pillars_state_from_flax(tree["0"]),
+                                   strict=True)
+        self.state.opt_state = adamw_state_from_dict(
+            opt, lambda moments: pillars_state_from_flax(
+                {"params": moments}), self.device)
+        self.state.step = int(np.asarray(tree["2"]))
 
     def train_step(self, points, valid, gt_boxes7, gt_classes,
                    gt_valid) -> Dict[str, Any]:

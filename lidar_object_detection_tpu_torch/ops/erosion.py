@@ -5,7 +5,8 @@ reference erodes each mask on the host (cvs_erosion.py:77-111) with an
 elliptical structuring element; erosion by element S is the AND over the
 offsets s in S of the mask shifted by -s, with out-of-image neighbours
 counting as foreground (cv2's border for erode never erodes).  On the
-packed words this erodes all <= 32 masks of a frame at once.
+packed words this erodes all <= 32 masks of a frame at once;
+:func:`erode_masks` wraps it for unpacked masks.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+from lidar_object_detection_tpu_torch.ops.masks import pack_masks, unpack_masks
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,3 +65,16 @@ def erode_packed(mask_bits: torch.Tensor, kernel_size: int = 3,
             acc = acc & _shift_all_ones_border(out, dy, dx)
         out = acc
     return out
+
+
+def erode_masks(masks: torch.Tensor, kernel_size: int = 3,
+                iterations: int = 1) -> torch.Tensor:
+    """Erode (D, H, W) {0, 1} masks (bool or float); returns bool masks.
+
+    Counterpart of the JAX package's ``erode_masks``, its wrapper for
+    unpacked masks: pack, :func:`erode_packed`, unpack (the pipeline
+    itself stays packed).
+    """
+    bits = pack_masks(torch.as_tensor(masks) > 0.5)
+    return unpack_masks(erode_packed(bits, kernel_size, iterations),
+                        masks.shape[0])

@@ -3,8 +3,9 @@ checkpoint layout.
 
 Counterpart of the optax calls of the JAX package's trainers
 (``parallel/train.py:395`` and ``models/pointpillars/train.py``):
-``optax.adamw(learning_rate, weight_decay)`` with a constant rate or with
-``optax.warmup_cosine_decay_schedule``.  ``torch.optim.AdamW`` orders its
+``optax.adamw(learning_rate, weight_decay)`` with a constant rate, with
+``optax.warmup_cosine_decay_schedule`` or with
+``optax.cosine_decay_schedule``.  ``torch.optim.AdamW`` orders its
 operations otherwise, so :func:`adamw_update` writes optax's out.
 
 The state is optax's tuple ``(ScaleByAdamState(count, mu, nu),
@@ -105,6 +106,27 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
         c = min(float(count - warmup_steps), float(cosine_steps))
         cosine = 0.5 * (1 + math.cos(math.pi * c / cosine_steps))
         return peak_value * ((1 - alpha) * cosine ** 1.0 + alpha)
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule`` (exponent 1), as the JAX package's
+    PointPillars runners call it: ``init_value`` times ``(1 - alpha) *
+    0.5 * (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha``.
+    Taken in float64 on the host in optax's operation order and rounded to
+    float32 where the update scales by it (:func:`rate_at`), as optax
+    takes it under JAX's 64-bit mode; the JAX runners run in 32-bit mode,
+    where optax evaluates it in float32 and may differ in the last bit."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+
+    def schedule(count: int) -> float:
+        c = min(float(count), float(decay_steps))
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine ** 1.0 + alpha)
 
     return schedule
 

@@ -17,6 +17,8 @@
       --dataset /path/to/KITTI360_sample \\
       --ckpt checkpoints/pp_ssd_surround.msgpack --surround \\
       --aggregate-sweeps --head ssd --export-ply
+  python -m lidar_object_detection_tpu_torch pointpillars-export \\
+      ckpt/pp_ssd_step8000.msgpack pp_ssd_slim.msgpack
   python -m lidar_object_detection_tpu_torch kitti2d \\
       --dataset /path/to/KITTI_Selection --output results/
   python -m lidar_object_detection_tpu_torch convert-weights \\
@@ -31,7 +33,8 @@ CLI's ``--platform``; ``--device cpu`` runs the plain twins on the CPU.
 opt_state, step)``, the JAX surround runner's layout) with its sidecar
 ``.json``, where the JAX CLI writes an orbax directory: orbax imports
 JAX, which the port does not.  ``pointpillars-infer --ckpt`` of either
-package reads it.
+package reads it.  ``pointpillars-export SRC DST`` keeps only such a
+checkpoint's variables and step, as ``examples/export_pp_ckpt.py`` does.
 
 ``--weights`` takes a flax msgpack checkpoint (served at the operating
 point its sidecar records, float32 with unfolded weights, as the JAX CLI
@@ -251,6 +254,12 @@ def _parser() -> argparse.ArgumentParser:
     pi_p.add_argument("--max-points", type=int, default=None)
     pi_p.add_argument("--export-ply", action="store_true")
 
+    pe_p = sub.add_parser("pointpillars-export",
+                          help="slim a full PointPillars checkpoint to its "
+                               "variables and step (sidecar copied)")
+    pe_p.add_argument("src")
+    pe_p.add_argument("dst")
+
     cw_p = sub.add_parser("convert-weights",
                           help="torch state dict -> flax msgpack checkpoint "
                                "of YOLO11(-seg)")
@@ -280,6 +289,15 @@ def main(argv=None) -> int:
 
     if args.cmd == "convert-weights":
         return _convert_weights(args)
+
+    if args.cmd == "pointpillars-export":
+        from lidar_object_detection_tpu_torch.pipelines.pointpillars import (
+            export_slim_checkpoint)
+        out = export_slim_checkpoint(args.src, args.dst)
+        print(f"{args.src} -> {args.dst}: {out['bytes'] / 1e6:.1f} MB "
+              f"(was {os.path.getsize(args.src) / 1e6:.1f}), step "
+              f"{out['step']}, sidecar {out['sidecar']}")
+        return 0
 
     if args.cmd == "kitti2d":
         from lidar_object_detection_tpu_torch.pipelines.kitti2d import (

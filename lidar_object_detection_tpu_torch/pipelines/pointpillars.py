@@ -22,7 +22,10 @@ step)`` with a ``pillars_config_meta`` sidecar, the layout of the JAX
 package's surround runner (``examples/train_pointpillars_surround.py``),
 which both packages' ``pointpillars-infer`` read.  The JAX function writes
 an orbax directory there instead; orbax imports JAX, which the port does
-not.
+not.  :func:`restore_pillars_checkpoint` resumes a trainer from such a
+file (the runner's ``from_bytes``), and :func:`export_slim_checkpoint`
+keeps only its variables and step (``examples/export_pp_ckpt.py``), the
+form of the committed ``checkpoints/pp_*_surround.msgpack``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import warnings
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -48,7 +52,7 @@ from lidar_object_detection_tpu_torch.models.pointpillars.augment import (
 from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_matrix_np)
 from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
-    read_flax_msgpack, write_flax_msgpack)
+    packb, read_flax_msgpack, write_flax_msgpack)
 
 
 MAX_GT = 64
@@ -435,6 +439,38 @@ def write_pillars_checkpoint(path: str, trainer, cfg: PillarsConfig) -> None:
         json.dump(pillars_config_meta(cfg), f)
 
 
+def restore_pillars_checkpoint(path: str, trainer) -> int:
+    """Resume ``trainer`` (a :class:`PillarsTrainer`) from a full
+    checkpoint that :func:`write_pillars_checkpoint` or the JAX surround
+    runner wrote; returns its step.  The sidecar, where there is one, must
+    name the trainer's grid and head; a slim checkpoint is refused
+    (``PillarsTrainer.restore``)."""
+    check_sidecar(path, trainer.cfg)
+    trainer.restore(read_flax_msgpack(path))
+    return trainer.state.step
+
+
+def export_slim_checkpoint(src: str, dst: str) -> Dict:
+    """Write ``dst``: ``src``'s ``{"0": variables, "2": step}`` alone, the
+    optimizer's moments dropped, as flax's ``msgpack_serialize`` writes it
+    (the bytes of ``examples/export_pp_ckpt.py``'s), and copy its sidecar.
+    Returns the payload's size in bytes, the step and the sidecar (None
+    without one)."""
+    raw = read_flax_msgpack(src)
+    payload = packb({"0": raw["0"], "2": raw["2"]})
+    tmp = dst + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(payload)
+    os.replace(tmp, dst)
+    meta = None
+    if os.path.exists(src + ".json"):
+        shutil.copyfile(src + ".json", dst + ".json")
+        with open(dst + ".json") as f:
+            meta = json.load(f)
+    step = raw["2"] if isinstance(raw["2"], dict) else int(raw["2"])
+    return {"bytes": len(payload), "step": step, "sidecar": meta}
+
+
 def train_pointpillars(dataset_root: str, steps: int = 50,
                        frame_ids: Optional[Sequence[int]] = None,
                        cfg: Optional[PillarsConfig] = None,
@@ -591,26 +627,33 @@ def load_pillars_variables(ckpt_path: str,
     """
     raw = read_flax_msgpack(ckpt_path)
     variables, step = raw["0"], raw["2"]
+    if expect_cfg is not None:
+        check_sidecar(ckpt_path, expect_cfg)
+    return variables, int(np.asarray(step))
+
+
+def check_sidecar(ckpt_path: str, expect_cfg: PillarsConfig) -> None:
+    """The ``<ckpt>.json`` sidecar's grid and head must match
+    ``expect_cfg`` (ValueError otherwise); a missing sidecar warns."""
     sidecar = ckpt_path + ".json"
-    if expect_cfg is not None and not os.path.exists(sidecar):
+    if not os.path.exists(sidecar):
         warnings.warn(
             f"checkpoint {ckpt_path} has no {os.path.basename(sidecar)} "
             "sidecar; cannot verify it matches the requested "
             "--surround/--head config. A mismatched grid decodes garbage "
-            "coordinates silently.", stacklevel=2)
-    if expect_cfg is not None and os.path.exists(sidecar):
-        with open(sidecar) as f:
-            saved = json.load(f)
-        want = pillars_config_meta(expect_cfg)
-        mismatch = {k: (saved.get(k), v) for k, v in want.items()
-                    if saved.get(k) != v}
-        if mismatch:
-            raise ValueError(
-                f"checkpoint {ckpt_path} was trained with a different "
-                f"config than requested (saved vs requested): {mismatch}. "
-                "Pass matching --surround/--head flags (or the cfg the "
-                "checkpoint was trained with).")
-    return variables, int(np.asarray(step))
+            "coordinates silently.", stacklevel=3)
+        return
+    with open(sidecar) as f:
+        saved = json.load(f)
+    want = pillars_config_meta(expect_cfg)
+    mismatch = {k: (saved.get(k), v) for k, v in want.items()
+                if saved.get(k) != v}
+    if mismatch:
+        raise ValueError(
+            f"checkpoint {ckpt_path} was trained with a different "
+            f"config than requested (saved vs requested): {mismatch}. "
+            "Pass matching --surround/--head flags (or the cfg the "
+            "checkpoint was trained with).")
 
 
 def load_pillars_model(ckpt_path: str, cfg: PillarsConfig,
