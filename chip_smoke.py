@@ -166,14 +166,37 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    a 20-sweep aggregate of 1,310,720 points, and K1 against its twin on
    those operands and tiled to 5,242,880 points (past 132 blocks of
    32,768);
-15. prints one JSON line of the kernels (times, bounds, launches, errors;
+15. runs the serving-quality protocol and the YOLO-side tools
+   (``quality_phase``) from a KITTI-360 tree of the main path's 4 frames
+   (frame 100 first): ``pipelines.quality``'s ``knob-sweep``,
+   ``threshold-cv``, ``flip-probe`` and ``imgsz-probe --imgsz 640 1408``
+   with YOLO11x-seg at full width on the card, each launching what its
+   configurations should; the x forward at imgsz 640 and 1408 and a
+   configuration's decode and fusions, timed; K3, K2 and the peak pass on
+   the imgsz-1408 tables (94 x 352) and K1 on a configuration's operands
+   against their twins; ``tools/forward_times.py --top-ops`` on the
+   card (a positive op total, the port's kernels among the ops); then,
+   on a light tree of frames 100 and 101, the four subcommands with
+   YOLO11n-seg twice on the card (the same payloads but for their
+   timings) and on the CPU (at most ``QUALITY_WORD_SHARE`` of a fusion's
+   mask words different, the rows of the detections whose words are
+   equal exact, percentages within ``QUALITY_PCT_TOL``);
+   ``pipelines.regen_artifacts`` twice on the card and on the CPU, held
+   the same way from the detections each run fused;
+   ``yolo_distill --eval-targets`` on the card and the CPU;
+   ``yolo-export`` of the n checkpoint served back through ``run
+   --weights``;
+16. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
    PointPillars runs, ``pointpillars_train_launches`` of the four
    training runs, ``yolo_train_launches`` of a YOLO step and of the
    runner's first run, ``scale_out_launches`` of each scale-out path,
    ``kitti2d_launches`` of the card's ``kitti2d`` run,
-   ``relative_decode_launches`` and ``pillars_tools_launches``), the
+   ``relative_decode_launches``, ``pillars_tools_launches``,
+   ``quality_launches`` of each quality run and ``regen_launches`` of the
+   regeneration's, and ``*_imgsz1408`` and ``*_quality`` for the kernels
+   on the quality phase's operands), the
    card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -387,6 +410,19 @@ def write_kitti360_tree(root, frames, intrinsics=INTRINSICS, width=W0,
                       "w") as f:
                 json.dump([{"index": g, "corners_cam0": c.tolist()}
                            for g, c in enumerate(corners)], f)
+
+
+def quality_tree(root, images, scenes, first_id=100):
+    """A KITTI-360 tree of one frame per scene, ids from ``first_id``
+    (frame 100, the regeneration's V5 frame, first): the committed PNG
+    files for the first two frames as they are, ``images[b]`` for the
+    others, and each scene's scan and boxes (``make_scene``'s tuples)."""
+    frames = []
+    for b, (points, pvalid, corners, bvalid) in enumerate(scenes):
+        image = FRAMES[b] if b < len(FRAMES) else images[b]
+        frames.append((first_id + b, image, points[pvalid], corners[bvalid]))
+    write_kitti360_tree(root, frames)
+    return root
 
 
 # KITTI's image shapes vary a little; these three exercise the KITTI 2D
@@ -4912,6 +4948,667 @@ def pillars_tools_phase(torch, dev, smi, tmp, rng):
     return launches, rotated, k1, summary
 
 
+# ---------------------------------------------------------------------------
+# the serving-quality protocol, the regeneration, the oracle, yolo-export
+# ---------------------------------------------------------------------------
+
+# the x runs: each subcommand's argv, and what it should launch (a
+# decode: K5; an absolute cut: K2; a guarded one: K3 then K2; a relative
+# one: the peak pass then K2; the mirrored view alone: K5 and no mask
+# kernel; each configuration's two fusions: K1 twice)
+QUALITY_X_RUNS = {
+    "knob-sweep": (["--mask-thr", "0.5", "0.99", "--thr-mode", "absolute",
+                    "relative", "--guarded-grid", "0.99:0.5:200",
+                    "--tta-grid", "0.99:0.5:200"],
+                   {"nms": 6, "mask_assemble": 6, "mask_count": 2,
+                    "mask_peak": 2, "inside_counts": 12}),
+    "threshold-cv": (["--mask-thr", "0.5", "0.99", "--guarded-grid",
+                      "0.99:0.5:200", "--tta-grid", "0.99:0.5:200"],
+                     {"nms": 4, "mask_assemble": 4, "mask_count": 2,
+                      "inside_counts": 8}),
+    "flip-probe": ([], {"nms": 6, "mask_assemble": 4, "mask_count": 2,
+                        "inside_counts": 12}),
+    "imgsz-probe": (["--imgsz", "640", "1408", "--mask-thr", "0.99"],
+                    {"nms": 4, "mask_assemble": 4, "mask_count": 2,
+                     "inside_counts": 8}),
+}
+# the n runs, on the card twice and on the CPU once, on the light tree:
+# every kind of decode once (absolute, relative, guarded, the mirrored
+# view alone, the hflip consensus) at the fewest configurations that run
+# each subcommand, since a configuration's twins take seconds on the CPU
+QUALITY_N_RUNS = {
+    "knob-sweep": (["--mask-thr", "0.99", "--thr-mode", "relative",
+                    "--guarded-grid", "0.99:0.5:200"],
+                   {"nms": 2, "mask_assemble": 2, "mask_count": 1,
+                    "mask_peak": 1, "inside_counts": 4}),
+    "threshold-cv": (["--mask-thr", "0.5", "0.99"],
+                     {"nms": 2, "mask_assemble": 2, "inside_counts": 4}),
+    "flip-probe": (["--configs", "0.99:0.5:200"],
+                   {"nms": 3, "mask_assemble": 2, "mask_count": 2,
+                    "inside_counts": 6}),
+    "imgsz-probe": (["--imgsz", "640", "1408", "--mask-thr", "0.99",
+                     "--guarded"],
+                    {"nms": 2, "mask_assemble": 2, "inside_counts": 4}),
+}
+# the light tree's frames (the two committed camera frames, frame 100
+# first) and boxes a frame: the GT boxes behind the detections come
+# first in a scene, then scattered ones
+QUALITY_LIGHT_FRAMES = 2
+QUALITY_LIGHT_BOXES = 40
+# the regeneration with the n checkpoint at its sidecar point (hflip,
+# guarded): six detections (the study, the two master CSVs, the depth
+# maps, the overlays, V5), six fusions, V5's solver once
+REGEN_LAUNCHES = {"nms": 6, "mask_assemble": 6, "mask_count": 6,
+                  "inside_counts": 6, "lap": 1}
+# card against CPU: the payloads' percentages (2 decimals) and the
+# summaries' means, in percentage points, where a mask word may differ
+QUALITY_PCT_TOL = 0.1
+# card against CPU: the share of a fusion's mask words that may differ (a
+# word is one pixel's 32 detection bits; the card read 9.4e-7, one word in
+# 1.06 M, on the light tree's 2 x 376 x 1408 pixels): about ten words
+QUALITY_WORD_SHARE = 1e-5
+QUALITY_TIMINGS = ("sweep_s", "config_s", "forward_s")
+
+
+def strip_timings(payload):
+    """A quality payload without its wall-clock fields."""
+    if isinstance(payload, dict):
+        return {k: strip_timings(v) for k, v in payload.items()
+                if k not in QUALITY_TIMINGS}
+    if isinstance(payload, list):
+        return [strip_timings(v) for v in payload]
+    return payload
+
+
+def same_quality_rows(got, ref, what):
+    """Result rows of two payloads of one subcommand (any order): the same
+    configurations, matched cars exact, percentages within
+    QUALITY_PCT_TOL."""
+    configs = ("conf", "mask_threshold", "mask_threshold_floor", "floor",
+               "config")
+    key = lambda r: json.dumps({k: v for k, v in r.items()
+                                if not isinstance(v, float) or k in configs},
+                               sort_keys=True)
+    got, ref = strip_timings(got), strip_timings(ref)
+    got, ref = sorted(got, key=key), sorted(ref, key=key)
+    if [key(r) for r in got] != [key(r) for r in ref]:
+        raise AssertionError(f"{what}: configurations or matched cars "
+                             f"differ: {got} against {ref}")
+    err = 0.0
+    for g, r in zip(got, ref):
+        for k, v in r.items():
+            if isinstance(v, float) and k not in configs:
+                err = max(err, abs(g[k] - v))
+    if err > QUALITY_PCT_TOL:
+        raise AssertionError(f"{what}: percentages differ by {err} "
+                             f"> {QUALITY_PCT_TOL}")
+    return err
+
+
+class FusionLog:
+    """Records every fusion's frame ids and detections (validity and mask
+    words, on the host), by wrapping ``FusionPipeline.fuse``; with
+    ``quality``, also the joined rows of each configuration a quality
+    study decodes, by wrapping ``quality._joined_rows``: ``configs`` holds
+    (the configuration's last fusion, its rows as tuples)."""
+
+    def __init__(self, quality=None):
+        from lidar_object_detection_tpu_torch.pipelines import runner
+
+        self.runner, self.quality = runner, quality
+        self.fusions, self.configs, self.restore = [], [], []
+
+    def __enter__(self):
+        pipeline = self.runner.FusionPipeline
+        real_fuse = pipeline.fuse
+
+        def fuse(pipe, batch, detections):
+            self.fusions.append(([int(f) for f in batch.frame_ids],
+                                 detections["det_valid"].cpu(),
+                                 detections["mask_bits"].cpu()))
+            return real_fuse(pipe, batch, detections)
+        self.restore.append((pipeline, "fuse", real_fuse))
+        pipeline.fuse = fuse
+        if self.quality is not None:
+            real_joined = self.quality._joined_rows
+
+            def joined(ctx, detections):
+                rows = real_joined(ctx, detections)
+                self.configs.append((self.fusions[-1], [
+                    dataclasses.astuple(r) for r in rows]))
+                return rows
+            self.restore.append((self.quality, "_joined_rows", real_joined))
+            self.quality._joined_rows = joined
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self.restore):
+            setattr(owner, name, real)
+        self.restore = []
+
+
+def differing_detections(torch, card, cpu, what):
+    """Card against CPU, fusion by fusion (FusionLog.fusions): the same
+    frames and validity, and at most QUALITY_WORD_SHARE of the mask words
+    different (a pixel within float32 rounding of its cut).  Returns the
+    (frame, detection) pairs whose mask differs in some fusion and the
+    largest word-mismatch share."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{what}: {len(card)} fusions on the card, "
+                             f"{len(cpu)} on the CPU")
+    differ, worst = set(), 0.0
+    for i, ((cf, cv, cw), (pf, pv, pw)) in enumerate(zip(card, cpu)):
+        share = float((cw != pw).float().mean())
+        if cf != pf or not torch.equal(cv, pv) or share > QUALITY_WORD_SHARE:
+            raise AssertionError(
+                f"{what}: fusion {i}: card and CPU detections differ "
+                f"(frames {cf} / {pf}, validity equal {torch.equal(cv, pv)}"
+                f", word mismatch share {share} > {QUALITY_WORD_SHARE})")
+        for b, frame in enumerate(cf):
+            xor = cw[b] ^ pw[b]
+            for word in xor[xor != 0].unique().tolist():
+                differ.update((frame, d) for d in range(cv.shape[1])
+                              if (word >> d) & 1)
+        worst = max(worst, share)
+    return differ, worst
+
+
+def same_rows_where_equal(card, cpu, differ, what):
+    """Per-car rows (frame and detection first) of the detections outside
+    ``differ``: the same rows on both sides, every count exact.  Returns
+    how many rows were held."""
+    def held(rows):
+        return sorted(tuple(r) for r in rows
+                      if (int(r[0]), int(r[1])) not in differ)
+    if held(card) != held(cpu):
+        raise AssertionError(f"{what}: the rows of the detections whose "
+                             f"words are equal differ: {held(card)} against "
+                             f"{held(cpu)}")
+    return len(held(card))
+
+
+def compare_logged(torch, card, cpu, what):
+    """Card against CPU, configuration by configuration (FusionLog.
+    configs): where every detection is equal the joined rows must be
+    equal; elsewhere the detections may differ only as
+    ``differing_detections`` allows, and the rows of the detections whose
+    words are equal must be equal.  Returns (equal configurations,
+    configurations, the largest word-mismatch share)."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{what}: {len(card)} configurations on the "
+                             f"card, {len(cpu)} on the CPU")
+    equal, worst = 0, 0.0
+    for i, ((cfused, crows), (pfused, prows)) in enumerate(zip(card, cpu)):
+        differ, share = differing_detections(
+            torch, [cfused], [pfused], f"{what}: configuration {i}")
+        same_rows_where_equal(crows, prows, differ,
+                              f"{what}: configuration {i}")
+        equal += not differ
+        worst = max(worst, share)
+    return equal, len(card), worst
+
+
+def same_summary(got, ref, slack, what):
+    """Two run or study summaries: car counts exact, point totals within
+    ``slack`` points (those of the detections whose words differ),
+    percentages within QUALITY_PCT_TOL."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{what}: keys {sorted(got)} / {sorted(ref)}")
+    for k, v in ref.items():
+        if k.startswith("total_") and k != "total_cars":
+            tol = slack
+        else:
+            tol = QUALITY_PCT_TOL if isinstance(v, float) else 0
+        if abs(got[k] - v) > tol:
+            raise AssertionError(f"{what}: {k} {got[k]} against {v} "
+                                 f"(tolerance {tol})")
+
+
+def run_quality(quality, argv, device, log=None):
+    """One quality subcommand in this process: (payload, printed text)."""
+    out = argv[argv.index("--out") + 1]
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        if log is not None:
+            stack.enter_context(log)
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        code = quality.main(argv + ["--device", str(device)])
+    if code != 0:
+        raise AssertionError(f"{argv} exited {code}")
+    with open(out) as f:
+        return json.load(f), buf.getvalue()
+
+
+def check_quality_tables(torch, dev, tables, thr, floor, min_pixels):
+    """K3, K2 and the peak pass against their twins on the quality
+    study's (B, D, mh, mw) tables at imgsz 1408, with their boxes and
+    validity: counts and words equal (K2 with the plain cut and with the
+    guard), peaks' float bits equal; each timed beside its twin, with its
+    bound.  Returns {kernel: entry fields}."""
+    from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
+
+    ops = ma.prepare_operands(*tables, H0, W0, thr)
+    counts = ma.count_above_cuda(ops)
+    if not torch.equal(counts, ma.count_above_plain(ops)):
+        raise AssertionError("K3 differs from its twin on the imgsz-1408 "
+                             "tables")
+    guard = ma.Guard(counts, floor, min_pixels)
+    words_set = 0
+    for g in (None, guard):
+        words = ma.assemble_masks_cuda(ops, g)
+        if not torch.equal(words, ma.assemble_masks_plain(ops, g)):
+            raise AssertionError("K2 differs from its twin on the "
+                                 "imgsz-1408 tables")
+        words_set += int((words != 0).sum())
+    peak_ops = ma.prepare_operands(*tables, H0, W0, 0.0)
+    peaks = ma.peak_cuda(peak_ops)
+    if not torch.equal(peaks.view(torch.int32),
+                       ma.peak_plain(peak_ops).view(torch.int32)):
+        raise AssertionError("the peak pass differs from its twin on the "
+                             "imgsz-1408 tables")
+    if words_set == 0 or int((peaks > 0).sum()) == 0:
+        raise AssertionError("the imgsz-1408 table check is degenerate")
+    out = torch.empty((ops.table.shape[0], H0, W0), dtype=torch.int32,
+                      device=dev)
+    cnt = torch.zeros(ops.table.shape[:2], dtype=torch.int32, device=dev)
+    timers = {
+        "mask_count": (lambda: ma.launch("mask_count_launch", ops, cnt),
+                       lambda: ma.count_above_plain(ops), ops, True),
+        "mask_assemble": (
+            lambda: ma.launch("mask_assemble_launch", ops, out, guard),
+            lambda: ma.assemble_masks_plain(ops, guard), ops, False),
+        "mask_peak": (lambda: ma.launch("mask_peak_launch", peak_ops, cnt),
+                      lambda: ma.peak_plain(peak_ops), peak_ops, True)}
+    fields = {}
+    for name, (kernel, plain, o, count) in timers.items():
+        bound, by = mask_bound(o, count)
+        fields[name] = {"ms_imgsz1408": time_gpu(kernel),
+                        "bound_ms_imgsz1408": bound,
+                        "bound_by_imgsz1408": by,
+                        "plain_ms_imgsz1408": time_gpu(
+                            plain, reps=10, head_start=False),
+                        "max_abs_err_imgsz1408": 0,
+                        "table_imgsz1408": list(ops.table.shape)}
+    print(f"imgsz-1408 tables {list(ops.table.shape)}: K3, K2 (plain cut "
+          f"and guard) and the peak pass equal to their twins; " + "; ".join(
+              f"{k} {v['ms_imgsz1408']:.4f} ms (bound "
+              f"{v['bound_ms_imgsz1408']:.4g} by {v['bound_by_imgsz1408']}"
+              f", twin {v['plain_ms_imgsz1408']:.4f})"
+              for k, v in fields.items()), flush=True)
+    return fields
+
+
+def check_quality_k1(torch, dev, ctx, detections):
+    """K1 against its twin on a quality configuration's operands (the
+    eroded run's point words, boxes and visibility of the study's 4
+    scans), equal to the fusion's own counts; timed with its bound."""
+    from lidar_object_detection_tpu_torch.ops.inside_counts import (
+        inside_counts_cuda, inside_counts_plain)
+
+    pipe = ctx.pipe_ero
+    records = pipe.dataset.load_frames()
+    batch = pipe.dataset.make_batch(records)
+    fused = pipe.fuse(batch, detections)
+    ops = (torch.from_numpy(batch.points[..., :3]).to(dev).contiguous(),
+           fused["point_bits"].contiguous(),
+           fused["corners_velo"].contiguous(),
+           fused["box_visible"].contiguous())
+    got = inside_counts_cuda(*ops, D)
+    ref = inside_counts_plain(*ops, D)
+    for g, r, what in zip(got, ref, ("counts", "totals")):
+        if not torch.equal(g, r):
+            raise AssertionError(f"K1 {what} differ from the twin on the "
+                                 "quality run's operands")
+    if not torch.equal(got[0], fused["counts"]) or int(got[1].sum()) == 0:
+        raise AssertionError("K1 on the quality operands: not the "
+                             "fusion's counts, or no point counted")
+    active, pairs, (bound, by) = k1_bound(*ops)
+    return {"ms_quality": time_gpu(k1_launcher(torch, dev, *ops)),
+            "bound_ms_quality": bound, "bound_by_quality": by,
+            "plain_ms_quality": time_gpu(
+                lambda: inside_counts_plain(*ops, D), reps=5, warmup=1,
+                head_start=False),
+            "max_abs_err_quality": 0,
+            "quality_operands": {"points": int(ops[0].shape[1]),
+                                 "active": active, "pairs": pairs}}
+
+
+REGEN_CSVS = ("master_car_statistics.csv", "master_car_statistics_raw.csv")
+
+
+def regen_rows(d, name):
+    """A regeneration's CSV lines, a master CSV's without its timestamp."""
+    lines = read_bytes(os.path.join(d, name)).decode().splitlines()
+    return [line.rsplit(",", 1)[0] for line in lines] if name in REGEN_CSVS \
+        else lines
+
+
+def regen_files(d):
+    """What a regeneration writes but its pictures, timestamps aside: the
+    summary, the CSVs and the workbook's parts."""
+    import zipfile
+
+    with zipfile.ZipFile(os.path.join(d, "master_car_statistics.csv.xlsx")) \
+            as z:
+        book = [(n, z.read(n)) for n in z.namelist()]
+    return (read_bytes(os.path.join(d, "summary.json")), book,
+            [regen_rows(d, n) for n in ("erosion_study.csv", *REGEN_CSVS)])
+
+
+def regen_pictures(d):
+    return {sub: {n: read_bytes(os.path.join(d, sub, n))
+                  for n in sorted(os.listdir(os.path.join(d, sub)))}
+            for sub in ("depth_maps", "seg_overlays")}
+
+
+def same_regeneration(torch, card, cpu, card_fusions, cpu_fusions):
+    """The regenerations in ``card`` and ``cpu`` against each other, from
+    the detections each fused (FusionLog.fusions): from equal detections
+    the same files (regen_files); else the detections may differ only as
+    ``differing_detections`` allows, the rows of the detections whose
+    words are equal are exact in the study's CSV and both master CSVs,
+    and their summaries agree as ``same_summary`` says, with the rest of
+    ``summary.json`` equal.  Returns (detections equal, the largest
+    word-mismatch share)."""
+    differ, share = differing_detections(torch, card_fusions, cpu_fusions,
+                                         "regeneration")
+    if not differ:
+        if regen_files(card) != regen_files(cpu):
+            raise AssertionError("the regeneration on the card and on the "
+                                 "CPU wrote other files from the same "
+                                 "detections")
+        return True, share
+    sums = [json.loads(read_bytes(os.path.join(d, "summary.json")))
+            for d in (card, cpu)]
+    slack = {}
+    for name, key in (("erosion_study.csv", "erosion_study"),
+                      (REGEN_CSVS[0], "csv_eval"),
+                      (REGEN_CSVS[1], "no_erosion")):
+        got, ref = ([r.split(",") for r in regen_rows(d, name)[1:]]
+                    for d in (card, cpu))
+        same_rows_where_equal(got, ref, differ, f"regeneration {name}")
+        # a master CSV's fourth column is the car's points
+        slack[key] = max(sum(int(r[3]) for r in side
+                             if (int(r[0]), int(r[1])) in differ)
+                         for side in (got, ref)) if name in REGEN_CSVS else 0
+        same_summary(sums[0][key], sums[1][key], slack[key],
+                     f"regeneration {key}")
+    rest = [{k: v for k, v in d.items() if k not in slack} for d in sums]
+    if rest[0] != rest[1]:
+        raise AssertionError(f"regeneration summary: {rest[0]} against "
+                             f"{rest[1]}")
+    return False, share
+
+
+def quality_phase(torch, dev, smi, tmp, images, scenes):
+    """The serving-quality protocol and the YOLO-side tools on the card,
+    from a KITTI-360 tree of the main path's 4 frames (frame 100 first)
+    at 376 x 1408, counters zeroed before each run and read after it:
+
+    * YOLO11x-seg (the committed x checkpoint, float32 as the protocol
+      serves it) through ``pipelines.quality``: ``knob-sweep`` (two plain
+      cuts, absolute and relative, a guarded and an hflip-TTA point),
+      ``threshold-cv`` over that grid, ``flip-probe`` and ``imgsz-probe
+      --imgsz 640 1408``, each launching what QUALITY_X_RUNS says;
+    * the x forward at 640 and 1408 (CUDA events), a configuration's
+      decode and both fusions (host clock, synchronised), K3, K2 and the
+      peak pass on the imgsz-1408 tables and K1 on a configuration's
+      operands against their twins;
+    * ``forward_times --top-ops`` of the n serving forward on the card:
+      a positive op total and K5 or K2 among the listed kernels;
+    * on a light tree (frames 100 and 101, QUALITY_LIGHT_BOXES boxes a
+      frame), YOLO11n-seg through the four subcommands (QUALITY_N_RUNS)
+      twice on the card, the payloads equal but for the timings, and on
+      the CPU (``compare_logged``): at most QUALITY_WORD_SHARE of the
+      words different, the rows of the detections whose words are equal
+      exact, and the payloads' matched cars equal and percentages within
+      QUALITY_PCT_TOL;
+    * on the light tree, ``pipelines.regen_artifacts`` with the n
+      checkpoint twice on the card (the same CSV rows but for the
+      timestamps, summary, workbook parts, overlays and depth maps) and
+      on the CPU (``same_regeneration``, from the detections each run
+      fused), timed;
+      ``yolo_distill --eval-targets`` on its label cache, card and CPU
+      the same lines; ``yolo-export`` of the committed n checkpoint,
+      served back through ``run --weights``.
+
+    Returns (launches by run, kernel entry fields, a summary)."""
+    from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
+        PostprocessParams, cropped_prob_table, postprocess_batch)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.pipelines import (
+        quality, regen_artifacts, yolo_distill)
+    from lidar_object_detection_tpu_torch.tools import forward_times
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    t0 = time.perf_counter()
+    root = quality_tree(os.path.join(tmp, "quality_kitti360"), images,
+                        scenes)
+    light = quality_tree(os.path.join(tmp, "quality_light"), images, [
+        (points, pvalid, corners,
+         bvalid & (np.cumsum(bvalid) <= QUALITY_LIGHT_BOXES))
+        for points, pvalid, corners, bvalid in
+        scenes[:QUALITY_LIGHT_FRAMES]])
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    launches, times, summary = {}, {}, {}
+
+    def counted(name, fn, want):
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name + "_s"] = time.perf_counter() - t
+        launches[name] = dict(kernel_lib.LAUNCHES)
+        if launches[name] != dict(zero, **want):
+            raise AssertionError(f"{name} launched {launches[name]}, "
+                                 f"expected {want}")
+        return out
+
+    # YOLO11x-seg through the four subcommands
+    x_payloads = {}
+    for cmd, (flags, want) in QUALITY_X_RUNS.items():
+        argv = [cmd, "--ckpt", CKPT_X, "--dataset", root, "--out",
+                os.path.join(tmp, f"x_{cmd}.json"), *flags]
+        payload, _ = counted(f"x_{cmd}", lambda argv=argv: run_quality(
+            quality, argv, dev), want)
+        x_payloads[cmd] = payload
+        rows = payload.get("results") or payload.get("insample")
+        if not rows or min(r["matched_cars"] for r in rows) == 0:
+            raise AssertionError(f"x {cmd}: no matched car in {payload}")
+    summary["x"] = {cmd: strip_timings(p.get("results") or p["cv"])
+                    for cmd, p in x_payloads.items()}
+    picks = [c["fold_picks"] for c in x_payloads["threshold-cv"]["cv"]]
+    sizes = sorted({r["imgsz"] for r in x_payloads["imgsz-probe"]
+                    ["results"]})
+    if sizes != [640, 1408] or not all(picks):
+        raise AssertionError(f"x probes: sizes {sizes}, CV picks {picks}")
+    print(f"quality, YOLO11x-seg on the card: {json.dumps(summary['x'])}; "
+          f"wall s {json.dumps({k: round(v, 3) for k, v in times.items()})}"
+          f" on {smi}", flush=True)
+
+    # the x forward at 640 and 1408, a configuration's decode and fusions,
+    # and the kernels on the studies' operands
+    fields = {}
+    for imgsz in (640, 1408):
+        ctx = quality.prepare_study(CKPT_X, root, dev, log=lambda *a, **k:
+                                    None, imgsz=imgsz)
+        with torch.no_grad():
+            times[f"x_forward_{imgsz}_ms"], _ = time_events(
+                torch, lambda: ctx.run_forward(ctx.images), iters=5)
+        config_s = []
+        for _ in range(3):
+            t = time.perf_counter()
+            quality.rows_for(ctx, 0.25, 0.99, floor=0.5, min_pixels=200)
+            config_s.append(time.perf_counter() - t)
+        times[f"x_config_{imgsz}_ms"] = float(np.median(config_s)) * 1e3
+        params = PostprocessParams(spec=ctx.spec, mask_threshold=0.99,
+                                   mask_threshold_floor=0.5,
+                                   mask_min_pixels=200, max_detections=32)
+        if imgsz == 640:
+            fields["inside_counts"] = check_quality_k1(
+                torch, dev, ctx, postprocess_batch(ctx.raw_out, params))
+        else:
+            kept = postprocess_batch(ctx.raw_out, params, masks=False)
+            tables = (cropped_prob_table(ctx.raw_out["proto"], kept["coef"],
+                                         ctx.spec),
+                      kept["boxes"], kept["det_valid"])
+            fields.update(check_quality_tables(torch, dev, tables, 0.99, 0.5,
+                                               200))
+        del ctx
+        torch.cuda.empty_cache()
+    print(f"quality, YOLO11x-seg: forward {times['x_forward_640_ms']:.2f} ms "
+          f"at imgsz 640 and {times['x_forward_1408_ms']:.2f} ms at 1408 "
+          f"(4 frames, float32, CUDA events); a guarded configuration's "
+          f"decode and both fusions {times['x_config_640_ms']:.2f} / "
+          f"{times['x_config_1408_ms']:.2f} ms (host clock, synchronised); "
+          f"threshold-cv in all {times['x_threshold-cv_s']:.3f} s, on {smi}",
+          flush=True)
+
+    # forward_times --top-ops: the serving forward's profile on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = forward_times.main(
+            ["--top-ops", "1000", "--batch", "4", "--scale", "n", "--iters",
+             "2", "--trace-dir", os.path.join(tmp, "top_ops")])
+    text = buf.getvalue()
+    total = re.search(r"\(op total ([0-9.]+) ms\)", text)
+    listed = text.split(" individual ops --\n", 1)[-1].splitlines()
+    ours = [line.strip() for line in listed
+            if re.search(r"\b(nms|mask)_kernel\b", line)]
+    if code != 0 or not total or float(total[1]) <= 0 or not ours:
+        raise AssertionError(f"forward_times --top-ops on the card: {text}")
+    summary["top_ops"] = {"detect": text.splitlines()[0],
+                          "op_total_ms": float(total[1]),
+                          "top": [line.strip() for line in listed[:5]],
+                          "port_kernels": ours}
+    print(f"forward_times --top-ops on the card: "
+          f"{json.dumps(summary['top_ops'])}", flush=True)
+
+    # YOLO11n-seg, card twice and CPU once
+    n_logs, n_payloads, compared = {}, {}, {}
+    for run, device in (("n_card", dev), ("n_card_again", dev),
+                        ("n_cpu", "cpu")):
+        for cmd, (flags, want) in QUALITY_N_RUNS.items():
+            argv = [cmd, "--ckpt", CKPT, "--dataset", light, "--out",
+                    os.path.join(tmp, f"{run}_{cmd}.json"), *flags]
+            log = FusionLog(quality)
+            payload, _ = counted(
+                f"{run}_{cmd}", lambda argv=argv, device=device, log=log:
+                run_quality(quality, argv, device, log),
+                want if device != "cpu" else {})
+            n_logs[run, cmd], n_payloads[run, cmd] = log.configs, payload
+    for cmd in QUALITY_N_RUNS:
+        card, again = (strip_timings(n_payloads[r, cmd])
+                       for r in ("n_card", "n_card_again"))
+        if json.dumps(card) != json.dumps(again):
+            raise AssertionError(f"n {cmd}: the second card run's payload "
+                                 "differs from the first")
+        if [c[1] for c in n_logs["n_card", cmd]] != \
+                [c[1] for c in n_logs["n_card_again", cmd]]:
+            raise AssertionError(f"n {cmd}: the second card run's rows "
+                                 "differ")
+        equal, total, share = compare_logged(
+            torch, n_logs["n_card", cmd], n_logs["n_cpu", cmd], f"n {cmd}")
+        cpu = n_payloads["n_cpu", cmd]
+        err = same_quality_rows(
+            n_payloads["n_card", cmd].get("results") or
+            n_payloads["n_card", cmd]["insample"],
+            cpu.get("results") or cpu["insample"], f"n {cmd}")
+        if cmd == "threshold-cv":
+            err = max(err, same_quality_rows(
+                [dict(c, fold_picks=json.dumps(c["fold_picks"]))
+                 for c in card["cv"]],
+                [dict(c, fold_picks=json.dumps(c["fold_picks"]))
+                 for c in strip_timings(cpu)["cv"]], "n threshold-cv"))
+        compared[cmd] = {"configurations_equal": f"{equal}/{total}",
+                         "word_mismatch_share": share, "pct_err": err}
+    summary["n_card_vs_cpu"] = compared
+    print(f"quality, YOLO11n-seg: two card runs the same payloads and rows; "
+          f"card against CPU {json.dumps(compared)} (rows equal where the "
+          f"detections are; percentages within {QUALITY_PCT_TOL})",
+          flush=True)
+    phase("quality protocol", t0)
+
+    # the regeneration: card twice, CPU once
+    regen, regen_logs = {}, {}
+    for run, device in (("regen", dev), ("regen_again", dev),
+                        ("regen_cpu", "cpu")):
+        out = os.path.join(tmp, run)
+        argv = ["--ckpt", CKPT, "--dataset", light, "--out", out,
+                "--device", str(device)]
+        with FusionLog() as log:
+            counted(run, lambda argv=argv: run_cli(
+                argv, regen_artifacts.main),
+                REGEN_LAUNCHES if device != "cpu" else {})
+        regen[run], regen_logs[run] = out, log.fusions
+    a, b, c = regen["regen"], regen["regen_again"], regen["regen_cpu"]
+    if regen_files(a) != regen_files(b) or \
+            regen_pictures(a) != regen_pictures(b):
+        raise AssertionError("the regeneration's second card run wrote "
+                             "other files")
+    pics = regen_pictures(a)
+    if not pics["depth_maps"] or list(pics["seg_overlays"]) != [
+            "0000000100.png"]:
+        raise AssertionError(f"the regeneration's pictures: "
+                             f"{ {k: list(v) for k, v in pics.items()} }")
+    same_dets, share = same_regeneration(
+        torch, a, c, regen_logs["regen"], regen_logs["regen_cpu"])
+    card_sum = json.loads(read_bytes(os.path.join(a, "summary.json")))
+    summary["regen"] = {"summary": card_sum, "same_detections": same_dets,
+                        "word_mismatch_share": share,
+                        "depth_maps": len(pics["depth_maps"])}
+    print(f"regeneration: {times['regen_s']:.3f} s on the card (host clock; "
+          f"{times['regen_cpu_s']:.3f} s on the CPU), the second card run "
+          f"the same files, card = CPU {'byte for byte' if same_dets else 'within the tolerances'}"
+          f" ({len(pics['depth_maps'])} depth maps, 1 overlay); "
+          f"{json.dumps(card_sum['erosion_study'])} on {smi}", flush=True)
+
+    # the target oracle, and yolo-export served back
+    cache = os.path.join(tmp, "labels.npz")
+    lines = {}
+    for run, device in (("eval_targets", dev), ("eval_targets_cpu", "cpu")):
+        argv = ["--dataset", light, "--eval-targets", "--cache", cache,
+                "--device", str(device)]
+        text = counted(run, lambda argv=argv: run_cli(
+            argv, yolo_distill.main),
+            {"inside_counts": 2} if device != "cpu" else {})
+        lines[run] = [line for line in text.splitlines()
+                      if not line.startswith("[labels]")]
+    if lines["eval_targets"] != lines["eval_targets_cpu"] or \
+            "'matched_cars': 0" in lines["eval_targets"][0]:
+        raise AssertionError(f"--eval-targets: {lines}")
+    slim = os.path.join(tmp, "yolo11n_slim.msgpack")
+    run_cli(["yolo-export", CKPT, slim])
+    served = read_flax_msgpack(slim)
+    ref_vars = read_flax_msgpack(CKPT)["variables"]
+    leaf = served["variables"]["params"]["layer0"]["conv"]["kernel"]
+    want = torch.from_numpy(ref_vars["params"]["layer0"]["conv"]["kernel"])
+    if leaf.dtype != torch.bfloat16 or not torch.equal(
+            leaf, want.to(torch.bfloat16)):
+        raise AssertionError("yolo-export did not store bf16 casts")
+    text = counted("yolo_export_run", lambda: run_cli(
+        ["run", "--dataset", light, "--version", "csv_eval", "--detector",
+         "yolo", "--weights", slim, "--output", os.path.join(tmp, "slim"),
+         "--device", str(dev)]),
+        {"nms": 1, "mask_assemble": 1, "mask_count": 1, "inside_counts": 1})
+    matched = int(re.search(r"matched: (\d+)", text)[1])
+    if matched == 0:
+        raise AssertionError(f"the exported checkpoint served {text!r}")
+    summary["eval_targets"] = lines["eval_targets"][0]
+    summary["yolo_export_matched"] = matched
+    print(f"--eval-targets card = CPU: {lines['eval_targets'][0]}; "
+          f"yolo-export: {os.path.getsize(slim)} bytes (bf16), served "
+          f"through run --weights on the card: {matched} matched cars",
+          flush=True)
+    summary["times"] = times
+    print(json.dumps({"quality": summary, "launches": launches,
+                      "card": smi}), flush=True)
+    phase("quality, regeneration, oracle and export", t0)
+    return launches, fields, summary
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -4995,6 +5692,9 @@ def main() -> int:
             torch, dev, smi, tmp, rng)
     rotated.update(rotated_m128)
     next(k for k in kernels if k["name"] == "inside_counts").update(long_k1)
+    with tempfile.TemporaryDirectory() as tmp:
+        quality_launches, quality_fields, _ = quality_phase(
+            torch, dev, smi, tmp, images, scenes)
     # the solver's main path is the V5 run
     lap.update(launches=match_launches["v5"]["lap"],
                csv_eval_launches=csv_launches["lap"],
@@ -5035,6 +5735,13 @@ def main() -> int:
                                     for run, n in yolo_launches.items()}
         k["pillars_tools_launches"] = {run: n[k["name"]]
                                        for run, n in tools_launches.items()}
+        k.update(quality_fields.get(k["name"], {}))
+        k["quality_launches"] = {run: n[k["name"]]
+                                 for run, n in quality_launches.items()
+                                 if not run.startswith("regen")}
+        k["regen_launches"] = {run: n[k["name"]]
+                               for run, n in quality_launches.items()
+                               if run.startswith("regen")}
         k["scale_out_launches"] = {
             "point_sharded_w1": scale_launches["point_sharded_w1"][
                 k["name"]],

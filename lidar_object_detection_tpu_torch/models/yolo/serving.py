@@ -8,6 +8,10 @@ checkpoints, a ``{"serving": {...}}`` block with the selected operating
 point.  Precedence, per knob: explicit caller override > sidecar
 ``serving`` block > library default (``mask_threshold`` 0.5, the
 detector's own ``conf``).
+
+:func:`export_serving_checkpoint` writes such a checkpoint from a
+distillation run (``examples/export_yolo_ckpt.py``; the CLI's
+``yolo-export``).
 """
 
 from __future__ import annotations
@@ -17,11 +21,13 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
-    read_flax_msgpack)
+    packb, read_flax_msgpack)
 
-__all__ = ["load_sidecar", "resolve_serving", "load_serving_checkpoint"]
+__all__ = ["load_sidecar", "resolve_serving", "load_serving_checkpoint",
+           "export_serving_checkpoint"]
 
 
 def load_sidecar(ckpt_path: str) -> Dict[str, Any]:
@@ -104,3 +110,66 @@ def load_serving_checkpoint(ckpt_path: str,
                        max_detections=max_detections, **kw)
     # convert-weights writes no step
     return det, int(np.asarray(raw.get("step", 0))), resolved
+
+
+def _cast_tree(tree, dtype: str):
+    """``tree`` with its float arrays stored as ``dtype`` (a numpy name or
+    ``bfloat16``); bfloat16 arrays (torch tensors, as the reader gives
+    them) and integer arrays stay as they are, as numpy's
+    ``issubdtype(..., floating)`` leaves them in the JAX script."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and np.issubdtype(tree.dtype,
+                                                      np.floating):
+        if dtype == "bfloat16":
+            return torch.from_numpy(tree).to(torch.bfloat16)
+        return tree.astype(np.dtype(dtype))
+    return tree
+
+
+def export_serving_checkpoint(src: str, dst: str, dtype: str = "bfloat16",
+                              serving: Optional[Dict[str, Any]] = None
+                              ) -> Dict[str, Any]:
+    """Write ``dst``, the slim serving checkpoint of the distillation run
+    ``src``: ``{"variables", "step"}``, the EMA copy where ``src`` has one,
+    float arrays stored as ``dtype``, in the bytes flax's
+    ``msgpack_serialize`` writes; and ``dst.json``, ``src``'s sidecar with
+    the ``serving`` block set where one is given (``mask_threshold``, and
+    optionally ``mask_threshold_floor`` with ``mask_min_pixels``, and
+    ``tta``).  Returns the payload's size in bytes, the step, the sidecar
+    written ({} when none is) and the warnings of the JAX script."""
+    raw = read_flax_msgpack(src)
+    variables = raw.get("ema_variables") or raw["variables"]
+    payload = packb({"variables": _cast_tree(variables, dtype),
+                     "step": raw["step"]})
+    tmp = dst + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(payload)
+    os.replace(tmp, dst)
+
+    meta = load_sidecar(src)
+    warnings = []
+    if serving is not None:
+        meta["serving"] = {
+            "mask_threshold": serving["mask_threshold"],
+            "source": "examples/quality_knob_sweep.py (recorded at "
+                      "export time)"}
+        if serving.get("mask_threshold_floor") is not None:
+            meta["serving"]["mask_threshold_floor"] = \
+                serving["mask_threshold_floor"]
+            meta["serving"]["mask_min_pixels"] = serving["mask_min_pixels"]
+        if serving.get("tta") is not None:
+            meta["serving"]["tta"] = serving["tta"]
+    elif "serving" not in meta:
+        warnings.append("WARNING: no serving block in the source sidecar "
+                        "and no --serving-mask-thr given; the export will "
+                        "serve at ultralytics' 0.5 default")
+    if "scale" not in meta:
+        warnings.append("WARNING: no 'scale' in the sidecar; consumers will "
+                        "assume their default scale (models/yolo/"
+                        "serving.py)")
+    if meta:
+        with open(dst + ".json", "w") as f:
+            json.dump(meta, f)
+    return {"bytes": len(payload), "step": int(np.asarray(raw["step"])),
+            "sidecar": meta, "warnings": warnings}

@@ -19,6 +19,10 @@
       --aggregate-sweeps --head ssd --export-ply
   python -m lidar_object_detection_tpu_torch pointpillars-export \\
       ckpt/pp_ssd_step8000.msgpack pp_ssd_slim.msgpack
+  python -m lidar_object_detection_tpu_torch yolo-export \\
+      run/yolo_x_distill.msgpack checkpoints/yolo11x_seg_distill.msgpack \\
+      --serving-mask-thr 0.99 --serving-mask-floor 0.5 \\
+      --serving-mask-min-pixels 200 --serving-tta hflip
   python -m lidar_object_detection_tpu_torch kitti2d \\
       --dataset /path/to/KITTI_Selection --output results/
   python -m lidar_object_detection_tpu_torch convert-weights \\
@@ -53,6 +57,31 @@ import sys
 
 from lidar_object_detection_tpu_torch.config import (
     FusionConfig, PipelineVersion)
+
+def common_flags(ap: argparse.ArgumentParser) -> None:
+    """``--dataset`` and ``--device`` of the runners beside this CLI."""
+    ap.add_argument("--dataset", default=os.environ.get("LIDAR_TPU_KITTI360"),
+                    help="KITTI-360 root (default: $LIDAR_TPU_KITTI360)")
+    ap.add_argument("--device", "--platform", dest="device", default="cuda",
+                    help="cuda (default) or cpu")
+
+
+def require_dataset(ap: argparse.ArgumentParser, args) -> None:
+    """Refuse a run without data, or on a card that is not there."""
+    if not args.dataset:
+        ap.error("--dataset is required (or set LIDAR_TPU_KITTI360)")
+    require_device(ap, args)
+
+
+def require_device(ap: argparse.ArgumentParser, args) -> None:
+    """Refuse a run on a card that is not there: no fallback to the CPU."""
+    import torch
+
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        ap.error("--device cuda was asked for, but CUDA is not available; "
+                 "pass --device cpu to run on the CPU")
+
 
 # the versions whose run writes the master CSV (as the JAX CLI's)
 CSV_VERSIONS = (PipelineVersion.CSV_EVAL, PipelineVersion.V2_STATS,
@@ -183,6 +212,37 @@ def _convert_weights(args) -> int:
     return 0
 
 
+def _export_yolo(args) -> int:
+    """``yolo-export``: the JAX script's three refusals, then
+    ``serving.export_serving_checkpoint`` and its lines."""
+    if args.serving_tta is not None and args.serving_mask_thr is None:
+        args.error("--serving-tta needs --serving-mask-thr (a serving block "
+                   "is only written when a primary cut is recorded)")
+    if args.serving_mask_floor is not None and args.serving_mask_thr is None:
+        args.error("--serving-mask-floor needs --serving-mask-thr (the "
+                   "floor is the fallback below a recorded primary cut)")
+    if args.serving_mask_floor is not None \
+            and not (args.serving_mask_min_pixels or 0) >= 1:
+        args.error("--serving-mask-floor needs --serving-mask-min-pixels "
+                   ">= 1 (with no pixel guard the floor can never fire)")
+    from lidar_object_detection_tpu_torch.models.yolo.serving import (
+        export_serving_checkpoint)
+
+    serving = None
+    if args.serving_mask_thr is not None:
+        serving = {"mask_threshold": args.serving_mask_thr,
+                   "mask_threshold_floor": args.serving_mask_floor,
+                   "mask_min_pixels": args.serving_mask_min_pixels,
+                   "tta": args.serving_tta}
+    out = export_serving_checkpoint(args.src, args.dst, args.dtype, serving)
+    for line in out["warnings"]:
+        print(line)
+    print(f"{args.src} -> {args.dst}: {out['bytes'] / 1e6:.1f} MB "
+          f"(was {os.path.getsize(args.src) / 1e6:.1f}), "
+          f"step {out['step']}, sidecar {out['sidecar']}")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lidar_object_detection_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -260,6 +320,32 @@ def _parser() -> argparse.ArgumentParser:
     pe_p.add_argument("src")
     pe_p.add_argument("dst")
 
+    ye_p = sub.add_parser("yolo-export",
+                          help="slim a YOLO distillation run to a serving "
+                               "checkpoint (EMA variables preferred, float "
+                               "arrays cast) with its sidecar serving block")
+    ye_p.add_argument("src")
+    ye_p.add_argument("dst")
+    ye_p.add_argument("--dtype", default="bfloat16",
+                      help="storage dtype for float arrays "
+                           "(bfloat16/float32)")
+    ye_p.add_argument("--serving-mask-thr", type=float, default=None,
+                      help="record this mask threshold in the exported "
+                           "sidecar's serving block (the CLI and "
+                           "regen_artifacts serve it by default); omitted = "
+                           "keep the source sidecar's serving block if any")
+    ye_p.add_argument("--serving-mask-floor", type=float, default=None,
+                      help="record a guarded-shrink floor threshold in the "
+                           "serving block (with --serving-mask-min-pixels)")
+    ye_p.add_argument("--serving-mask-min-pixels", type=int, default=None,
+                      help="record the guarded-shrink pixel guard in the "
+                           "serving block")
+    ye_p.add_argument("--serving-tta", default=None,
+                      choices=["none", "hflip"],
+                      help="record a test-time-augmentation mode in the "
+                           "serving block (models/yolo/tta.py)")
+    ye_p.set_defaults(error=ye_p.error)
+
     cw_p = sub.add_parser("convert-weights",
                           help="torch state dict -> flax msgpack checkpoint "
                                "of YOLO11(-seg)")
@@ -298,6 +384,9 @@ def main(argv=None) -> int:
               f"(was {os.path.getsize(args.src) / 1e6:.1f}), step "
               f"{out['step']}, sidecar {out['sidecar']}")
         return 0
+
+    if args.cmd == "yolo-export":
+        return _export_yolo(args)
 
     if args.cmd == "kitti2d":
         from lidar_object_detection_tpu_torch.pipelines.kitti2d import (

@@ -34,7 +34,7 @@ from lidar_object_detection_tpu_torch.data.kitti360 import Kitti360Dataset
 from lidar_object_detection_tpu_torch.data.poses import aggregate_sweeps
 from lidar_object_detection_tpu_torch.fusion.associate import fuse_frame
 from lidar_object_detection_tpu_torch.models.stub import StubDetector
-from lidar_object_detection_tpu_torch.pipelines import pillars_surround as ps
+from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.utils.profiling import (
     device_name, time_calls)
 
@@ -43,7 +43,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m lidar_object_detection_tpu_torch.pipelines."
              "longcloud", description=__doc__.split("\n\n")[0])
-    ps.common_flags(ap)
+    cli.common_flags(ap)
     ap.add_argument("--frame", type=int, default=100)
     ap.add_argument("--sweeps", type=int, default=20)
     ap.add_argument("--iters", type=int, default=5)
@@ -85,7 +85,7 @@ def fuse_operands(root: str, frame: int, sweeps: int, min_points: int,
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    ps.require_dataset(ap, args)
+    cli.require_dataset(ap, args)
     operands, p = fuse_operands(args.dataset, args.frame, args.sweeps,
                                 args.min_points, args.device)
     with torch.inference_mode():

@@ -37,7 +37,7 @@ from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_matrix_np)
 from lidar_object_detection_tpu_torch.parallel.optim import (
     cosine_decay_schedule)
-from lidar_object_detection_tpu_torch.pipelines import pillars_surround as ps
+from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
 
 MAX_DETECTIONS = 128
@@ -74,7 +74,7 @@ def in_box_count(pts: np.ndarray, box: np.ndarray) -> int:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    ps.require_device(ap, args)
+    cli.require_device(ap, args)
     cfg = dataclasses.replace(PillarsConfig.kitti360_surround(),
                               head=args.head)
     with np.load(args.cache) as z:

@@ -31,7 +31,7 @@ import numpy as np
 
 from lidar_object_detection_tpu_torch.config import ShapeConfig
 from lidar_object_detection_tpu_torch.data.kitti360 import Kitti360Dataset
-from lidar_object_detection_tpu_torch.pipelines import pillars_surround as ps
+from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
 
 
@@ -40,7 +40,7 @@ def _parser() -> argparse.ArgumentParser:
         prog="python -m lidar_object_detection_tpu_torch.pipelines."
              "pillars_gate", description=__doc__.split("\n\n")[0])
     ap.add_argument("ckpt")
-    ps.common_flags(ap)
+    cli.common_flags(ap)
     ap.add_argument("--head", default="ssd", choices=("ssd", "center"))
     ap.add_argument("--frames", type=int, default=4,
                     help="the training frames: the first N (in "
@@ -60,7 +60,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    ps.require_dataset(ap, args)
+    cli.require_dataset(ap, args)
     cfg = pp.resolve_pillars_config(None, surround=True, head=args.head)
     ds = Kitti360Dataset(args.dataset, shapes=ShapeConfig())
     train_ids = ds.frame_ids()[:args.frames]

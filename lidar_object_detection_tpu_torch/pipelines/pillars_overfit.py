@@ -39,6 +39,7 @@ from lidar_object_detection_tpu_torch.models.pointpillars.augment import (
     GtDatabase, augment_frame, global_augment)
 from lidar_object_detection_tpu_torch.parallel.optim import (
     cosine_decay_schedule)
+from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.pipelines import pillars_surround as ps
 from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
 
@@ -50,7 +51,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("steps", nargs="?", type=int, default=4000)
     ap.add_argument("out", nargs="?", default=os.path.join(
         tempfile.gettempdir(), "pp_overfit.json"))
-    ps.common_flags(ap)
+    cli.common_flags(ap)
     ap.add_argument("--subsample", type=int, default=0,
                     help="points a frame a step; 0 = the full scans")
     ap.add_argument("--fade", type=float, default=1.0,
@@ -64,7 +65,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    ps.require_dataset(ap, args)
+    cli.require_dataset(ap, args)
     steps, subsample = args.steps, args.subsample
     use_augment = not args.no_augment
     cfg = PillarsConfig()

@@ -63,31 +63,11 @@ from lidar_object_detection_tpu_torch.models.pointpillars.augment import (
 from lidar_object_detection_tpu_torch.parallel.optim import (
     cosine_decay_schedule)
 from lidar_object_detection_tpu_torch.pipelines import pointpillars as pp
+from lidar_object_detection_tpu_torch.pipelines.cli import (
+    common_flags, require_dataset)
 
 CHUNK = 500
 FRAMES_PER_STEP = 4
-
-
-def require_dataset(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse a run without data, or on a card that is not there."""
-    if not args.dataset:
-        ap.error("--dataset is required (or set LIDAR_TPU_KITTI360)")
-    require_device(ap, args)
-
-
-def require_device(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse a run on a card that is not there: no fallback to the CPU."""
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        ap.error("--device cuda was asked for, but CUDA is not available; "
-                 "pass --device cpu to run on the CPU")
-
-
-def common_flags(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("--dataset", default=os.environ.get("LIDAR_TPU_KITTI360"),
-                    help="KITTI-360 root (default: $LIDAR_TPU_KITTI360)")
-    ap.add_argument("--device", "--platform", dest="device", default="cuda",
-                    help="cuda (default) or cpu")
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -15,11 +15,16 @@ Stages:
                   then evaluate
   --eval-only     serve the checkpoint through ``YoloDetector`` and score
                   its detections against the labels
+  --eval-targets  serve the labels themselves as detections through the
+                  erosion study (``examples/eval_distill_targets.py``):
+                  the ceiling of the label recipe, no network
 
     python -m lidar_object_detection_tpu_torch.pipelines.yolo_distill \\
         --dataset ROOT --steps 3000 --ckpt OUT.msgpack --cache LABELS.npz
     python -m lidar_object_detection_tpu_torch.pipelines.yolo_distill \\
         --dataset ROOT --eval-only --ckpt OUT.msgpack
+    python -m lidar_object_detection_tpu_torch.pipelines.yolo_distill \\
+        --dataset ROOT --eval-targets --cache LABELS.npz
 
 ``--dataset`` defaults to ``$LIDAR_TPU_KITTI360``; one of them is
 required.  Training runs on the card unless ``--device cpu`` is given.
@@ -63,17 +68,20 @@ from lidar_object_detection_tpu_torch.data import Kitti360Dataset
 from lidar_object_detection_tpu_torch.geom.boxes import (
     points_in_oriented_boxes)
 from lidar_object_detection_tpu_torch.models.common import true_div
+from lidar_object_detection_tpu_torch.models.stub import StubDetector
 from lidar_object_detection_tpu_torch.models.yolo.detector import (
     YoloDetector)
 from lidar_object_detection_tpu_torch.models.yolo.model import YoloConfig
 from lidar_object_detection_tpu_torch.models.yolo.postprocess import (
     LetterboxSpec, letterbox_image)
-from lidar_object_detection_tpu_torch.ops.masks import unpack_masks
+from lidar_object_detection_tpu_torch.ops.masks import (
+    unpack_masks, wrap_int32)
 from lidar_object_detection_tpu_torch.parallel import distributed
 from lidar_object_detection_tpu_torch.parallel.mesh import make_mesh
 from lidar_object_detection_tpu_torch.parallel.optim import (
     warmup_cosine_decay_schedule)
 from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
+from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
     read_flax_msgpack, write_flax_msgpack)
 
@@ -408,21 +416,99 @@ def evaluate(labels, ckpt: str, scale: str = "n", conf: float = 0.25,
     return tp, fp, fn
 
 
+# ---------------------------------------------------------------------------
+# The supervision ceiling: the labels served as detections
+# ---------------------------------------------------------------------------
+
+class TargetOracleDetector:
+    """Serves the distilled labels (``build_labels``) as detections, in the
+    schema of ``StubDetector.detect_records``: each frame's targets are its
+    detections, score 1, their full-resolution silhouettes packed into one
+    int32 word per pixel (sums in int64, wrapped: ``ops/masks.py``)."""
+
+    def __init__(self, labels, max_detections: int = MAX_T):
+        self.by_frame = {int(f): i for i, f in enumerate(labels["frame_ids"])}
+        self.labels = labels
+        self.max_detections = max_detections
+
+    def detect_records(self, records):
+        lab = self.labels
+        b = len(records)
+        d = self.max_detections
+        h, w = lab["masks_img"].shape[2:]
+        boxes = np.zeros((b, d, 4), np.float32)
+        scores = np.zeros((b, d), np.float32)
+        det_valid = np.zeros((b, d), bool)
+        mask_bits = np.zeros((b, h, w), np.int32)
+        for i, rec in enumerate(records):
+            li = self.by_frame.get(int(rec.frame_id))
+            if li is None:
+                raise KeyError(
+                    f"frame {rec.frame_id} not in the labels cache -- the "
+                    "cache was built from a different dataset/frame set; "
+                    "delete it and rerun")
+            t = min(d, lab["valid"].shape[1])
+            valid = lab["valid"][li, :t]
+            boxes[i, :t] = lab["boxes"][li, :t]
+            det_valid[i, :t] = valid
+            scores[i, :t] = np.where(valid, 1.0, 0.0)
+            live = np.where(valid, np.int64(1) << np.arange(t), 0)
+            words = (lab["masks_img"][li, :t].astype(np.int64)
+                     * live[:, None, None]).sum(0)
+            mask_bits[i] = wrap_int32(torch.from_numpy(words)).numpy()
+        return {"boxes": boxes, "scores": scores, "det_valid": det_valid,
+                "mask_bits": mask_bits}
+
+
+class _OracleStub(StubDetector):
+    """The oracle as the runner's stub: the runner hands a
+    ``StubDetector`` the frame records (``detect_records``), which is all
+    the oracle reads."""
+
+    def __init__(self, inner: TargetOracleDetector):   # no camera needed
+        self._inner = inner
+
+    def detect_records(self, records):
+        return self._inner.detect_records(records)
+
+
+def eval_targets(labels, dataset: str, device="cuda"):
+    """The erosion study behind the labels themselves; prints the JAX
+    example's lines and returns the study."""
+    from lidar_object_detection_tpu_torch.eval.erosion_study import (
+        run_erosion_study)
+
+    res = run_erosion_study(dataset, detector=_OracleStub(
+        TargetOracleDetector(labels)), device=device)
+    s = res.summary()
+    print("target-oracle aggregates:", s)
+    print(f"  mean inside (eroded): {s['mean_inside_pct_eroded']:.2f} %   "
+          "(reference upstream weights: 74.48; learned x ckpt: 69.52)")
+    print(f"  erosion improvement:  {s['mean_pct_improvement']:.2f} %   "
+          "(reference: +7.67; learned x: +5.83)")
+    print(f"  std of diff:          {s['std_inside_pct_diff']:.2f}     "
+          "(reference: 5.87; learned x: 3.48)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m lidar_object_detection_tpu_torch.pipelines."
              "yolo_distill", description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dataset", default=os.environ.get("LIDAR_TPU_KITTI360"),
-                    help="KITTI-360 root (default: $LIDAR_TPU_KITTI360)")
+    cli.common_flags(ap)
     ap.add_argument("--steps", type=int, default=2000)
     ap.add_argument("--lr", type=float, default=2e-3)
     ap.add_argument("--scale", default="n")
-    ap.add_argument("--ckpt", required=True,
-                    help="checkpoint path (.opt and .json written beside)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path (.opt and .json written beside); "
+                         "required but with --eval-targets")
     ap.add_argument("--cache", default=None,
                     help="label cache (.npz), read when its recipe matches")
     ap.add_argument("--make-labels", action="store_true")
     ap.add_argument("--eval-only", action="store_true")
+    ap.add_argument("--eval-targets", action="store_true",
+                    help="serve the labels as detections through the "
+                         "erosion study (no network, no checkpoint)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--conf", type=float, default=0.25)
     ap.add_argument("--seed", type=int, default=0)
@@ -431,15 +517,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ema-decay", type=float, default=0.0,
                     help="EMA of the weights (e.g. 0.999); serving prefers "
                          "the EMA copy when the checkpoint has one")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.dataset:
-        ap.error("--dataset is required (or set LIDAR_TPU_KITTI360)")
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        ap.error("--device cuda was asked for, but CUDA is not available; "
-                 "pass --device cpu to run on the CPU")
+    cli.require_dataset(ap, args)
+    if not args.ckpt and not args.eval_targets:
+        ap.error("--ckpt is required (but with --eval-targets)")
 
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
         run(args)
@@ -470,6 +551,10 @@ def run(args, mesh=None) -> None:
     if mesh is not None and primary:
         dist.barrier()
     if args.make_labels:
+        return
+    if args.eval_targets:
+        if primary:
+            eval_targets(labels, args.dataset, device=args.device)
         return
     if not args.eval_only:
         train(labels, args.steps, args.lr, args.ckpt, scale=args.scale,

@@ -83,7 +83,10 @@ def test_port_imports_nothing_of_jax():
                  "models.pointpillars.model", "models.pointpillars.voxelize",
                  "models.pointpillars.center", "models.pointpillars.decode",
                  "models.pointpillars.augment",
-                 "models.pointpillars.weights", "pipelines.pointpillars"):
+                 "models.pointpillars.weights", "pipelines.pointpillars",
+                 "pipelines.quality", "pipelines.regen_artifacts",
+                 "pipelines.yolo_distill", "models.yolo.serving",
+                 "tools.forward_times"):
         assert f"lidar_object_detection_tpu_torch.{name}" in modules
     loaded = _loaded_after(modules)
     assert "torch" in loaded
