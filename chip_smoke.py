@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout, on a machine with one CUDA card:
+Runs from the root of a checkout, on a machine with one CUDA card.  It:
 
 1. prints the PyTorch version and the card's name and power limit, and
    fails when CUDA is not available;
 2. builds the CUDA kernels of ``lidar_object_detection_tpu_torch`` from the
    checkout's sources (one ``nvcc`` per source, all started together, then
-   a link into one ctypes-loaded library);
+   a link into one ctypes-loaded library), and times the empty kernel of
+   ``csrc/launch_floor.cu`` as the kernels are timed: the floor under
+   every kernel's time (``launch_floor_ms`` in the kernels line);
 3. holds each kernel against its plain PyTorch twin on the card at the
    serving path's shapes, and times both with CUDA events: K1 (inside
    counts) on the main path's batch of 4 scans, one scan, and edge cases
@@ -95,8 +97,10 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    with ``--head ssd`` (8 steps; the assigner's IoU kernel once a step,
    the closing evaluation's rotated NMS once a frame) and ``--head
    center`` (4 steps, no kernel), each run twice with the counters
-   zeroed before each: byte-equal checkpoints, finite losses, the final
-   below the first; ``pointpillars-infer --ckpt`` on what was written;
+   zeroed before each: byte-equal checkpoints, finite losses, the SSD
+   run's final below its first, the center run's (loss, num_pos) steps
+   held to the same run on the CPU; ``pointpillars-infer --ckpt`` on
+   what was written;
    one full-width step from the committed SSD variables on the card
    against the CPU port (loss parts, num_pos, gradients within a fixed
    share of each tensor's largest entry; the CPU's one-ulp spread is
@@ -150,7 +154,7 @@ Runs from the root of a checkout, on a machine with one CUDA card:
    ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
    detection-only decode, each on the card and on the CPU: mask words
    equal bit for bit.  The relative cut's peak pass
-   (``mask_kernel<kPeak>`` of ``csrc/mask_assembly.cu``) is held to its
+   (``mask_peak_kernel`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
 14. runs the PointPillars tools and the long cloud
@@ -650,6 +654,17 @@ def time_events(torch, fn, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def empty_launcher(dev):
+    """A launch of the empty kernel (``csrc/launch_floor.cu``): the floor
+    under every kernel's time."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.library()
+    stream = kernel_lib.stream_handle(dev)
+    return lambda: kernel_lib.check(lib.empty_launch(stream),
+                                    "empty_launch")
 
 
 def bound_ms(n_bytes, n_ops):
@@ -2199,6 +2214,23 @@ PP_ASSIGN_THRESHOLDS = (0.6, 0.45)
 PP_STEP_LOSS_RTOL, PP_STEP_GRAD_TOL = 1e-3, 2e-3
 # frames of that comparison (the CPU's part of the check's time)
 PP_STEP_CPU_FRAMES = 2
+# The center head's CLI run on the card against the same run on the CPU
+# (the same trainer in this process: the seed-0 initial variables of this
+# machine's torch, the same four augmented batches): each step's num_pos
+# exactly and its loss within PP_CENTER_LOSS_RTOL relative.  Read on an
+# H100 with these centres: 0 at step 0, then 1.0e-4, 6.5e-3 and 4.1e-3
+# (card 25.9017 / 2700.8972 / 101.1329 / 27.6916, CPU 25.9017 / 2701.1750
+# / 100.4828 / 27.5799): the card's float32 gradients differ from the
+# CPU's by about 1.5e-4 of a tensor's largest entry (PP_STEP_GRAD_TOL's
+# reading), and the first Adam steps from random weights overshoot (the
+# loss jumps a hundredfold), which carries that into the later losses.
+# The limit is three times the largest reading.  The
+# run need not descend: JAX's own trainer from the card's initial
+# variables on these batches rises too (25.9071 -> 2688.5771 -> 107.2106
+# -> 26.4840); that the port's curve is JAX's is held on the CPU
+# (tests/test_torch_pointpillars_train.py, test_training_step_matches_jax
+# [center], _center_curve)
+PP_CENTER_LOSS_RTOL = 2e-2
 
 
 def nudge_one_ulp(torch, tensors, seed):
@@ -2270,6 +2302,38 @@ def steps_agree(card_parts, cpu_parts, loss_err, grad_err):
             and grad_err <= PP_STEP_GRAD_TOL)
 
 
+@contextlib.contextmanager
+def recorded_steps():
+    """While open, every ``PillarsTrainer.train_step`` appends its (loss,
+    num_pos) to the list it yields."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        train as ptrain)
+
+    steps = []
+    original = ptrain.PillarsTrainer.train_step
+
+    def train_step(self, *batch):
+        metrics = original(self, *batch)
+        steps.append((float(metrics["loss"]), float(metrics["num_pos"])))
+        return metrics
+
+    ptrain.PillarsTrainer.train_step = train_step
+    try:
+        yield steps
+    finally:
+        ptrain.PillarsTrainer.train_step = original
+
+
+def curves_agree(card, cpu):
+    """The largest relative loss difference of two runs' (loss, num_pos)
+    steps, or None where their lengths or a num_pos differ."""
+    if len(card) != len(cpu) or any(a[1] != b[1]
+                                    for a, b in zip(card, cpu)):
+        return None
+    return max(abs(a[0] - b[0]) / max(abs(b[0]), 1e-12)
+               for a, b in zip(card, cpu))
+
+
 def train_cli_losses(text):
     """(step 0's loss, the final loss, eval matched, eval GTs) of a
     ``pointpillars-train`` run's output."""
@@ -2291,8 +2355,10 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
       (PP_TRAIN_STEPS, the assigner's IoU kernel once a step, the closing
       evaluation's rotated NMS once a frame) and ``--head center`` (no
       kernel), each run twice, counters zeroed before each: the two
-      checkpoints and sidecars byte-equal; finite losses, the final below
-      step 0's;
+      checkpoints and sidecars byte-equal; finite losses and a recall
+      total; the SSD run's final loss below step 0's; the center run held
+      step by step to the same run on the CPU (num_pos exact, losses
+      within PP_CENTER_LOSS_RTOL);
     * ``pointpillars-infer --ckpt`` on each written checkpoint;
     * one full-width step from the committed SSD variables on the card
       and on the CPU (PP_STEP_CPU_FRAMES frames): num_pos exact, loss
@@ -2329,6 +2395,7 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
             str(dev)]
     zero = {k: 0 for k in kernel_lib.LAUNCHES}
     launches, walls, losses, ckpts, repeated = {}, {}, {}, {}, {}
+    curves = {}
     for head, steps in PP_TRAIN_STEPS.items():
         want = (dict(zero, rotated_iou_pairs=steps, rotated_nms=n)
                 if head == "ssd" else zero)
@@ -2337,8 +2404,9 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
             torch.cuda.synchronize()
             kernel_lib.reset_launches()
             t = time.perf_counter()
-            text = run_cli(base + ["--head", head, "--steps", str(steps),
-                                   "--checkpoint-dir", out])
+            with recorded_steps() as curves[head + run]:
+                text = run_cli(base + ["--head", head, "--steps",
+                                       str(steps), "--checkpoint-dir", out])
             torch.cuda.synchronize()
             walls[head + run] = time.perf_counter() - t
             launches[head + run] = dict(kernel_lib.LAUNCHES)
@@ -2348,7 +2416,7 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
                                      f"expected {want}")
             first, final, matched, total = train_cli_losses(text)
             if not (np.isfinite(first) and np.isfinite(final)) \
-                    or final >= first or total == 0:
+                    or (head == "ssd" and final >= first) or total == 0:
                 raise AssertionError(f"pointpillars-train {head}{run}: "
                                      f"loss {first} -> {final}, recall "
                                      f"{matched}/{total}")
@@ -2362,6 +2430,23 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
     print(f"pointpillars-train: the second run of each head wrote the "
           f"first run's checkpoint bytes ({repeated}); losses {losses}; "
           f"wall s {walls}", flush=True)
+    # the center run on the CPU, the card's run held to it step by step
+    t = time.perf_counter()
+    with recorded_steps() as curves["center_cpu"]:
+        run_cli(base[:-1] + ["cpu", "--head", "center", "--steps",
+                             str(PP_TRAIN_STEPS["center"]),
+                             "--checkpoint-dir",
+                             os.path.join(tmp, "pp_train_center_cpu")])
+    walls["center_cpu"] = time.perf_counter() - t
+    center_err = curves_agree(curves["center"], curves["center_cpu"])
+    print(f"pointpillars-train --head center, (loss, num_pos) a step: card "
+          f"{curves['center']}, CPU {curves['center_cpu']}; losses within "
+          f"{center_err} relative (limit {PP_CENTER_LOSS_RTOL}; "
+          f"{walls['center_cpu']:.1f} s on the CPU)", flush=True)
+    if center_err is None or center_err > PP_CENTER_LOSS_RTOL:
+        raise AssertionError(f"the center head's run on the card differs "
+                             f"from the CPU's: {curves['center']} against "
+                             f"{curves['center_cpu']}")
     infer = {}
     for head in PP_TRAIN_STEPS:
         out = os.path.join(tmp, f"pp_train_infer_{head}")
@@ -2443,6 +2528,9 @@ def pointpillars_train_phase(torch, dev, smi, tmp):
     idx = top_candidates(iou_bound(anchors, gt))
     summary = {"cars in the street": n_cars, "cli_wall_s": walls,
                "losses": losses, "checkpoints_equal": repeated,
+               "center_curves": {k: curves[k] for k in ("center",
+                                                        "center_cpu")},
+               "center_loss_rel_err": center_err,
                "infer_detections": infer, "step_loss_rel_err": loss_err,
                "step_grad_err": grad_err, "step_grad_spread": spread,
                "compare_s": cpu_s,
@@ -3257,6 +3345,19 @@ def scale_out_phase(torch, dev, smi, tmp, scenes, serving_det, pp_batch):
     return launches, summary
 
 
+def car_boxes(torch, dev, rng, shape, spread):
+    """(*shape, 7) float32 car boxes of any yaw on ``dev``, centred in a
+    square of half-width ``spread`` m."""
+    b = np.zeros((*shape, 7), np.float32)
+    b[..., 0] = rng.uniform(-spread, spread, shape)
+    b[..., 1] = rng.uniform(-spread, spread, shape)
+    b[..., 2], b[..., 5] = -1.0, 1.5
+    b[..., 3] = rng.uniform(1.4, 2.2, shape)
+    b[..., 4] = rng.uniform(3.2, 5.0, shape)
+    b[..., 6] = rng.uniform(-np.pi, np.pi, shape)
+    return torch.from_numpy(b).to(dev)
+
+
 def pair_cases(torch, dev, rng, real):
     """Operands of the assigner's IoU kernel: the training step's real
     candidates (``real``: anchors (N, 7), top-k indices (B, G, K), GTs,
@@ -3269,14 +3370,7 @@ def pair_cases(torch, dev, rng, real):
         iou_bound, top_candidates)
 
     def cars(shape, spread):
-        b = np.zeros((*shape, 7), np.float32)
-        b[..., 0] = rng.uniform(-spread, spread, shape)
-        b[..., 1] = rng.uniform(-spread, spread, shape)
-        b[..., 2], b[..., 5] = -1.0, 1.5
-        b[..., 3] = rng.uniform(1.4, 2.2, shape)
-        b[..., 4] = rng.uniform(3.2, 5.0, shape)
-        b[..., 6] = rng.uniform(-np.pi, np.pi, shape)
-        return torch.from_numpy(b).to(dev)
+        return car_boxes(torch, dev, rng, shape, spread)
 
     def case(anchors, gt, gv):
         return anchors, top_candidates(iou_bound(anchors, gt)), gt, gv
@@ -5635,6 +5729,9 @@ def main() -> int:
     kernel_lib.build(verbose=True)
     print(f"kernel build: {kernel_lib.build_info['seconds']:.2f} s",
           flush=True)
+    floor_ms = time_gpu(empty_launcher(dev))
+    print(f"the empty kernel, timed as the kernels are: {floor_ms:.4f} ms",
+          flush=True)
     phase("build", t0)
 
     detector, images, scenes = load_serving(torch, dev, rng)
@@ -5751,6 +5848,8 @@ def main() -> int:
                          for rank in scale_launches["ranks_w2"]],
             "runner_w2": [n[k["name"]]
                           for n in scale_launches["runner_w2"]]}
+    for k in kernels:
+        k["launch_floor_ms"] = floor_ms
     phase("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 // Stack-free mask assembly kernels (K2, K3) of the YOLO-seg decode, and the
 // relative cut's peak pass, for sm_90a, over a batch of frames: one launch
-// each per batch.
+// each per batch.  The peak pass is described at its own kernel,
+// mask_peak_kernel, below.
 //
 // Replace: lidar_object_detection_tpu/ops/pallas_masks.py,
 //   pallas_assemble_masks (:246, kernel body _mask_kernel) -> mask_kernel<kAssemble>
@@ -8,7 +9,7 @@
 // and, with no Pallas counterpart, the relative-threshold peak of
 // lidar_object_detection_tpu/models/yolo/postprocess.py:438-443 (XLA:
 // max(where(in_box, field, 0)) per detection over the upsampled field)
-//                                                         -> mask_kernel<kPeak>
+//                                                         -> mask_peak_kernel
 // pallas_assemble_masks_guarded (:309) is their composition: K3 counts at
 // the primary cut, then K2 picks each detection's cut on the device
 // (counts >= min_pixels ? threshold : floor, pallas_masks.py:327-329) from
@@ -26,10 +27,7 @@
 // belongs to detection d when d is valid, the pixel lies in d's half-open
 // box [x1, x2) x [y1, y2), and v > cut[d].  K2 ORs the detections' bits
 // into one 32-bit word per pixel; K3 counts, per detection, the pixels
-// that pass.  The peak pass takes, per valid detection, the largest v of
-// the pixels inside its box (0 when none is; an invalid detection's peak
-// is 0, since its cut is never used): the relative cut is threshold x
-// peak, which K2 then applies as per-detection cuts.
+// that pass.
 //
 // What bounds them on an H100.  The function needs, per valid box, only
 // the table rows and columns its pixel range reaches through the taps
@@ -93,17 +91,11 @@
 //   __reduce_add_sync per step), the warps meet in shared counters, and
 //   each block adds one global atomic per detection it counted into the
 //   zeroed (B, D) output: integer atomics are exact in any order.
-// * Peaks.  The peak pass walks the pixels as K3 does, with a max in place
-//   of the count.  The values it takes are probabilities (>= 0), whose
-//   float bits order as signed integers, so __reduce_max_sync, a shared
-//   and one global atomicMax per detection and block on the int bits,
-//   into a zeroed (B, D) output, give the exact maximum in any order; a
-//   negative value's bits are a negative integer and lose to the 0 start,
-//   as they lose to max(where(in_box, v, 0)).  It is bound like K3 (the
-//   table entries its boxes reach, 4 operations a pixel and detection).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -115,7 +107,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // what mask_kernel computes
 constexpr int kAssemble = 0;               // K2: packed words (B, H, W)
 constexpr int kCount = 1;                  // K3: pixels over the cut (B, D)
-constexpr int kPeak = 2;                   // in-box peaks (B, D), float bits
 
 struct Args {
   const float* table;     // (B, D, mh, mw)
@@ -274,18 +265,6 @@ __device__ __forceinline__ uint32_t quad_bits(const Args& a, const Tile& t,
   return bits;
 }
 
-// The largest value of the quad's pixels inside detection d's columns, as
-// float bits read as an int (0 when none is positive).
-__device__ __forceinline__ int quad_peak(const Args& a, const Tile& t,
-                                         const Quad& q, int b, int r,
-                                         int d) {
-  int peak = 0;
-  quad_visit(a, t, q, b, r, d, [&](int, bool in, float v) {
-    peak = in ? max(peak, __float_as_int(v)) : peak;
-  });
-  return peak;
-}
-
 // The quad's 4 words of tile row r: one int4 where rows are 16-byte
 // aligned (W % 4 == 0), else word by word, none past the row's end.
 template <bool kAligned>
@@ -390,24 +369,6 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
     __syncthreads();
     if (tid < a.num_det && s_cnt[tid] != 0)
       atomicAdd(&out[static_cast<size_t>(b) * a.num_det + tid], s_cnt[tid]);
-  } else if (kMode == kPeak) {
-    // as the count, with a max of the float bits in place of the sum
-    const uint32_t warp_cols = __reduce_or_sync(kFull, col_mask);
-    int acc = 0;
-    for (int r = 0; r < rows; ++r) {
-      for (uint32_t rest = t.row_mask[r] & warp_cols; rest != 0u;
-           rest &= rest - 1u) {
-        const int d = __ffs(rest) - 1;
-        const int m = ((col_mask >> d) & 1u) ? quad_peak(a, t, q, b, r, d)
-                                             : 0;
-        const int s = __reduce_max_sync(kFull, m);
-        if (lane == d) acc = max(acc, s);
-      }
-    }
-    if (acc > 0) atomicMax(&s_cnt[lane], acc);
-    __syncthreads();
-    if (tid < a.num_det && s_cnt[tid] > 0)
-      atomicMax(&out[static_cast<size_t>(b) * a.num_det + tid], s_cnt[tid]);
   } else if (has_quad) {
     for (int r = 0; r < rows; ++r) {
       uint32_t w[4] = {0u, 0u, 0u, 0u};
@@ -424,13 +385,163 @@ mask_kernel(Args a, int32_t* __restrict__ out) {
   }
 }
 
+// The relative cut's peak pass: per valid detection, the largest v of the
+// pixels inside its box (0 when none is; an invalid detection's peak is
+// 0, since its cut is never used).  The relative cut is threshold x peak,
+// which K2 then applies as per-detection cuts.
+//
+// What bounds it on an H100: the table entries its boxes reach and the
+// taps, and 4 fp32 operations a pixel of a box (chip_smoke.mask_bound).
+// At the relative decode's 12 valid boxes that is 1.7e-5 ms, at a dense
+// batch (103 of 128 boxes, up to 600 x 300) about 3e-4 ms: below what one
+// launch costs, so the pass is bound by its critical path.
+//
+// The design, redesigned for Hopper (the first version was a mode of K2
+// and K3's frame-major kernel: 2,256 blocks for 376 x 1408 frames at B = 4,
+// each loading and balloting all 32 slots' boxes, most finding nothing,
+// and on dense tables each pixel walked its overlapping detections one
+// after another, though the output is per detection):
+// * Detection-major.  A work item is one box's band of kPeakRows rows by
+//   kPeakCols columns, and one warp takes an item at a time, so only the
+//   boxes' pixels are visited.  A box's items are ceil(rows / kPeakRows)
+//   x ceil(cols / kPeakCols) of its clamped pixel ranges, 0 for an
+//   invalid or empty box.
+// * No host sync and no block per possible item.  The grid is a fixed
+//   kPeakBlocksPerSm blocks an SM (fewer where the frames are small).
+//   Every block computes the prefix of the B x D boxes' item counts
+//   itself (one box a thread, a warp scan and one over the warps, in
+//   chunks of kPeakThreads boxes: any B x D), and its warps take the
+//   chunk's items in a grid-stride loop, an item's box found by a binary
+//   search over the prefix in shared memory.
+// * Within an item a lane keeps 4 columns' taps in registers, reads each
+//   row's table entries for them (through L1: neighbouring columns share
+//   them), and takes the max in registers; then __reduce_max_sync and one
+//   global atomicMax per item.  The values are probabilities (>= 0), whose
+//   float bits order as signed integers, so the max on the int bits into
+//   a zeroed (B, D) output is exact in any order; a negative value's bits
+//   are a negative integer and lose to the 0 start, as they lose to
+//   max(where(in_box, v, 0)).
+// * The interpolation is K2's and K3's (the same taps, lerp_rn in the
+//   twin's order), so the peaks are the twin's float bits; any width (the
+//   taps are read one by one; every box is clamped to [0, W)).
+constexpr int kPeakThreads = 256;          // 8 warps
+constexpr int kPeakRows = 4;               // an item: 4 rows
+constexpr int kPeakCols = 128;             // by 128 columns, 4 a lane
+constexpr int kPeakLaneCols = kPeakCols / 32;
+constexpr int kPeakBlocksPerSm = 2;
+
+__device__ __forceinline__ int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__global__ void __launch_bounds__(kPeakThreads)
+mask_peak_kernel(Args a, int boxes, int32_t* __restrict__ out) {
+  __shared__ int s_first[kPeakThreads];   // each box's first item
+  __shared__ int4 s_box[kPeakThreads];    // its pixels [x, y) x [z, w)
+  __shared__ int s_warp[kPeakThreads / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = gridDim.x * (kPeakThreads / 32);
+  const int first_item = blockIdx.x * (kPeakThreads / 32) + warp;
+  for (int c0 = 0; c0 < boxes; c0 += kPeakThreads) {
+    // this chunk's boxes and their items
+    const int i = c0 + tid;
+    int4 r = make_int4(0, 0, 0, 0);
+    int items = 0;
+    if (i < boxes) {
+      const float4 bx = a.boxes[i];
+      r = make_int4(clamp_ceil(bx.x, a.width), clamp_ceil(bx.z, a.width),
+                    clamp_ceil(bx.y, a.height), clamp_ceil(bx.w, a.height));
+      // the float compares are false for a NaN coordinate
+      if (a.valid[i] != 0 && bx.x < bx.z && bx.y < bx.w && r.x < r.y &&
+          r.z < r.w)
+        items = ceil_div(r.y - r.x, kPeakCols) * ceil_div(r.w - r.z,
+                                                          kPeakRows);
+    }
+    int incl = items;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    s_box[tid] = r;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kPeakThreads / 32; ++w) {
+      const int c = s_warp[w];
+      total += c;
+      before += w < warp ? c : 0;
+    }
+    s_first[tid] = before + incl - items;
+    __syncthreads();
+    const int n_box = min(kPeakThreads, boxes - c0);
+    for (int item = first_item; item < total; item += warps) {
+      // the item's box: the last whose first item is <= item (a box of
+      // no items shares its first item with the next)
+      int lo = 0, hi = n_box;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_first[mid] <= item) lo = mid; else hi = mid;
+      }
+      const int4 bp = s_box[lo];
+      const int tiles = ceil_div(bp.y - bp.x, kPeakCols);
+      const int local = item - s_first[lo];
+      const int band = local / tiles;
+      const int x_begin = bp.x + (local - band * tiles) * kPeakCols;
+      const int x_end = min(x_begin + kPeakCols, bp.y);
+      const int y_begin = bp.z + band * kPeakRows;
+      const int y_end = min(y_begin + kPeakRows, bp.w);
+      const size_t box = static_cast<size_t>(c0) + lo;   // b * D + d
+      const float* table = a.table + box * a.mh * a.mw;
+      // the lane's columns: their taps (past the item's end, its first)
+      bool in[kPeakLaneCols];
+      int ca[kPeakLaneCols], cb[kPeakLaneCols];
+      float u0[kPeakLaneCols], u1[kPeakLaneCols];
+#pragma unroll
+      for (int q = 0; q < kPeakLaneCols; ++q) {
+        const int x = x_begin + lane + 32 * q;
+        in[q] = x < x_end;
+        const int xc = in[q] ? x : x_begin;
+        ca[q] = a.x0[xc];
+        cb[q] = min(ca[q] + 1, a.mw - 1);
+        u0[q] = a.wx0[xc];
+        u1[q] = a.wx1[xc];
+      }
+      int peak = 0;
+#pragma unroll
+      for (int dy = 0; dy < kPeakRows; ++dy) {
+        const int y = y_begin + dy;
+        if (y >= y_end) break;
+        const int s0 = a.y0[y];
+        const float* row0 = table + static_cast<size_t>(s0) * a.mw;
+        const float* row1 =
+            table + static_cast<size_t>(min(s0 + 1, a.mh - 1)) * a.mw;
+        const float w0 = a.wy0[y], w1 = a.wy1[y];
+#pragma unroll
+        for (int q = 0; q < kPeakLaneCols; ++q) {
+          const float va = lerp_rn(w0, __ldg(row0 + ca[q]), w1,
+                                   __ldg(row1 + ca[q]));
+          const float vb = lerp_rn(w0, __ldg(row0 + cb[q]), w1,
+                                   __ldg(row1 + cb[q]));
+          const float v = lerp_rn(u0[q], va, u1[q], vb);
+          peak = in[q] ? max(peak, __float_as_int(v)) : peak;
+        }
+      }
+      peak = __reduce_max_sync(kFull, peak);
+      if (lane == 0 && peak > 0) atomicMax(out + box, peak);
+    }
+    __syncthreads();   // the next chunk writes the prefix again
+  }
+}
+
 template <bool kAligned>
 void launch_mode(int mode, dim3 grid, cudaStream_t s, const Args& a,
                  int32_t* o) {
   if (mode == kCount)
     mask_kernel<kCount, kAligned><<<grid, kThreads, 0, s>>>(a, o);
-  else if (mode == kPeak)
-    mask_kernel<kPeak, kAligned><<<grid, kThreads, 0, s>>>(a, o);
   else
     mask_kernel<kAssemble, kAligned><<<grid, kThreads, 0, s>>>(a, o);
 }
@@ -494,8 +605,9 @@ extern "C" int mask_count_launch(const void* table, int batch, int num_det,
   return launch(kCount, a, batch, counts, stream);
 }
 
-// Same operands without the cuts; adds into peaks (B, D) i32, zeroed by the
-// caller, the float bits of each valid detection's largest in-box value.
+// Same operands without the cuts; max-es into peaks (B, D) i32, zeroed by
+// the caller, the float bits of each valid detection's largest in-box
+// value.  One launch of mask_peak_kernel.
 extern "C" int mask_peak_launch(const void* table, int batch, int num_det,
                                 int mh, int mw, const void* y0,
                                 const void* wy0, const void* wy1,
@@ -503,9 +615,29 @@ extern "C" int mask_peak_launch(const void* table, int batch, int num_det,
                                 const void* wx1, const void* boxes,
                                 const void* valid, int height, int width,
                                 void* peaks, void* stream) {
+  if (batch <= 0 || num_det == 0 || height <= 0 || width <= 0) return 0;
+  if (num_det < 0 || num_det > kMaxDet || mh < 1 || mw < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a = make_args(table, num_det, mh, mw, y0, wy0, wy1, x0, wx0, wx1,
                      boxes, valid, nullptr, height, width);
-  return launch(kPeak, a, batch, peaks, stream);
+  const long long n_boxes = static_cast<long long>(batch) * num_det;
+  if (n_boxes > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // every box covering the frame: an upper bound of the items
+  const long long most = n_boxes * ((height + kPeakRows - 1) / kPeakRows) *
+                         ((width + kPeakCols - 1) / kPeakCols);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long warps = kPeakThreads / 32;
+  const int blocks = static_cast<int>(
+      std::min<long long>(static_cast<long long>(kPeakBlocksPerSm) * sms,
+                          (most + warps - 1) / warps));
+  mask_peak_kernel<<<blocks, kPeakThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<int>(n_boxes), static_cast<int32_t*>(peaks));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Same operands; K2 writes out (B, H, W) i32 packed words.  With guard

@@ -173,9 +173,16 @@ def corners_to_boxes7(corners):
     The KITTI-360 corner layout: the orthogonal edges at c0 are c1
     (height), c2 (width) and c5 (length); yaw is the length edge's
     direction about +z.
+
+    The centre is ``jnp.mean``'s bits: XLA sums corners 0..7 one after
+    another and divides by 8, where ``torch.mean`` sums in another order
+    and lands an ulp off on about a third of the boxes.
     """
     corners = torch.as_tensor(corners)
-    center = torch.mean(corners, dim=-2)
+    total = corners[..., 0, :]
+    for k in range(1, 8):
+        total = total + corners[..., k, :]
+    center = total / 8
     hvec = corners[..., 1, :] - corners[..., 0, :]
     wvec = corners[..., 2, :] - corners[..., 0, :]
     lvec = corners[..., 5, :] - corners[..., 0, :]

@@ -23,7 +23,8 @@ stack is never stored on the kernel path.
   (:class:`Guard`), on the device: two launches, no host sync;
 * :func:`peak_cuda` -> (B, D) float32, each valid detection's largest
   interpolated value inside its box (0 where none is, and for an invalid
-  detection), one launch for the batch: the peak of the relative cut
+  detection), one launch for the batch of ``mask_peak_kernel``, which
+  visits only the boxes' pixels: the peak of the relative cut
   (``postprocess.py:438-443`` of the JAX package, an XLA reduction over
   the (D, H, W) field there); :func:`peak_batch` composes it.
 

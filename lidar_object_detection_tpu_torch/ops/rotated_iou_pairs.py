@@ -10,9 +10,10 @@ under ``vmap`` over the GTs (and over the frames, by the loss's
 it would launch per GT, some 10^5 launches a step.
 
 * :func:`rotated_iou_pairs_cuda` launches ``rotated_iou_pairs_kernel``
-  of ``csrc/rotated_nms.cu`` on CUDA tensors, one thread per (frame, GT,
-  candidate) pair, the whole step's pairs in one launch, and raises on
-  anything else.  A pair whose GT is not valid comes out 0 unclipped.
+  of ``csrc/rotated_nms.cu`` on CUDA tensors, one block per (frame, GT,
+  256 candidates), the whole step's pairs in one launch, and raises on
+  anything else.  A block lists its near candidates densely and clips
+  them one a thread; a pair whose GT is not valid comes out 0 unclipped.
 * :func:`candidate_ious` takes the kernel for CUDA tensors and the twin,
   :func:`.rotated_iou.rotated_iou_pairs` over the gathered anchors, for
   CPU tensors (every pair clipped, as JAX clips them).

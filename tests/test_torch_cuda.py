@@ -298,17 +298,59 @@ def test_mask_kernels_at_odd_widths_equal_twins(dev):
             assert int(counts.sum()) > 0, name
 
 
+def _peak_edge_cases(rng):
+    """Operands of the peak pass where its work items are few, many or
+    none: name -> (h, w, (table, boxes, valid)).  No valid detection in
+    any frame; all 32 slots valid, each box the whole frame (and a
+    frame's worth of items a box); all 32 valid at the dense sizes;
+    one-pixel boxes (integer and half-pixel edges, at the frame's
+    corners); the whole frame and one-pixel boxes at odd widths."""
+    h, w = chip_smoke.H0, chip_smoke.W0
+    table = chip_smoke.mask_table(rng, 2, 32, 42, 160)
+    dense = chip_smoke.mask_cases(rng)["dense B=4"]
+    whole = np.tile(np.array([0, 0, w, h], np.float32), (2, 32, 1))
+
+    def pixels(h, w):
+        b = np.tile(np.array([7, 9, 8, 10], np.float32), (2, 32, 1))
+        b[:, 1] = [0, 0, 1, 1]
+        b[:, 2] = [w - 1, h - 1, w, h]
+        b[:, 3] = [10.5, 20.5, 11.5, 21.5]
+        b[:, 4] = [w - 1.5, 3.25, w - 0.5, 4.25]
+        b[:, 5:] += rng.integers(0, 300, (2, 27, 1)).astype(np.float32)
+        return b
+
+    out = {"no valid detection": (h, w, (table, whole,
+                                         np.zeros((2, 32), bool))),
+           "whole frame, D=32 valid": (h, w, (table, whole,
+                                              np.ones((2, 32), bool))),
+           "dense, D=32 valid": (h, w, (dense[0], dense[1],
+                                        np.ones((4, 32), bool))),
+           "one pixel": (h, w, (table, pixels(h, w),
+                                np.ones((2, 32), bool)))}
+    for oh, ow in chip_smoke.ODD_SHAPES:
+        out[f"whole frame {oh}x{ow}"] = (
+            oh, ow, (table, np.tile(np.array([0, 0, ow, oh], np.float32),
+                                    (2, 32, 1)), np.ones((2, 32), bool)))
+        out[f"one pixel {oh}x{ow}"] = (oh, ow, (table, pixels(oh, ow),
+                                                np.ones((2, 32), bool)))
+    return out
+
+
 def test_peak_pass_equals_twin(dev):
-    """The relative cut's peak pass (``mask_kernel<kPeak>``) against its
-    twin on ``chip_smoke.mask_cases``: float bits equal, one launch."""
+    """The relative cut's peak pass (``mask_peak_kernel``) against its
+    twin on ``chip_smoke.mask_cases`` and on ``_peak_edge_cases`` (no
+    item, one item a box, whole frames, odd widths): float bits equal,
+    one launch each; 0 for invalid and empty detections."""
     from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.ops import mask_assembly as ma
 
     rng = np.random.default_rng(4)
-    for name, arrays in chip_smoke.mask_cases(rng).items():
+    cases = {name: (chip_smoke.H0, chip_smoke.W0, arrays)
+             for name, arrays in chip_smoke.mask_cases(rng).items()}
+    cases.update(_peak_edge_cases(rng))
+    for name, (h, w, arrays) in cases.items():
         table, boxes, valid = (torch.from_numpy(a).to(dev) for a in arrays)
-        ops = ma.prepare_operands(table, boxes, valid, chip_smoke.H0,
-                                  chip_smoke.W0, 0.0)
+        ops = ma.prepare_operands(table, boxes, valid, h, w, 0.0)
         before = kernel_lib.LAUNCHES["mask_peak"]
         got = ma.peak_cuda(ops)
         assert kernel_lib.LAUNCHES["mask_peak"] == before + 1
@@ -316,8 +358,11 @@ def test_peak_pass_equals_twin(dev):
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
             name
-        if name.startswith("dense"):
-            assert int((got > 0).sum()) > 10
+        assert (got[~valid] == 0).all(), name
+        if name.startswith(("dense", "whole", "one pixel")):
+            assert int((got > 0).sum()) > 10, name
+        if name == "no valid detection":
+            assert not got.any()
 
 
 def _decode_modes():

@@ -215,12 +215,40 @@ def test_pointpillars_decode_on_card_equals_cpu(dev, head):
         assert int(got["valid"].sum()) >= 1
 
 
+def _pair_edge_cases(rng, dev):
+    """Operands of the assigner's IoU kernel for its work distribution:
+    name -> (anchors, idx, gt, gt_valid).  K = 1500 random candidates a
+    GT (past a block's 256 candidates: chunks on ``blockIdx.y``); every
+    GT invalid; a frame whose GTs lie far from every anchor (no near
+    pair) beside one among them; indices out of [0, n_anchors) (-1, n,
+    n + 5) among valid and invalid GTs."""
+    anchors = chip_smoke.car_boxes(torch, dev, rng, (4096,), 6.0)
+    n = anchors.shape[0]
+    gt = chip_smoke.car_boxes(torch, dev, rng, (2, 8), 6.0)
+    ones = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    wide = torch.from_numpy(rng.integers(0, n, (2, 8, 1500))).to(dev)
+    far = gt.clone()
+    far[0, :, 0] += 500.0
+    bad = torch.from_numpy(rng.integers(0, n, (2, 8, 300))).to(dev)
+    bad[:, :, ::7] = -1
+    bad[:, :, 1::7] = n
+    bad[:, :, 2::11] = n + 5
+    half = ones.clone()
+    half[:, ::2] = False
+    return {"K=1500": (anchors, wide, gt, ones),
+            "every GT invalid": (anchors, wide, gt, ~ones),
+            "no near pair in frame 0": (anchors, wide[:, :, :512].contiguous(),
+                                        far, ones),
+            "indices out of range": (anchors, bad, gt, half)}
+
+
 def test_rotated_iou_pairs_kernel_equals_twin(dev):
     """The assigner's IoU kernel on ``chip_smoke.pair_cases`` (heavy
-    overlap with invalid GTs, degenerate boxes): IoUs within 1e-5 of the
-    twin's (the shoelace summed in another order), 0 for invalid GTs, one
-    launch each; some degenerate pairs take the ring routine (printed with
-    ``-s``)."""
+    overlap with invalid GTs, degenerate boxes) and ``_pair_edge_cases``:
+    IoUs within 1e-5 of the twin's (the shoelace summed in another order),
+    0 for invalid GTs and for a frame with no near pair, NaN for an index
+    out of range of a valid GT, one launch each; some degenerate pairs take
+    the ring routine (printed with ``-s``)."""
     from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.ops import rotated_iou_pairs as rip
 
@@ -239,6 +267,30 @@ def test_rotated_iou_pairs_kernel_equals_twin(dev):
             assert int(slow) > 0
         else:
             assert int((got >= 0.6).sum()) > 0
+    for name, (anchors, idx, gt, gv) in _pair_edge_cases(
+            np.random.default_rng(9), dev).items():
+        before = kernel_lib.LAUNCHES["rotated_iou_pairs"]
+        got = rip.rotated_iou_pairs_cuda(anchors, idx, gt, gv)
+        assert kernel_lib.LAUNCHES["rotated_iou_pairs"] == before + 1
+        n = anchors.shape[0]
+        inside = (idx >= 0) & (idx < n)
+        ref = rip.rotated_iou_pairs_plain(anchors, idx.clamp(0, n - 1), gt)
+        ref = torch.where(gv[..., None], torch.where(inside, ref, torch.nan),
+                          0.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), ref.isnan()), name
+        ok = ~ref.isnan()
+        err = float((got - ref)[ok].abs().max())
+        print(f"{name}: within {err:.3g}")
+        assert err <= chip_smoke.PP_IOU_TOL, name
+        if name == "K=1500":
+            assert int((got > 0).sum()) > 1000
+        elif name == "every GT invalid":
+            assert (got == 0).all()
+        elif name == "no near pair in frame 0":
+            assert (got[0] == 0).all() and int((got[1] > 0).sum()) > 0
+        else:
+            assert int(got.isnan().sum()) > 0 and int((got > 0).sum()) > 0
     # candidate_ious dispatches by device: the twin on the CPU
     anchors, idx, gt, gv = cases["heavy overlap"]
     before = dict(kernel_lib.LAUNCHES)

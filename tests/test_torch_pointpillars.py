@@ -13,6 +13,8 @@ Tolerances, stated per check:
 - decodes fed the same raw heads: classes, validity and the chosen
   anchors exact, boxes within 1e-5 (2e-5 for exp'd sizes and atan2),
   scores within 1e-6;
+- box centres from KITTI-360 corners: bit for bit (summed in XLA's
+  order);
 - weights: bit for bit, after the stated layout change.
 """
 
@@ -429,6 +431,7 @@ def test_box_conversions_match_jax(rng):
     np.testing.assert_allclose(corners, rcorners, rtol=0, atol=1e-5)
     back = tpp.corners_to_boxes7(torch.from_numpy(rcorners)).numpy()
     rback = np.asarray(jpp.corners_to_boxes7(jnp.asarray(rcorners)))
+    np.testing.assert_array_equal(back[:, :3], rback[:, :3])
     np.testing.assert_allclose(back, rback, rtol=0, atol=2e-5)
     np.testing.assert_allclose(back, boxes, rtol=0, atol=1e-4)
     aabb = tpp.bev_aabb(torch.from_numpy(boxes)).numpy()
@@ -437,6 +440,27 @@ def test_box_conversions_match_jax(rng):
     anchors = tpp.anchor_grid(configs(TINY_GRID)[1]).numpy()
     np.testing.assert_array_equal(anchors, np.asarray(jpp.anchor_grid(
         configs(TINY_GRID)[0])))
+
+
+def test_box_centres_equal_jax_bits(rng):
+    """``corners_to_boxes7``'s centres are JAX's bits (``rtol=0,
+    atol=0``): on 4096 seeded boxes of any yaw and of car to bus sizes,
+    their corners in the KITTI-360 layout (``boxes7_to_corners``), and on
+    4096 sets of 8 corners in no layout at all, up to 80 m out."""
+    n = 4096
+    boxes = np.stack([rng.uniform(-80, 80, n), rng.uniform(-80, 80, n),
+                      rng.uniform(-3, 2, n), rng.uniform(0.5, 3.0, n),
+                      rng.uniform(0.8, 12.0, n), rng.uniform(0.8, 4.0, n),
+                      rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
+    kitti = np.array(jpp.boxes7_to_corners(jnp.asarray(boxes)))
+    loose = rng.normal(0, 40, (n, 8, 3)).astype(np.float32)
+    for corners in (kitti, loose):
+        got = tpp.corners_to_boxes7(torch.from_numpy(corners)).numpy()
+        ref = np.asarray(jpp.corners_to_boxes7(jnp.asarray(corners)))
+        np.testing.assert_array_equal(got[:, :3], ref[:, :3])
+    # the old torch.mean order was an ulp off on some of these
+    assert (torch.from_numpy(loose).mean(dim=-2).numpy()
+            != ref[:, :3]).any()
 
 
 def test_points_in_box7_matches_jax(rng):
