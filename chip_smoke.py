@@ -124,7 +124,19 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    ``--eval-only`` with the same TP, FP and FN on the card and the CPU;
    CUDA-event times of the n step (forward, loss, backward, AdamW, EMA)
    and of the committed x variables' step, and a traced n step;
-11. runs the scale-out layer (``scale_out_phase``): a world of one on NCCL
+11. trains in bfloat16 mixed precision (``bf16_train_phase``:
+   ``YoloTrainer`` and ``PillarsTrainer`` with ``dtype=torch.bfloat16``,
+   float32 master weights): the n step on the YOLO phase's batch and the
+   PointPillars SSD step at the surround grid from the committed
+   variables against the CPU's bfloat16 steps, in units of the CPU's
+   bfloat16 drift from float32; 8 n and 8 SSD steps twice, byte-equal,
+   the SSD steps launching ``rotated_iou_pairs`` once each, the kernel
+   against its twin on the bfloat16 step's pairs; float32 and bfloat16
+   step times alternated (n split into forward, loss, backward, AdamW
+   and EMA; x; SSD) and traced steps; the center head's 4 steps card
+   against CPU.  It prints its ``{"bf16_train": ...}`` line with the
+   card's name and power limit;
+12. runs the scale-out layer (``scale_out_phase``): a world of one on NCCL
    in this process, where the mesh trainer's full-width n step is
    byte-equal to the one-card step and point-sharded and frame-sharded
    fusion of the main path's 4 scans equal ``fuse_batch`` (K1 once per
@@ -136,7 +148,7 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    (rank 0 alone writes, the same bytes); step times (one card and mesh
    alternated, and the mesh with local BatchNorm statistics), all-reduce
    times and a traced mesh step;
-12. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
+13. runs the KITTI 2D evaluation from a KITTI_Selection tree of three
    images cut from the committed frames at KITTI's shapes (375 x 1242,
    370 x 1224, 376 x 1241), labelled with the n checkpoint's cars and a
    KITTI-like calib: the CLI's ``kitti2d`` on the card (YOLO11x's
@@ -148,7 +160,7 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
    the per-image forward and decode times (CUDA events) and the CLI's
    host seconds;
-13. decodes the n float32 detector's raw outputs on the committed frames
+14. decodes the n float32 detector's raw outputs on the committed frames
    (B = 4) in the modes the serving path does not run -- logit at 0.9,
    relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
    ``mask_prob_fields`` and ``pack_thresholded_masks`` -- and YOLO11x's
@@ -157,7 +169,7 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    (``mask_peak_kernel`` of ``csrc/mask_assembly.cu``) is held to its
    twin, float bits equal, on those tables and on ``mask_cases``, and
    timed over 20 launches;
-14. runs the PointPillars tools and the long cloud
+15. runs the PointPillars tools and the long cloud
    (``pillars_tools_phase``), each stage timed by
    ``utils.profiling.StageTimer``: the surround runner
    (``pipelines.pillars_surround``, full surround grid, 65536 points a
@@ -170,7 +182,7 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    a 20-sweep aggregate of 1,310,720 points, and K1 against its twin on
    those operands and tiled to 5,242,880 points (past 132 blocks of
    32,768);
-15. runs the serving-quality protocol and the YOLO-side tools
+16. runs the serving-quality protocol and the YOLO-side tools
    (``quality_phase``) from a KITTI-360 tree of the main path's 4 frames
    (frame 100 first): ``pipelines.quality``'s ``knob-sweep``,
    ``threshold-cv``, ``flip-probe`` and ``imgsz-probe --imgsz 640 1408``
@@ -190,12 +202,13 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    ``yolo_distill --eval-targets`` on the card and the CPU;
    ``yolo-export`` of the n checkpoint served back through ``run
    --weights``;
-16. prints one JSON line of the kernels (times, bounds, launches, errors;
+17. prints one JSON line of the kernels (times, bounds, launches, errors;
    ``headline_*`` for the headline's case, ``matching_launches`` of the
    V4, V5 and depth-map runs, ``pointpillars_launches`` of the three
    PointPillars runs, ``pointpillars_train_launches`` of the four
    training runs, ``yolo_train_launches`` of a YOLO step and of the
-   runner's first run, ``scale_out_launches`` of each scale-out path,
+   runner's first run, ``bf16_train_launches`` of the bfloat16 n and SSD
+   runs, ``scale_out_launches`` of each scale-out path,
    ``kitti2d_launches`` of the card's ``kitti2d`` run,
    ``relative_decode_launches``, ``pillars_tools_launches``,
    ``quality_launches`` of each quality run and ``regen_launches`` of the
@@ -2244,16 +2257,19 @@ def nudge_one_ulp(torch, tensors, seed):
                                 torch.nextafter(p, p - 1)))
 
 
-def training_step_grads(torch, cfg, state, batch, device, nudge=None):
+def training_step_grads(torch, cfg, state, batch, device, nudge=None,
+                        dtype=None):
     """One training step's loss parts and gradients (Flax layout, on the
-    host) from ``state`` on ``device``; ``nudge`` a seed moves every
-    weight and every point coordinate one ulp first (``nudge_one_ulp``)."""
+    host) from ``state`` on ``device``, the network computing in
+    ``dtype`` (float32 by default); ``nudge`` a seed moves every weight
+    and every point coordinate one ulp first (``nudge_one_ulp``)."""
     from lidar_object_detection_tpu_torch.models.pointpillars import (
         pillars_flax_from_state)
     from lidar_object_detection_tpu_torch.models.pointpillars import (
         train as ptrain)
 
-    tr = ptrain.PillarsTrainer(cfg, device=device)
+    tr = ptrain.PillarsTrainer(cfg, device=device,
+                               dtype=dtype or torch.float32)
     tr.model.load_state_dict(state)
     b = tr.batch_tensors(*batch)
     if nudge is not None:
@@ -2598,17 +2614,20 @@ def yolo_train_tree(torch, dev, root):
     return cars
 
 
-def yolo_step_grads(torch, variables, images, targets, device, nudge=None):
+def yolo_step_grads(torch, variables, images, targets, device, nudge=None,
+                    dtype=None):
     """One n training step's loss parts and gradients (Flax layout, on the
-    host) from ``variables`` on ``device``; ``nudge`` a seed moves every
-    weight and every input pixel one ulp first (``nudge_one_ulp``)."""
+    host) from ``variables`` on ``device``, the network computing in
+    ``dtype`` (float32 by default); ``nudge`` a seed moves every weight
+    and every input pixel one ulp first (``nudge_one_ulp``)."""
     from lidar_object_detection_tpu_torch.models.yolo.model import (
         YoloConfig)
     from lidar_object_detection_tpu_torch.models.yolo.weights import (
         yolo_flax_from_state)
     from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
 
-    tr = YoloTrainer(YoloConfig(scale="n"), device=device)
+    tr = YoloTrainer(YoloConfig(scale="n"), device=device,
+                     dtype=dtype or torch.float32)
     tr.load(variables)
     imgs, tg = tr.put(images, targets)
     if nudge is not None:
@@ -2687,16 +2706,14 @@ def yolo_train_phase(torch, dev, smi, tmp):
       loss, its graph kept), AdamW and the EMA; the committed x
       variables' step at B = 4 (the card only); a traced n step.
 
-    Returns the launches of a step and of the runner's first run, and a
-    summary."""
-    from lidar_object_detection_tpu_torch.models.common import (
-        full_float32, repeatable)
+    Returns the launches of a step and of the runner's first run, a
+    summary, and the step's batch (images on the card, targets numpy)
+    with the CPU's float32 step on it (loss parts, gradient tree)."""
     from lidar_object_detection_tpu_torch.models.yolo.model import (
         YoloConfig)
     from lidar_object_detection_tpu_torch.ops import kernel_lib
     from lidar_object_detection_tpu_torch.parallel import optim
-    from lidar_object_detection_tpu_torch.parallel.train import (
-        YoloTrainer, detection_loss)
+    from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
     from lidar_object_detection_tpu_torch.pipelines import yolo_distill as yd
     from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
         read_flax_msgpack)
@@ -2827,39 +2844,12 @@ def yolo_train_phase(torch, dev, smi, tmp):
                      learning_rate=optim.warmup_cosine_decay_schedule(
                          0.0, 2e-3, 1, 8, 2e-5))
     tr.load(n_vars)
-
-    def forward():
-        tr.model.train()
-        with full_float32():
-            return tr.model(b_imgs)
-
-    def loss_of(out):
-        with full_float32():
-            return detection_loss(out, b_tg, 80, tr.level_shapes)[0]
-
-    params = list(tr.state.params().values())
-
-    def backward(loss):
-        # the graph kept, so that each call runs the same backward
-        with full_float32(), repeatable():
-            return torch.autograd.grad(loss, params, retain_graph=True)
-
-    times = {"step_ms": time_events(
-        torch, lambda: tr.train_step(b_imgs, b_tg), 10)[0]}
-    times["forward_ms"], out = time_events(torch, forward, 10)
-    times["loss_ms"], loss = time_events(torch, lambda: loss_of(out), 10)
-    times["backward_ms"], grads = time_events(torch, lambda: backward(loss),
-                                              10)
-    grads = dict(zip(tr.state.params(), grads))
-    times["adamw_ms"] = time_events(torch, lambda: optim.adamw_update(
-        tr.state.params(), grads, tr.state.opt_state, 2e-3, 5e-4), 10)[0]
-    times["ema_ms"] = time_events(torch, tr.update_ema, 10)[0]
-    del out, loss
+    times = yolo_step_times(torch, tr, b_imgs, b_tg)
     print(f"YOLO11n-seg training step at B = {len(images)}, 192 x 640, on "
           f"{smi}: {json.dumps(times)}", flush=True)
     print("traced n training step (B = 4):", flush=True)
     profile_once(torch, lambda: tr.train_step(b_imgs, b_tg))
-    del tr, grads
+    del tr
     x_tr = YoloTrainer(YoloConfig(scale="x"), device=dev)
     x_tr.load(read_flax_msgpack(CKPT_X)["variables"])
     times["x_step_ms"], m = time_events(
@@ -2879,7 +2869,366 @@ def yolo_train_phase(torch, dev, smi, tmp):
                "evaluations": evals, **times}
     print(json.dumps({"yolo_train": summary}), flush=True)
     phase("YOLO training", t0)
-    return {"step": step_launches, "runner": run_launches["first"]}, summary
+    return ({"step": step_launches, "runner": run_launches["first"]},
+            summary, (images, targets, (cpu_parts, cpu_grads)))
+
+
+def yolo_step_times(torch, tr, images, targets, iters=10):
+    """CUDA-event ms of a ``YoloTrainer``'s step on a batch (``put``'s)
+    and of its parts, each in the trainer's numerics: the train-mode
+    forward, the loss on one forward's outputs, the backward of one loss
+    (its graph kept, so that each call runs the same backward), AdamW and
+    the EMA.  The trainer trains on while it is timed."""
+    from lidar_object_detection_tpu_torch.models.common import (
+        numerics, repeatable)
+    from lidar_object_detection_tpu_torch.parallel import optim
+    from lidar_object_detection_tpu_torch.parallel.train import (
+        detection_loss)
+
+    def forward():
+        tr.model.train()
+        with numerics(tr.dtype):
+            return tr.model(images)
+
+    def loss_of(out):
+        with numerics(tr.dtype):
+            return detection_loss(out, targets, tr.cfg.num_classes,
+                                  tr.level_shapes)[0]
+
+    params = list(tr.state.params().values())
+
+    def backward(loss):
+        with numerics(tr.dtype), repeatable():
+            return torch.autograd.grad(loss, params, retain_graph=True)
+
+    times = {"step_ms": time_events(
+        torch, lambda: tr.train_step(images, targets), iters)[0]}
+    times["forward_ms"], out = time_events(torch, forward, iters)
+    times["loss_ms"], loss = time_events(torch, lambda: loss_of(out), iters)
+    times["backward_ms"], grads = time_events(torch, lambda: backward(loss),
+                                              iters)
+    grads = dict(zip(tr.state.params(), grads))
+    times["adamw_ms"] = time_events(torch, lambda: optim.adamw_update(
+        tr.state.params(), grads, tr.state.opt_state, 2e-3, 5e-4), iters)[0]
+    times["ema_ms"] = time_events(torch, tr.update_ema, iters)[0]
+    return times
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 mixed-precision training (Flax's dtype: float32 master weights)
+# ---------------------------------------------------------------------------
+
+# A bfloat16 step on the card against the same step on the CPU: the sum of
+# the loss parts' absolute differences, and the median tensor's gradient
+# deviation (relative to the tensor's largest entry), each within
+# BF16_STEP_MULTIPLE of the CPU's bfloat16 drift from its float32 step.
+# It is the CPU tests' STEP_MULTIPLE (tests/test_torch_*_train_bf16.py:
+# the port's bfloat16 step against JAX's): two bfloat16 steps that sum in
+# other orders differ by about as much as either differs from float32,
+# the YOLO step's discrete choices (TAL's top-k, the mask loss's
+# instances) following the rounding
+BF16_STEP_MULTIPLE = 1.5
+# steps of each repeated run (byte-equal twice), pairs of alternated
+# float32 / bfloat16 timings, and CUDA-event calls a timing
+BF16_STEPS, BF16_TIME_PAIRS, BF16_TIME_ITERS = 8, 3, 2
+# frames of the PointPillars card-against-CPU checks (the CPU's share of
+# the phase's time: a bfloat16 step at the surround grid took 9 s a frame
+# on the CPU of the machine that holds the H100)
+PP_BF16_CPU_FRAMES = 1
+# the center head's bfloat16 steps from the committed center variables,
+# card against CPU, on the surround grid's central 320 x 320 pillars
+# (+-51.2 m; the CPU's four steps at the whole grid took 36 s): each
+# step's loss within PP_BF16_CENTER_RTOL relative.  Read on an H100
+# (700 W): 1.9e-3 on this grid, 4.7e-3 on the whole grid; the limit is
+# the float32 run's (PP_CENTER_LOSS_RTOL), half of JAX's own bfloat16
+# drift from float32 at step 2 of the CPU test's center run (4.9e-2)
+PP_BF16_CENTER_STEPS = 4
+PP_BF16_CENTER_RANGE = 51.2
+PP_BF16_CENTER_RTOL = PP_CENTER_LOSS_RTOL
+
+
+def median_grad_deviation(got, ref):
+    """The median over the tensors of two gradient trees of each
+    tensor's largest difference in units of its largest entry in ``ref``
+    (tensors whose largest entry is 0 left out)."""
+    got, ref = flat_tree(got), flat_tree(ref)
+    out = [float(np.abs(got[k].astype(np.float64) - r).max())
+           / float(np.abs(r).max()) for k, r in ref.items()
+           if np.abs(r).max() > 0]
+    return float(np.median(out))
+
+
+def bf16_agreement(card, cpu, cpu_f32, parts, what):
+    """A bfloat16 step on the card against the CPU's (each a (loss parts,
+    gradient tree) pair), in units of the CPU's bfloat16 drift from its
+    float32 step (BF16_STEP_MULTIPLE); raises past the limit."""
+    summed = lambda a, b: sum(abs(a[0][k] - b[0][k]) for k in parts)
+    out = {"parts_err": summed(card, cpu), "parts_drift": summed(cpu,
+                                                                 cpu_f32),
+           "grad_err": median_grad_deviation(card[1], cpu[1]),
+           "grad_drift": median_grad_deviation(cpu[1], cpu_f32[1])}
+    print(f"{what}: card bf16 {card[0]}, CPU bf16 {cpu[0]}, CPU float32 "
+          f"{cpu_f32[0]}; loss parts' summed difference {out['parts_err']:.4g}"
+          f" against the CPU's bfloat16 drift {out['parts_drift']:.4g}; the "
+          f"median tensor's gradient deviation {out['grad_err']:.4g} against "
+          f"{out['grad_drift']:.4g} (limit {BF16_STEP_MULTIPLE} x the "
+          f"drift)", flush=True)
+    if out["parts_err"] > BF16_STEP_MULTIPLE * out["parts_drift"] \
+            or out["grad_err"] > BF16_STEP_MULTIPLE * out["grad_drift"]:
+        raise AssertionError(f"{what}: the card's bfloat16 step differs from "
+                             f"the CPU's: {out}")
+    return out
+
+
+def float32_tree(torch, tree):
+    """A variables tree with every leaf float32 numpy (bfloat16 leaves,
+    tensors in ``read_flax_msgpack``'s trees, cast up)."""
+    return {k: float32_tree(torch, v) if isinstance(v, dict) else
+            (v.float().numpy() if torch.is_tensor(v)
+             else np.asarray(v, np.float32)) for k, v in tree.items()}
+
+
+def repeated_runs(torch, make, step, state_of, what):
+    """BF16_STEPS steps of ``step(trainer)`` from a fresh ``make()``, run
+    twice, the launch counters zeroed before each: the two final states
+    (``state_of(trainer)``, a tree) must hold the same bytes.  Returns
+    (launches of the first run, its last metrics)."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    states, launches, metrics = [], [], None
+    for _ in range(2):
+        tr = make()
+        torch.cuda.synchronize()
+        kernel_lib.reset_launches()
+        for _ in range(BF16_STEPS):
+            metrics = step(tr)
+        torch.cuda.synchronize()
+        launches.append(dict(kernel_lib.LAUNCHES))
+        states.append(flat_tree(state_of(tr)))
+        del tr
+    same = states[0].keys() == states[1].keys() and all(
+        states[0][k].tobytes() == states[1][k].tobytes() for k in states[0])
+    if not same or launches[0] != launches[1]:
+        raise AssertionError(f"{what}: two runs of {BF16_STEPS} steps "
+                             f"differ (launches {launches})")
+    return launches[0], {k: float(v) for k, v in metrics.items()
+                         if k != "step"}
+
+
+def alternated(torch, arms, time_arm):
+    """``time_arm(arm)`` for each arm of ``arms`` (name -> arm) in
+    BF16_TIME_PAIRS rounds, the order reversed every other round (a b,
+    b a, a b): name -> list of results."""
+    names = list(arms)
+    out = {name: [] for name in names}
+    for i in range(BF16_TIME_PAIRS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            out[name].append(time_arm(arms[name]))
+    return out
+
+
+def bf16_train_phase(torch, dev, smi, yolo_batch, pp_batch):
+    """bfloat16 mixed-precision training on the card (``YoloTrainer`` and
+    ``PillarsTrainer`` with ``dtype=torch.bfloat16``: float32 parameters,
+    gradients, moments and EMA, the networks computing in bfloat16):
+
+    * YOLO11n-seg on the YOLO phase's batch (B = 4, 192 x 640, EMA 0.9)
+      from the committed n variables: the card's step 1 against the
+      CPU's (``bf16_agreement``; the CPU's float32 step is the YOLO
+      phase's, ``yolo_batch``'s third item); BF16_STEPS steps twice, byte-equal
+      (variables, EMA, AdamW's state), no kernel launched; CUDA-event step
+      times of float32 and bfloat16 alternated, split into forward, loss,
+      backward, AdamW and EMA; a traced bfloat16 step (kernels, busy
+      share);
+    * YOLO11x-seg from the committed x variables cast to float32 masters:
+      step times of float32 and bfloat16 alternated;
+    * PointPillars SSD at the surround grid on the PointPillars phase's
+      batch (B = 4): the card's step 1 against the CPU's
+      (PP_BF16_CPU_FRAMES frames); BF16_STEPS steps twice, byte-equal,
+      ``rotated_iou_pairs`` once a step; the kernel against its twin on
+      the bfloat16 step's candidate pairs; step times alternated and a
+      traced step;
+    * PointPillars center from the committed center variables:
+      PP_BF16_CENTER_STEPS steps on the card and on the CPU
+      (PP_BF16_CPU_FRAMES frames, the grid's central +-PP_BF16_CENTER_RANGE
+      m), num_pos exact, each loss within PP_BF16_CENTER_RTOL relative.
+
+    Returns the kernels' launches per run and a summary."""
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        PillarsConfig, pillars_state_from_flax)
+    from lidar_object_detection_tpu_torch.models.pointpillars import (
+        train as ptrain)
+    from lidar_object_detection_tpu_torch.models.pointpillars.loss import (
+        iou_bound, top_candidates)
+    from lidar_object_detection_tpu_torch.models.yolo.model import (
+        YoloConfig)
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+    from lidar_object_detection_tpu_torch.ops import rotated_iou_pairs as rip
+    from lidar_object_detection_tpu_torch.parallel.train import YoloTrainer
+    from lidar_object_detection_tpu_torch.utils.flax_msgpack import (
+        read_flax_msgpack)
+
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    dtypes = {"float32": f32, "bfloat16": bf16}
+    zero = {k: 0 for k in kernel_lib.LAUNCHES}
+    summary, launches = {"card": smi}, {}
+
+    # YOLO11n-seg: card against CPU, repeated runs, times, a trace
+    images, targets, cpu_f32 = yolo_batch
+    n_vars = read_flax_msgpack(CKPT)["variables"]
+    t = time.perf_counter()
+    steps = {device: yolo_step_grads(torch, n_vars, images.to(device),
+                                     targets, device, dtype=bf16)
+             for device in (dev, "cpu")}
+    summary["yolo_n_step1"] = bf16_agreement(
+        steps[dev], steps["cpu"], cpu_f32, ("cls", "box", "dfl", "seg"),
+        "YOLO11n-seg bf16 step 1, B = 4")
+    summary["yolo_n_step1"]["s"] = time.perf_counter() - t
+    del steps
+
+    def yolo_trainer(scale, dtype, variables, ema=0.9):
+        tr = YoloTrainer(YoloConfig(scale=scale), device=dev, dtype=dtype,
+                         ema_decay=ema)
+        tr.load(variables)
+        return tr
+
+    trainers = {name: yolo_trainer("n", dt, n_vars)
+                for name, dt in dtypes.items()}
+    b_imgs, b_tg = trainers["bfloat16"].put(images, targets)
+
+    def yolo_state(tr):
+        return {"variables": tr.variables(), "ema": tr.ema_variables(),
+                "opt": tr.opt_state_dict()}
+
+    launches["yolo_n"], last = repeated_runs(
+        torch, lambda: yolo_trainer("n", bf16, n_vars),
+        lambda tr: tr.train_step(b_imgs, b_tg), yolo_state,
+        "YOLO11n-seg bf16")
+    if launches["yolo_n"] != zero or not np.isfinite(last["loss"]):
+        raise AssertionError(f"YOLO11n-seg bf16 steps: launches "
+                             f"{launches['yolo_n']}, last metrics {last}")
+    times = alternated(torch, trainers, lambda tr: yolo_step_times(
+        torch, tr, b_imgs, b_tg, BF16_TIME_ITERS))
+    summary["yolo_n_ms"] = times
+    print(f"YOLO11n-seg step at B = 4, 192 x 640, float32 and bfloat16 "
+          f"alternated, CUDA events, on {smi}: {json.dumps(times)}",
+          flush=True)
+    print("traced YOLO11n-seg bf16 training step (B = 4):", flush=True)
+    summary["yolo_n_profile"] = profile_once(
+        torch, lambda: trainers["bfloat16"].train_step(b_imgs, b_tg))
+    del trainers
+    phase("bf16 training: YOLO11n-seg", t0)
+
+    # YOLO11x-seg: float32 masters cast from the committed bf16 arrays
+    x_vars = float32_tree(torch, read_flax_msgpack(CKPT_X)["variables"])
+    trainers = {name: yolo_trainer("x", dt, x_vars, ema=0.0)
+                for name, dt in dtypes.items()}
+
+    def x_step(tr):
+        ms, m = time_events(torch, lambda: tr.train_step(b_imgs, b_tg),
+                            BF16_TIME_ITERS)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"the x step's loss is {m['loss']}")
+        return ms
+    summary["yolo_x_step_ms"] = alternated(torch, trainers, x_step)
+    print(f"YOLO11x-seg step at B = 4, 192 x 640, float32 and bfloat16 "
+          f"alternated, on {smi}: {summary['yolo_x_step_ms']}", flush=True)
+    del trainers, x_vars
+    torch.cuda.empty_cache()
+    phase("bf16 training: YOLO11x-seg", t0)
+
+    # PointPillars SSD at the surround grid
+    cfg = dataclasses.replace(PillarsConfig.kitti360_surround(), head="ssd")
+    state = pillars_state_from_flax(read_flax_msgpack(PP_CKPTS["ssd"])["0"])
+    small = tuple(a[:PP_BF16_CPU_FRAMES] for a in pp_batch)
+    t = time.perf_counter()
+    steps = {(device, name): training_step_grads(torch, cfg, state, small,
+                                                 device, dtype=dtype)
+             for device, name, dtype in ((dev, "bf16", bf16),
+                                         ("cpu", "bf16", bf16),
+                                         ("cpu", "f32", f32))}
+    if len({v[0]["num_pos"] for v in steps.values()}) != 1:
+        raise AssertionError(f"PointPillars bf16 step 1: num_pos differs: "
+                             f"{[v[0] for v in steps.values()]}")
+    summary["pp_ssd_step1"] = bf16_agreement(
+        steps[(dev, "bf16")], steps[("cpu", "bf16")], steps[("cpu", "f32")],
+        ("cls", "box", "dir"), f"PointPillars SSD bf16 step 1, "
+        f"{PP_BF16_CPU_FRAMES} frame(s)")
+    summary["pp_ssd_step1"]["s"] = time.perf_counter() - t
+    del steps
+
+    def pp_trainer(dtype, cfg=cfg, state=state):
+        tr = ptrain.PillarsTrainer(cfg, device=dev, dtype=dtype)
+        tr.model.load_state_dict(state)
+        return tr
+
+    probe = pp_trainer(bf16)
+    batch = probe.batch_tensors(*pp_batch)
+    launches["pp_ssd"], last = repeated_runs(
+        torch, lambda: pp_trainer(bf16), lambda tr: tr.train_step(*batch),
+        lambda tr: dict(zip("vos", tr.state.flax_tree())),
+        "PointPillars SSD bf16")
+    if launches["pp_ssd"] != dict(zero, rotated_iou_pairs=BF16_STEPS) \
+            or not np.isfinite(last["loss"]):
+        raise AssertionError(f"PointPillars SSD bf16 steps: launches "
+                             f"{launches['pp_ssd']}, last metrics {last}")
+    # the kernel on the bf16 step's candidate pairs against its twin
+    gt, gv = batch[2], batch[4]
+    idx = top_candidates(iou_bound(probe.anchors, gt))
+    got = rip.rotated_iou_pairs_cuda(probe.anchors, idx, gt, gv)
+    ref = torch.where(gv[..., None], rip.rotated_iou_pairs_plain(
+        probe.anchors, idx, gt), 0.0)
+    pair_err = float((got - ref).abs().max())
+    summary["pp_pairs"] = {"pairs": idx.numel(), "max_abs_err": pair_err}
+    print(f"rotated_iou_pairs on the bf16 step's {idx.numel()} pairs: "
+          f"within {pair_err:.3g} of the twin (limit {PP_IOU_TOL})",
+          flush=True)
+    if not pair_err <= PP_IOU_TOL:
+        raise AssertionError(f"rotated_iou_pairs differs from its twin on "
+                             f"the bf16 step's pairs by {pair_err}")
+    del probe
+    trainers = {name: pp_trainer(dt) for name, dt in dtypes.items()}
+    summary["pp_ssd_step_ms"] = alternated(torch, trainers, lambda tr: (
+        time_events(torch, lambda: tr.train_step(*batch),
+                    BF16_TIME_ITERS)[0]))
+    print(f"PointPillars SSD step at B = 4, surround grid, float32 and "
+          f"bfloat16 alternated, on {smi}: {summary['pp_ssd_step_ms']}",
+          flush=True)
+    print("traced PointPillars SSD bf16 training step (B = 4):", flush=True)
+    summary["pp_ssd_profile"] = profile_once(
+        torch, lambda: trainers["bfloat16"].train_step(*batch))
+    del trainers
+    phase("bf16 training: PointPillars SSD", t0)
+
+    # PointPillars center: a short curve, card against CPU
+    r = PP_BF16_CENTER_RANGE
+    ccfg = dataclasses.replace(cfg, head="center", grid=dataclasses.replace(
+        cfg.grid, x_range=(-r, r), y_range=(-r, r)))
+    cstate = pillars_state_from_flax(
+        read_flax_msgpack(PP_CKPTS["center"])["0"])
+    curves = {}
+    for device in (dev, "cpu"):
+        tr = ptrain.PillarsTrainer(ccfg, device=device, dtype=bf16)
+        tr.model.load_state_dict(cstate)
+        curves[str(device)] = [
+            (float(m["loss"]), float(m["num_pos"])) for m in
+            (tr.train_step(*small) for _ in range(PP_BF16_CENTER_STEPS))]
+        del tr
+    center_err = curves_agree(curves[str(dev)], curves["cpu"])
+    summary["pp_center"] = {"curves": curves, "loss_rel_err": center_err}
+    print(f"PointPillars center bf16, {PP_BF16_CENTER_STEPS} steps on "
+          f"{PP_BF16_CPU_FRAMES} frame(s), {ccfg.grid.nx} x {ccfg.grid.ny} "
+          f"pillars, (loss, num_pos): card "
+          f"{curves[str(dev)]}, CPU {curves['cpu']}; losses within "
+          f"{center_err} relative (limit {PP_BF16_CENTER_RTOL})", flush=True)
+    if center_err is None or center_err > PP_BF16_CENTER_RTOL:
+        raise AssertionError(f"the center head's bf16 steps on the card "
+                             f"differ from the CPU's: {curves}")
+    summary["s"] = time.perf_counter() - t0
+    print(json.dumps({"bf16_train": summary}), flush=True)
+    phase("bf16 training", t0)
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -4605,7 +4954,8 @@ def stage_times(torch, detector, images, points, pvalid, corners, bvalid,
 
 def profile_once(torch, run):
     """One main-path iteration under torch.profiler: the card's busy share
-    of the traced wall time and the kernels that took most of it."""
+    of the traced wall time and the kernels that took most of it, printed
+    and returned (None where the profiler saw no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4620,7 +4970,7 @@ def profile_once(torch, run):
     if not kernels:
         print("profile: the profiler recorded no device activity; the busy "
               "share is not measured", flush=True)
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, (lo, hi) = 0, spans[0]
     for start, end in spans[1:]:
@@ -4635,11 +4985,11 @@ def profile_once(torch, run):
         by_name[e.name] = by_name.get(e.name, 0) + (e.time_range.end
                                                     - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(json.dumps({"profile": {
-        "traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-        "busy_share": busy / wall_us, "device_kernels": len(kernels),
-        "top_kernels_ms": [[n[:90], t / 1e3] for n, t in top]}}),
-        flush=True)
+    summary = {"traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+               "busy_share": busy / wall_us, "device_kernels": len(kernels),
+               "top_kernels_ms": [[n[:90], t / 1e3] for n, t in top]}
+    print(json.dumps({"profile": summary}), flush=True)
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -5777,7 +6127,10 @@ def main() -> int:
     del pairs
     phase("PointPillars training kernel against its twin", t0)
     with tempfile.TemporaryDirectory() as tmp:
-        yolo_launches, _ = yolo_train_phase(torch, dev, smi, tmp)
+        yolo_launches, _, yolo_batch = yolo_train_phase(torch, dev, smi, tmp)
+        bf16_launches, _ = bf16_train_phase(torch, dev, smi, yolo_batch,
+                                            pp_batch)
+        del yolo_batch
         scale_launches, _ = scale_out_phase(torch, dev, smi, tmp, scenes,
                                             serving_det, pp_batch)
     del serving_det, pp_batch
@@ -5830,6 +6183,8 @@ def main() -> int:
             run: n[k["name"]] for run, n in train_launches.items()}
         k["yolo_train_launches"] = {run: n[k["name"]]
                                     for run, n in yolo_launches.items()}
+        k["bf16_train_launches"] = {run: n[k["name"]]
+                                    for run, n in bf16_launches.items()}
         k["pillars_tools_launches"] = {run: n[k["name"]]
                                        for run, n in tools_launches.items()}
         k.update(quality_fields.get(k["name"], {}))

@@ -7,7 +7,13 @@ network's bits equal across runs and devices.
 * :func:`flax_default_init`: Flax's default distributions drawn from a
   ``torch.Generator``.
 * :func:`full_float32`: cuDNN convolutions and cuBLAS products in IEEE
-  float32 (no TF32), as the JAX package computes.
+  float32 (no TF32), as the JAX package computes; :func:`mixed_precision`
+  adds bf16 products summed in float32, as XLA sums them, and
+  :func:`numerics` picks the scope of a compute dtype.
+* Flax's ``dtype``, the compute dtype of a mixed-precision network:
+  :class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear` compute
+  in their ``compute_dtype`` from float32 parameters
+  (:func:`set_compute_dtype`); :func:`flax_silu` rounds as Flax's.
 * :func:`repeatable`: cuDNN's deterministic algorithms, for a backward
   that gives the same bits each run.
 * :func:`true_div`: IEEE division by a scalar on every device.
@@ -59,7 +65,10 @@ class BatchNorm(nn.Module):
     * (rsqrt(var + eps) * scale) + bias``; and, with no gradient,
     ``running = m * running + (1 - m) * batch`` (m = ``momentum``, Flax's
     convention: ``torch.nn.BatchNorm2d``'s momentum would be 1 - m, and it
-    keeps the unbiased variance).
+    keeps the unbiased variance).  The statistics and the normalization
+    are float32 whatever the input's dtype, and the output has the
+    input's dtype: a bfloat16 input (a mixed-precision network's) gives a
+    bfloat16 output, as Flax's ``BatchNorm(dtype=bfloat16)`` does.
     """
 
     def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.97):
@@ -88,6 +97,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         if train:
+            dtype = x.dtype
             x = x.float()
             mean, mean_sq = batch_mean(
                 self.batch_group, x.mean(dim=(0, 2, 3)),
@@ -95,8 +105,8 @@ class BatchNorm(nn.Module):
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             _update_running(self, mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
-            return (x - mean[:, None, None]) * mul[:, None, None] \
-                + self.bias[:, None, None]
+            return ((x - mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None]).to(dtype)
         # rounded to the statistics' dtype after the sum and after the rsqrt
         # (taken in float32: PyTorch's bfloat16 rsqrt on the CPU is not
         # correctly rounded); the product is float32
@@ -238,6 +248,122 @@ def full_float32():
         yield
     finally:
         conv.fp32_precision, matmul.fp32_precision = saved
+
+
+@contextlib.contextmanager
+def mixed_precision():
+    """The scope of a mixed-precision step: :func:`full_float32`, and
+    cuBLAS's bfloat16 products summed in float32 (PyTorch lets cuBLAS
+    reduce them in bfloat16 by default; XLA sums in float32); the
+    caller's settings are restored after it."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with full_float32():
+            yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+def numerics(dtype: Optional[torch.dtype]):
+    """The scope a network of compute dtype ``dtype`` runs in:
+    :func:`mixed_precision` for bfloat16, else :func:`full_float32`."""
+    return (mixed_precision() if dtype == torch.bfloat16
+            else full_float32())
+
+
+# ---------------------------------------------------------------------------
+# Flax's dtype: float32 parameters, products in the compute dtype
+# ---------------------------------------------------------------------------
+
+def set_compute_dtype(model: nn.Module,
+                      dtype: Optional[torch.dtype]) -> None:
+    """Give every layer of ``model`` that has a ``compute_dtype`` the
+    compute dtype ``dtype``, Flax's ``dtype`` of a module: its input,
+    kernel and bias cast to it at the call (Flax's ``promote_dtype``), the
+    parameters kept as they are.  float32 (or None) sets None: each
+    layer's own call, bit for bit as before."""
+    dtype = None if dtype in (None, torch.float32) else dtype
+    for module in model.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = dtype
+
+
+def _in_dtype(layer: nn.Module, x, product):
+    """``layer``'s output with Flax's dtype: the product of the input and
+    the kernel cast to ``compute_dtype``, rounded to it, then the bias
+    cast to it added in it (two roundings where a fused bias rounds
+    once)."""
+    dt = layer.compute_dtype
+    y = product(x.to(dt), layer.weight.to(dt))
+    if layer.bias is None:
+        return y
+    return y + layer.bias.to(dt).reshape(-1, *[1] * (y.dim() - 2))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (its parameters, state-dict keys and initializer)
+    computing in ``compute_dtype`` where it is set (Flax's
+    ``nn.Conv(dtype=...)``); None: ``nn.Conv2d``'s own call."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _in_dtype(self, x, lambda x, w: self._conv_forward(
+            x, w, None))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``compute_dtype`` where it is
+    set (Flax's ``nn.ConvTranspose(dtype=...)`` and the YOLO Proto's
+    upsample); None: its own call.
+
+    In a compute dtype the layer takes kernel == stride and no padding,
+    as both networks' do, and is the JAX Proto's einsum: output pixel
+    ``(s*h + a, s*w + c)`` is ``sum_i x[i, h, w] * W[i, o, a, c]``, one
+    product summed in float32 and rounded.  (PyTorch's bfloat16
+    ``conv_transpose2d`` on the CPU gets the input's gradient wrong at
+    kernel == stride == 4: off by more than its largest entry.)"""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        k, s = tuple(self.kernel_size), tuple(self.stride)
+        if k != s or any(self.padding) or any(self.output_padding) \
+                or self.groups != 1 or any(d != 1 for d in self.dilation):
+            raise ValueError(f"a ConvTranspose2d in a compute dtype takes "
+                             f"kernel == stride and no padding, got "
+                             f"kernel {k}, stride {s}")
+
+        def product(x, w):
+            b, _, h, wd = x.shape
+            y = torch.einsum("bihw,ioac->bohawc", x, w)
+            return y.reshape(b, w.shape[1], h * k[0], wd * k[1])
+        return _in_dtype(self, x, product)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` where it is set
+    (Flax's ``nn.Dense(dtype=...)``); None: its own call."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _in_dtype(self, x, torch.nn.functional.linear)
+
+
+def flax_silu(x):
+    """Flax's ``nn.silu``, ``x * sigmoid(x)``, with the sigmoid as XLA
+    expands ``lax.logistic``: ``x * (1 / (1 + exp(-x)))``, each step
+    rounded to ``x``'s dtype (bfloat16), where ``F.silu`` rounds once."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 @contextlib.contextmanager

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lidar_object_detection_tpu_torch.models.common import (
-    global_sum, true_div)
+    Conv2d, global_sum, true_div)
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
     top_k_lowest_index)
 
@@ -37,8 +37,8 @@ class CenterHead(nn.Module):
         c = cfg.up_channels * len(cfg.backbone_channels)
         self.trunk = ConvBN(c, cfg.up_channels, 3, 1,
                             momentum=cfg.bn_momentum)
-        self.heat = nn.Conv2d(cfg.up_channels, cfg.num_classes, 1)
-        self.reg = nn.Conv2d(cfg.up_channels, 8, 1)
+        self.heat = Conv2d(cfg.up_channels, cfg.num_classes, 1)
+        self.reg = Conv2d(cfg.up_channels, 8, 1)
 
     def forward(self, x, train: bool = False):
         x = self.trunk(x, train)

@@ -24,6 +24,15 @@ running ones, as Flax's ``nn.BatchNorm`` does (:class:`BatchNorm`), not as
 clipped at 0, and ``running = m * running + (1 - m) * batch`` with m =
 ``bn_momentum``.  The forward runs in full float32, TF32 off
 (``full_float32``), as the JAX package computes.
+
+``PointPillars(cfg, dtype=torch.bfloat16)`` is the JAX package's
+``PointPillars(cfg, dtype=jnp.bfloat16)``: float32 parameters and
+statistics, the layers computing in bfloat16 (:mod:`..common`'s
+``Conv2d``, ``ConvTranspose2d``, ``Linear``: input, kernel and bias cast
+at the call, a bias added after the product), both BatchNorms
+normalizing in float32 and returning bfloat16, the pillar scatter in
+float32 and the BEV cast back to bfloat16, the heads bfloat16; the
+forward then runs in ``mixed_precision``.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lidar_object_detection_tpu_torch.models.common import (
-    BatchNorm, _update_running, batch_sum, full_float32, global_sum)
+    BatchNorm, Conv2d, ConvTranspose2d, Linear, _update_running, batch_sum,
+    global_sum, numerics, set_compute_dtype)
 from lidar_object_detection_tpu_torch.models.pointpillars.voxelize import (
     PillarGridConfig, point_features, scatter_bev)
 
@@ -105,11 +115,11 @@ class ConvBN(nn.Module):
             if k != s:
                 raise ValueError(f"a transposed ConvBN takes kernel == "
                                  f"stride, got {k} and {s}")
-            self.conv = nn.ConvTranspose2d(c_in, c_out, k, stride=s,
-                                           bias=False)
+            self.conv = ConvTranspose2d(c_in, c_out, k, stride=s,
+                                        bias=False)
         else:
-            self.conv = nn.Conv2d(c_in, c_out, k, stride=s, padding=k // 2,
-                                  bias=False)
+            self.conv = Conv2d(c_in, c_out, k, stride=s, padding=k // 2,
+                               bias=False)
         self.bn = BatchNorm(c_out, eps=BN_EPS, momentum=momentum)
 
     def forward(self, x, train: bool = False):
@@ -123,7 +133,9 @@ class MaskedBatchNorm(nn.Module):
     weighted by ``mask`` (two passes over the rows, n = max(sum(mask),
     1)), summed over the ranks of ``batch_group`` when the batch is split
     over them (:func:`..common.batch_sum`), and the running
-    statistics update as :class:`BatchNorm`'s."""
+    statistics update as :class:`BatchNorm`'s.  The statistics and the
+    normalization are float32 and the output has the input's dtype
+    (Flax's ``astype(self.dtype)``)."""
 
     def __init__(self, c: int, eps: float = BN_EPS, momentum: float = 0.9):
         super().__init__()
@@ -136,6 +148,7 @@ class MaskedBatchNorm(nn.Module):
         self.batch_group = None     # as BatchNorm's
 
     def forward(self, x, mask=None, train: bool = False):
+        dtype = x.dtype
         if train:
             w = mask.to(torch.float32)[:, None]
             group = self.batch_group
@@ -147,8 +160,8 @@ class MaskedBatchNorm(nn.Module):
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(dtype)
 
 
 class PillarFeatureNet(nn.Module):
@@ -158,7 +171,7 @@ class PillarFeatureNet(nn.Module):
     def __init__(self, cfg: PillarsConfig):
         super().__init__()
         self.cfg = cfg
-        self.linear = nn.Linear(9, cfg.embed_dim, bias=False)
+        self.linear = Linear(9, cfg.embed_dim, bias=False)
         self.bn = MaskedBatchNorm(cfg.embed_dim, momentum=cfg.bn_momentum)
 
     def forward(self, points, valid, train: bool = False):
@@ -168,7 +181,7 @@ class PillarFeatureNet(nn.Module):
             points.reshape(b * p, points.shape[-1]), valid.reshape(b * p),
             grid, batch=b)
         x = F.relu(self.bn(self.linear(feats), in_grid, train))
-        return scatter_bev(x, ids, in_grid, grid, batch=b)
+        return scatter_bev(x.float(), ids, in_grid, grid, batch=b)
 
 
 class Backbone2D(nn.Module):
@@ -214,9 +227,9 @@ class SSDHead(nn.Module):
         c = cfg.up_channels * len(cfg.backbone_channels)
         a, nc = cfg.num_anchors, cfg.num_classes
         self.a, self.nc = a, nc
-        self.cls = nn.Conv2d(c, a * nc, 1)
-        self.box = nn.Conv2d(c, a * 7, 1)
-        self.dir = nn.Conv2d(c, a * 2, 1)
+        self.cls = Conv2d(c, a * nc, 1)
+        self.box = Conv2d(c, a * 7, 1)
+        self.dir = Conv2d(c, a * 2, 1)
 
     def forward(self, x):
         return {"cls": _channels_last(self.cls(x), self.a, self.nc),
@@ -226,9 +239,14 @@ class SSDHead(nn.Module):
 
 class PointPillars(nn.Module):
     """Full network: padded scans (B, P, 4) or (P, 4) and their masks ->
-    the raw heads, channels-last.  Decoding is :mod:`.decode`."""
+    the raw heads, channels-last, computing in ``dtype`` (Flax's).
+    Decoding is :mod:`.decode`."""
 
-    def __init__(self, cfg: PillarsConfig = PillarsConfig()):
+    # the BEV's cast and the forward's scope (set_compute_dtype)
+    compute_dtype = None
+
+    def __init__(self, cfg: PillarsConfig = PillarsConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.pfn = PillarFeatureNet(cfg)
@@ -239,14 +257,17 @@ class PointPillars(nn.Module):
             self.center_head = CenterHead(cfg)
         else:
             self.head = SSDHead(cfg)
+        set_compute_dtype(self, dtype)
 
     def forward(self, points, valid, train: bool = False):
         """``train=True`` normalizes with the batch's statistics and
         updates the running ones (Flax's ``mutable=["batch_stats"]``)."""
         if points.dim() == 2:
             points, valid = points[None], valid[None]
-        with full_float32():
+        with numerics(self.compute_dtype):
             bev = self.pfn(points, valid, train)
+            if self.compute_dtype is not None:
+                bev = bev.to(self.compute_dtype)
             x = self.backbone(bev.permute(0, 3, 1, 2).contiguous(), train)
             if self.cfg.head == "center":
                 return self.center_head(x, train)

@@ -29,11 +29,19 @@ after ``sqrt(nu_hat)``, bias correction, then the decoupled decay ``wd * p``
 added to the update of every parameter (optax's ``mask=None``: biases and
 BatchNorm scales too), then the update scaled by ``-lr`` and added.
 
-The step runs in full float32 (TF32 off, ``full_float32``); its backward
-runs in :func:`..common.repeatable` (cuDNN's deterministic algorithms, the
-caller's settings restored after it), so that a run on the card gives the
-same bits each time.  The forward needs no flag: its convolutions'
-algorithms repeat their bits as they are.
+``PillarsTrainer(..., dtype=torch.bfloat16)`` is JAX's trainer with
+``dtype=jnp.bfloat16``: the network computes in bfloat16
+(``PointPillars(cfg, dtype)``), the losses cast the heads to float32, and
+the parameters, gradients, AdamW's moments and the BatchNorm statistics
+stay float32.  The SSD assigner's IoU takes the float32 anchors and GTs
+whatever the dtype.
+
+A float32 step (the default) runs in full float32 (TF32 off,
+``full_float32``), a bfloat16 one in ``mixed_precision``; the backward
+runs in :func:`..common.repeatable` too (cuDNN's deterministic
+algorithms, the caller's settings restored after it), so that a run on
+the card gives the same bits each time.  The forward needs no flag: its
+convolutions' algorithms repeat their bits as they are.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ import numpy as np
 import torch
 
 from lidar_object_detection_tpu_torch.models.common import (
-    full_float32, repeatable, split_batch)
+    numerics, repeatable, split_batch)
 from lidar_object_detection_tpu_torch.models.pointpillars.center import (
     starve_weights)
 from lidar_object_detection_tpu_torch.models.pointpillars.decode import (
@@ -105,20 +113,23 @@ class PillarsTrainer:
     ``num_points`` (the shape of its initialization) has no counterpart:
     the port's network takes any cloud size.  With a ``mesh`` a batch is
     the global batch, whose frames the ``data`` axis divides, and every
-    rank calls :meth:`train_step` together.
+    rank calls :meth:`train_step` together.  ``dtype`` is the network's
+    compute dtype, float32 or bfloat16 (the JAX trainer's ``dtype``);
+    :meth:`apply` serves in it too, as JAX's ``apply`` does.
     """
 
     def __init__(self, cfg: PillarsConfig,
                  learning_rate: Union[float, Schedule] = 2e-3,
                  weight_decay: float = 1e-4, seed: int = 0, device="cuda",
-                 mesh=None):
+                 mesh=None, dtype: torch.dtype = torch.float32):
         self.cfg = cfg
+        self.dtype = dtype
         self.mesh = mesh
         self.data_group = None if mesh is None else mesh.get_group(DATA_AXIS)
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.device = torch.device(device)
-        model = initialize(PointPillars(cfg), seed).to(self.device)
+        model = initialize(PointPillars(cfg, dtype), seed).to(self.device)
         split_batch(model, self.data_group)
         self.state = TrainState(
             model=model, opt_state=AdamWState.zeros(
@@ -167,7 +178,7 @@ class PillarsTrainer:
         """The parameters' gradients; with a mesh, of the global loss:
         the shares' gradients summed over ``data`` in one all-reduce."""
         params = self.state.params()
-        with full_float32(), repeatable():
+        with numerics(self.dtype), repeatable():
             grads = torch.autograd.grad(loss, list(params.values()))
         if self.data_group is not None:
             grads = collectives.all_reduce_coalesced(grads, self.data_group)

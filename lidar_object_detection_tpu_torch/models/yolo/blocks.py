@@ -16,6 +16,15 @@ normalizes with the batch's statistics and moves the running ones, as
 Flax's ``apply(..., train=True, mutable=["batch_stats"])`` does
 (:class:`..common.BatchNorm`); ``nn.Module`` starts in training mode, so a
 serving network is put in eval mode (``YoloDetector`` does).
+
+A network given a compute dtype (``Yolo11(cfg, dtype=torch.bfloat16)``,
+Flax's ``dtype``) keeps float32 parameters and rounds where the Flax
+blocks with ``dtype=bfloat16`` round: each convolution casts its input
+and kernel (:class:`..common.Conv2d`), BatchNorm normalizes in float32
+and returns bfloat16, SiLU is ``x * sigmoid(x)`` in bfloat16
+(:func:`..common.flax_silu`), residual adds, concatenations and pools
+stay in bfloat16, the attention's scores are float32 sums of bfloat16
+products, and the Proto's upsample adds its bias after the product.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lidar_object_detection_tpu_torch.models.common import BatchNorm
+from lidar_object_detection_tpu_torch.models.common import (
+    BatchNorm, Conv2d, ConvTranspose2d, flax_silu)
 
 
 class ConvBNAct(nn.Module):
@@ -38,14 +48,15 @@ class ConvBNAct(nn.Module):
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  g: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, s, k // 2, groups=g,
-                              bias=False)
+        self.conv = Conv2d(c_in, c_out, k, s, k // 2, groups=g, bias=False)
         self.bn = BatchNorm(c_out)
         self.act = act
 
     def forward(self, x):
         x = self.bn(self.conv(x), self.training)
-        return F.silu(x) if self.act else x
+        if not self.act:
+            return x
+        return F.silu(x) if self.conv.compute_dtype is None else flax_silu(x)
 
 
 def dw_conv(c_in: int, c_out: int, k: int = 3, s: int = 1,
@@ -200,13 +211,15 @@ class Proto(nn.Module):
     """Segmentation prototype head: conv -> 2x transposed-conv upsample ->
     conv -> 1x1 to ``nm`` mask channels.  The upsample is
     ``ConvTranspose2d(c, c, 2, 2)``; its (in, out, 2, 2) weight is the
-    layout the JAX package keeps."""
+    layout the JAX package keeps.  With a compute dtype it is the JAX
+    block's einsum, rounded, and then the bias added
+    (:class:`..common.ConvTranspose2d`)."""
 
     def __init__(self, c_in: int, c_hidden: int = 256, nm: int = 32):
         super().__init__()
         self.cv1 = ConvBNAct(c_in, c_hidden, 3)
-        self.upsample = nn.ConvTranspose2d(c_hidden, c_hidden, 2, 2, 0,
-                                           bias=True)
+        self.upsample = ConvTranspose2d(c_hidden, c_hidden, 2, 2, 0,
+                                        bias=True)
         self.cv2 = ConvBNAct(c_hidden, c_hidden, 3)
         self.cv3 = ConvBNAct(c_hidden, nm, 1)
 

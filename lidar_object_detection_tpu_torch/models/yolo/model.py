@@ -13,6 +13,14 @@ the JAX package: ``forward`` takes (B, H, W, 3) in [0, 1] and returns
 ``"proto"`` (B, H/4, W/4, nm); with ``YoloConfig(segment=False)`` (the
 detection-only head of the KITTI 2D evaluation) only ``"box"`` and
 ``"cls"``.
+
+``Yolo11(cfg, dtype=torch.bfloat16)`` is the JAX package's ``Yolo11(cfg,
+dtype=jnp.bfloat16)``: float32 parameters, the network computing in
+bfloat16 (:mod:`.blocks`), the head's biased 1 x 1 convolutions taking
+the product in bfloat16 and then adding the bias in bfloat16, the
+outputs bfloat16.  float32 (the default) is the float32 network
+unchanged.  A serving network cast whole (``model.to(torch.bfloat16)``,
+``YoloDetector``) is another thing: its parameters are bfloat16.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Dict, List
 import torch
 from torch import nn
 
+from lidar_object_detection_tpu_torch.models.common import (
+    Conv2d, set_compute_dtype)
 from lidar_object_detection_tpu_torch.models.yolo import blocks as B
 
 SCALES = {
@@ -82,11 +92,11 @@ class DetectHead(nn.Module):
         c3 = max(level_channels[0], min(nc, 100))
         self.cv2 = nn.ModuleList(nn.Sequential(
             B.ConvBNAct(c, c2, 3), B.ConvBNAct(c2, c2, 3),
-            nn.Conv2d(c2, 4 * REG_MAX, 1)) for c in level_channels)
+            Conv2d(c2, 4 * REG_MAX, 1)) for c in level_channels)
         self.cv3 = nn.ModuleList(nn.Sequential(
             nn.Sequential(B.dw_conv(c, c, 3), B.ConvBNAct(c, c3, 1)),
             nn.Sequential(B.dw_conv(c3, c3, 3), B.ConvBNAct(c3, c3, 1)),
-            nn.Conv2d(c3, nc, 1)) for c in level_channels)
+            Conv2d(c3, nc, 1)) for c in level_channels)
 
     def forward(self, feats):
         boxes = [m(x) for m, x in zip(self.cv2, feats)]
@@ -103,7 +113,7 @@ class SegmentHead(DetectHead):
         c4 = max(level_channels[0] // 4, cfg.nm)
         self.cv4 = nn.ModuleList(nn.Sequential(
             B.ConvBNAct(c, c4, 3), B.ConvBNAct(c4, c4, 3),
-            nn.Conv2d(c4, cfg.nm, 1)) for c in level_channels)
+            Conv2d(c4, cfg.nm, 1)) for c in level_channels)
         self.proto = B.Proto(level_channels[0], cfg.ch(cfg.npr), cfg.nm)
 
     def forward(self, feats):
@@ -113,9 +123,10 @@ class SegmentHead(DetectHead):
 
 
 class Yolo11(nn.Module):
-    """Full YOLO11(-seg) network."""
+    """Full YOLO11(-seg) network, computing in ``dtype`` (Flax's)."""
 
-    def __init__(self, cfg: YoloConfig = YoloConfig()):
+    def __init__(self, cfg: YoloConfig = YoloConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         ch, n2, c3k = cfg.ch, cfg.reps(2), cfg.c3k
@@ -141,6 +152,7 @@ class Yolo11(nn.Module):
                 cfg, (ch(256), ch(512), ch(1024))),
         }
         self.model = nn.ModuleDict({str(i): m for i, m in layers.items()})
+        set_compute_dtype(self, dtype)
 
     def forward(self, x) -> Dict[str, List[torch.Tensor]]:
         m = self.model

@@ -33,8 +33,7 @@ averaged; AdamW, the schedule and the EMA then run alike on every rank.
 kernel whose Flax output axis the axis size divides is held in slices
 along it, one a rank, with its AdamW moments and EMA entry; the forward
 all-gathers it.  With ``mesh=None`` the trainer is the one-card trainer,
-unchanged.  Only float32 training is ported (the JAX trainer's ``dtype``
-may be bfloat16).
+unchanged.
 
 Ties follow JAX's rules: the argmax over GTs takes the first maximum,
 TAL uses only the k-th value of its top-k, and the mask loss's top-k of
@@ -45,9 +44,17 @@ division by a Python scalar is a multiplication by its reciprocal.  The
 BCE is optax's ``sigmoid_binary_cross_entropy``: ``-z log_sigmoid(x) -
 (1 - z) log_sigmoid(-x)``.
 
-The step runs in full float32 (TF32 off, ``full_float32``) and its
-backward in ``repeatable`` (cuDNN's deterministic algorithms), so that a
-run on the card gives the same bits each time.
+``YoloTrainer(..., dtype=torch.bfloat16)`` is JAX's trainer with
+``dtype=jnp.bfloat16``, mixed precision as Flax's ``dtype`` makes it: the
+network computes in bfloat16 (``Yolo11(cfg, dtype)``, rounding where the
+Flax modules round), the loss casts the heads to float32 before any
+arithmetic, and the parameters, their gradients, AdamW's moments, the
+BatchNorm statistics and the EMA stay float32.  A float32 step
+(the default) runs in full float32 (TF32 off, ``full_float32``), a
+bfloat16 one in ``mixed_precision`` (bfloat16 products summed in float32
+besides); the backward runs in ``repeatable`` (cuDNN's deterministic
+algorithms) too, so that a run on the card gives the same bits each
+time.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ import torch.nn.functional as F
 
 from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
 from lidar_object_detection_tpu_torch.models.common import (
-    full_float32, global_sum, repeatable, split_batch)
+    global_sum, numerics, repeatable, split_batch)
 from lidar_object_detection_tpu_torch.models.yolo.init import initialize
 from lidar_object_detection_tpu_torch.models.yolo.model import (
     REG_MAX, STRIDES, Yolo11, YoloConfig)
@@ -466,6 +473,11 @@ class YoloTrainer:
     moments and EMA entries.  Every rank calls :meth:`train_step`,
     :meth:`variables`, :meth:`ema_variables` and :meth:`opt_state_dict`
     together: they are collective.
+
+    ``dtype`` is the network's compute dtype, float32 or bfloat16 (the
+    JAX trainer's ``dtype``); the variables, gradients, moments and EMA
+    are float32 either way, so a checkpoint's trees have the float32
+    trainer's layout.
     """
 
     def __init__(self, cfg: YoloConfig, image_size=(192, 640),
@@ -473,7 +485,7 @@ class YoloTrainer:
                  learning_rate: Union[float, Schedule] = 1e-3,
                  weight_decay: float = 5e-4, seg_weight: float = 1.0,
                  ema_decay: float = 0.0, seed: int = 0, device="cuda",
-                 mesh=None):
+                 mesh=None, dtype: torch.dtype = torch.float32):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but CUDA is not "
@@ -488,10 +500,11 @@ class YoloTrainer:
         self.weight_decay = weight_decay
         self.seg_weight = seg_weight
         self.ema_decay = float(ema_decay)
+        self.dtype = dtype
         # Yolo11's constructor draws PyTorch's own init, which initialize
         # overwrites: keep the caller's global generator untouched
         with torch.random.fork_rng(devices=[]):
-            model = initialize(Yolo11(cfg), seed).to(self.device)
+            model = initialize(Yolo11(cfg, dtype), seed).to(self.device)
         self.mesh = mesh
         self.data_group = self.model_group = None
         self.shard_dims: Dict[str, int] = {}
@@ -566,7 +579,7 @@ class YoloTrainer:
         this rank's rows, :meth:`local_batch`): with a mesh, this rank's
         share of the global batch's loss and parts."""
         self.model.train()
-        with full_float32():
+        with numerics(self.dtype):
             out = self.forward(images)
             return detection_loss(out, targets, self.cfg.num_classes,
                                   self.level_shapes,
@@ -578,7 +591,7 @@ class YoloTrainer:
         of the global batch's loss: the shares' gradients summed over
         ``data`` in one all-reduce."""
         params = self.state.params()
-        with full_float32(), repeatable():
+        with numerics(self.dtype), repeatable():
             grads = torch.autograd.grad(loss, list(params.values()))
         if self.data_group is not None:
             grads = collectives.all_reduce_coalesced(grads, self.data_group)
@@ -613,7 +626,8 @@ class YoloTrainer:
 
     def put(self, images, targets) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """A batch on the device (with a mesh, the global batch):
-        images (B, H, W, 3) float32 in [0, 1];
+        images (B, H, W, 3) float32 in [0, 1], whatever the compute dtype
+        (the first convolution casts them, as Flax's does);
         targets (B, T, ...) ``boxes`` float32, ``classes`` int64,
         ``valid`` bool and ``masks`` float32 (numpy arrays or tensors)."""
         dtypes = {"boxes": torch.float32, "classes": torch.int64,
@@ -692,7 +706,9 @@ class YoloTrainer:
         if self.state.ema is not None:
             src = self._own_tree(from_flax_variables(ema_variables
                                                      or variables))
-            self.state.ema = {k: src[k].to(self.device, v.dtype)
+            # copies: on the CPU ``to`` would return the caller's arrays,
+            # which the EMA's updates would then write into
+            self.state.ema = {k: src[k].to(self.device, v.dtype, copy=True)
                               for k, v in self.state.ema.items()}
 
     def load_opt_state(self, tree: dict) -> None:
