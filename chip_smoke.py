@@ -159,7 +159,15 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    where both truncations agree; then ``run_kitti2d_eval`` with a
    ``detect_fn`` on the n checkpoint on the card and the CPU.  It prints
    the per-image forward and decode times (CUDA events) and the CLI's
-   host seconds;
+   host seconds.  Then JPEG (``jpeg_phase``): the port's codec (host C++
+   and its numpy twin) decodes the committed Pillow fixtures of
+   ``tests/fixtures/jpeg`` to the recorded hashes of Pillow's pixels and
+   encodes a crop to the recorded hash of Pillow's bytes; the same KITTI
+   2D tree with its images written as JPEG by the port's encoder goes
+   through ``kitti2d`` on the card and the CPU (K5 once per image and no
+   other kernel, TP / FP / FN equal, the ``.jpg.txt`` lines, annotated
+   JPEGs that decode); it prints the codec's host milliseconds for a
+   375 x 1242 image, and fails past 60 s;
 14. decodes the n float32 detector's raw outputs on the committed frames
    (B = 4) in the modes the serving path does not run -- logit at 0.9,
    relative at 0.5 (the peak pass, then K2), ``emit_coef`` with
@@ -210,6 +218,7 @@ Runs from the root of a checkout, on a machine with one CUDA card.  It:
    runner's first run, ``bf16_train_launches`` of the bfloat16 n and SSD
    runs, ``scale_out_launches`` of each scale-out path,
    ``kitti2d_launches`` of the card's ``kitti2d`` run,
+   ``kitti2d_jpeg_launches`` of its run on the JPEG tree,
    ``relative_decode_launches``, ``pillars_tools_launches``,
    ``quality_launches`` of each quality run and ``regen_launches`` of the
    regeneration's, and ``*_imgsz1408`` and ``*_quality`` for the kernels
@@ -447,18 +456,19 @@ def quality_tree(root, images, scenes, first_id=100):
 KITTI2D_SHAPES = ((375, 1242), (370, 1224), (376, 1241))
 
 
-def write_kitti2d_tree(root, samples):
+def write_kitti2d_tree(root, samples, ext=".png"):
     """A KITTI_Selection tree under ``root``: for each ``(name, image,
-    labels, calib)`` of ``samples``, ``images/<name>.png`` (a (H, W, 3)
-    uint8 array, written by ``utils.png.write_png_rgb``), and, unless None,
-    ``labels/<name>.txt`` (rows ``class x1 y1 x2 y2 distance``) and
-    ``calib/<name>.txt`` (a 3 x 3 or 3 x 4 camera matrix)."""
-    from lidar_object_detection_tpu_torch.utils.png import write_png_rgb
+    labels, calib)`` of ``samples``, ``images/<name><ext>`` (a (H, W, 3)
+    uint8 array, written as PNG or JPEG by ``utils.image.write_image_rgb``),
+    and, unless None, ``labels/<name>.txt`` (rows ``class x1 y1 x2 y2
+    distance``) and ``calib/<name>.txt`` (a 3 x 3 or 3 x 4 camera
+    matrix)."""
+    from lidar_object_detection_tpu_torch.utils.image import write_image_rgb
 
     for d in ("images", "labels", "calib"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     for name, image, labels, calib in samples:
-        write_png_rgb(os.path.join(root, "images", name + ".png"), image)
+        write_image_rgb(os.path.join(root, "images", name + ext), image)
         if labels is not None:
             with open(os.path.join(root, "labels", name + ".txt"), "w") as f:
                 f.writelines(f"{row[0]} " + " ".join(repr(float(v))
@@ -4208,13 +4218,13 @@ def totals_of(text):
     return tuple(int(v) for v in m.groups())
 
 
-def same_result_lines(card_dir, cpu_dir, n):
-    """The ``results_*.txt`` of a card and a CPU run: as many lines, and
-    equal lines wherever both truncated detection boxes agree.  Returns
-    the lines compared."""
+def same_result_lines(card_dir, cpu_dir, n, ext="png"):
+    """The ``results_*.<ext>.txt`` of a card and a CPU run: as many lines,
+    and equal lines wherever both truncated detection boxes agree.
+    Returns the lines compared."""
     compared = 0
     for i in range(n):
-        name = f"results_{i:06d}.png.txt"
+        name = f"results_{i:06d}.{ext}.txt"
         with open(os.path.join(card_dir, name)) as f:
             card_lines = f.read().splitlines()
         with open(os.path.join(cpu_dir, name)) as f:
@@ -4231,6 +4241,78 @@ def same_result_lines(card_dir, cpu_dir, n):
     return compared
 
 
+def kitti2d_cli_on_both(torch, root, out, n, ext):
+    """The CLI's ``kitti2d`` on the tree ``root`` of ``n`` ``.<ext>``
+    images, on the card into ``out["card"]`` and with ``--device cpu``
+    into ``out["cpu"]``.  K5 must launch once per image in the card run
+    and no other kernel, and TP / FP / FN must be equal on both devices.
+    Returns the card run's launches and a summary (totals, host seconds,
+    result lines compared)."""
+    from lidar_object_detection_tpu_torch.ops import kernel_lib
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launches()
+    t = time.perf_counter()
+    card_text = run_cli(["kitti2d", "--dataset", root, "--output",
+                         out["card"]])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = dict(kernel_lib.LAUNCHES)
+    expected = {k: n if k == "nms" else 0 for k in launches}
+    if launches != expected:
+        raise AssertionError(f"kitti2d on .{ext} launched {launches}, "
+                             f"expected {expected}")
+    t = time.perf_counter()
+    cpu_text = run_cli(["kitti2d", "--dataset", root, "--output", out["cpu"],
+                        "--device", "cpu"])
+    cpu_s = time.perf_counter() - t
+    if totals_of(card_text) != totals_of(cpu_text):
+        raise AssertionError(f"kitti2d on .{ext} TP/FP/FN: card "
+                             f"{totals_of(card_text)}, CPU "
+                             f"{totals_of(cpu_text)}")
+    return launches, {
+        "nms_launches_per_image": launches["nms"] / n,
+        "cli_card_host_s": card_s, "cli_cpu_host_s": cpu_s,
+        "totals_card": totals_of(card_text), "totals_cpu": totals_of(cpu_text),
+        "result_lines_compared": same_result_lines(out["card"], out["cpu"],
+                                                   n, ext)}
+
+
+def n_checkpoint_on_both(torch, dev, root, out, n, ext):
+    """``run_kitti2d_eval`` with a ``detect_fn`` on the n checkpoint on the
+    card (into ``out["api"]``) and the CPU (``out["api_cpu"]``) on the tree
+    ``root`` of ``n`` ``.<ext>`` images: it must match a car, give equal
+    totals on both devices and equal result lines, at least one compared,
+    and draw on every annotated image.  Returns (totals, lines compared)."""
+    from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
+        run_kitti2d_eval)
+    from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
+
+    api = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, dev),
+                           output_dir=out["api"], device=dev)
+    api_cpu = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, "cpu"),
+                               output_dir=out["api_cpu"], device="cpu")
+    totals = api.totals
+    if totals["tp"] == 0:
+        raise AssertionError(f"the n checkpoint matched no car on .{ext}: "
+                             f"{totals}")
+    if totals != api_cpu.totals:
+        raise AssertionError(f"n checkpoint totals on .{ext}: card {totals}"
+                             f", CPU {api_cpu.totals}")
+    compared = same_result_lines(out["api"], out["api_cpu"], n, ext)
+    if compared == 0:
+        raise AssertionError(f"n checkpoint on .{ext}: no result line of "
+                             "the card's agrees in its box with the CPU's")
+    for i in range(n):
+        name = f"{i:06d}.{ext}"
+        image = read_image_rgb(os.path.join(root, "images", name))
+        annotated = read_image_rgb(os.path.join(out["api"], name))
+        if annotated.shape != image.shape or np.array_equal(annotated,
+                                                            image):
+            raise AssertionError(f"annotated image {name} is not drawn")
+    return totals, compared
+
+
 def kitti2d_phase(torch, dev, smi, tmp):
     """The KITTI 2D evaluation: the CLI's ``kitti2d`` on the card (YOLO11x's
     detection head at full width, 224 x 640 after the letterbox, random
@@ -4245,36 +4327,13 @@ def kitti2d_phase(torch, dev, smi, tmp):
         YoloDetector)
     from lidar_object_detection_tpu_torch.models.yolo.model import (
         YoloConfig)
-    from lidar_object_detection_tpu_torch.ops import kernel_lib
-    from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
-        run_kitti2d_eval)
-    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
 
     t0 = time.perf_counter()
     root = os.path.join(tmp, "kitti2d")
     images = kitti2d_tree(torch, dev, root)
     out = {name: os.path.join(tmp, f"kitti2d_{name}")
            for name in ("card", "cpu", "api", "api_cpu")}
-
-    torch.cuda.synchronize()
-    kernel_lib.reset_launches()
-    t1 = time.perf_counter()
-    card_text = run_cli(["kitti2d", "--dataset", root, "--output",
-                         out["card"]])
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t1
-    launches = dict(kernel_lib.LAUNCHES)
-    expected = {k: len(images) if k == "nms" else 0 for k in launches}
-    if launches != expected:
-        raise AssertionError(f"kitti2d launched {launches}, expected "
-                             f"{expected}")
-    t1 = time.perf_counter()
-    cpu_text = run_cli(["kitti2d", "--dataset", root, "--output", out["cpu"],
-                        "--device", "cpu"])
-    cpu_s = time.perf_counter() - t1
-    if totals_of(card_text) != totals_of(cpu_text):
-        raise AssertionError(f"kitti2d TP/FP/FN: card {totals_of(card_text)}"
-                             f", CPU {totals_of(cpu_text)}")
+    launches, cli = kitti2d_cli_on_both(torch, root, out, len(images), "png")
 
     # the default detector on both devices, and its times on the card
     box_err, forward_ms, decode_ms = 0.0, [], []
@@ -4295,37 +4354,141 @@ def kitti2d_phase(torch, dev, smi, tmp):
         del dets
     if box_err > KITTI2D_BOX_TOL:
         raise AssertionError(f"kitti2d boxes: card vs CPU {box_err} px")
-    compared = same_result_lines(out["card"], out["cpu"], len(images))
-
-    api = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, dev),
-                           output_dir=out["api"], device=dev)
-    api_cpu = run_kitti2d_eval(root, detect_fn=n_detect_fn(torch, "cpu"),
-                               output_dir=out["api_cpu"], device="cpu")
-    totals = api.totals
-    if totals["tp"] == 0:
-        raise AssertionError(f"the n checkpoint matched no car: {totals}")
-    if totals != api_cpu.totals:
-        raise AssertionError(f"n checkpoint totals: card {totals}, CPU "
-                             f"{api_cpu.totals}")
-    compared_api = same_result_lines(out["api"], out["api_cpu"],
-                                     len(images))
-    for i, image in enumerate(images):
-        annotated = read_png_rgb(os.path.join(out["api"], f"{i:06d}.png"))
-        if annotated.shape != image.shape or np.array_equal(annotated,
-                                                            image):
-            raise AssertionError(f"annotated image {i} is not drawn")
+    totals, compared_api = n_checkpoint_on_both(torch, dev, root, out,
+                                                len(images), "png")
     summary = {
         "images": len(images), "shapes": [list(s) for s in KITTI2D_SHAPES],
-        "letterbox": [224, 640],
-        "nms_launches_per_image": launches["nms"] / len(images),
+        "letterbox": [224, 640], **cli,
         "forward_ms": forward_ms, "decode_ms": decode_ms,
-        "cli_card_host_s": card_s, "cli_cpu_host_s": cpu_s,
-        "totals_card": totals_of(card_text), "totals_cpu": totals_of(cpu_text),
-        "box_err_card_vs_cpu": box_err, "result_lines_compared": compared,
+        "box_err_card_vs_cpu": box_err,
         "api_n_checkpoint_totals": totals,
         "api_result_lines_compared": compared_api, "card": smi}
     print(json.dumps({"kitti2d": summary}), flush=True)
     phase("KITTI 2D evaluation", t0)
+    return launches
+
+
+JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "jpeg")
+JPEG_TIMING_REPS = 20
+JPEG_PHASE_LIMIT_S = 60.0
+
+
+def sha256_hex(data):
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def host_ms(fn, reps=JPEG_TIMING_REPS):
+    """Median host milliseconds of ``fn()`` over ``reps`` calls, after
+    one call to warm up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def jpeg_phase(torch, dev, smi, tmp):
+    """JPEG images through the port's own codec (``utils/jpeg.py``, host
+    C++ of ``csrc/jpeg_codec.cpp`` built with g++, and its numpy twin).
+
+    The committed fixtures (``tests/fixtures/jpeg``, written by Pillow
+    from crops of the committed frame: baseline 4:2:0 at 375 x 1242,
+    progressive, 4:4:4 with restart markers, grey) decode on both backends
+    to the SHA-256 of Pillow's pixels recorded beside them, and the
+    encoder writes the recorded hash of Pillow's ``save`` bytes of a crop.
+    Then ``kitti2d_phase``'s tree (under ``tmp``) is written again with
+    its images as JPEG by the port's encoder and goes through the same
+    checks as the PNG tree: the CLI's ``kitti2d`` on the card and with
+    ``--device cpu`` (K5 once per image and no other kernel, TP / FP / FN
+    equal, the ``results_*.jpg.txt`` lines equal where both truncations
+    agree, the annotated ``.jpg`` files JPEGs that decode), then the n
+    checkpoint on both devices (a car matched, equal totals, at least one
+    result line compared and equal, every annotated image drawn).
+    Prints the codec's host milliseconds for one 375 x 1242 image beside
+    the card's name and power limit.  Returns the card CLI run's
+    launches."""
+    from lidar_object_detection_tpu_torch.utils import jpeg
+    from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
+    from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+
+    t0 = time.perf_counter()
+    jpeg.build()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
+        record = json.load(f)
+    twin_ms = {}
+    for name, entry in sorted(record["fixtures"].items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        for backend in jpeg.BACKENDS:
+            t1 = time.perf_counter()
+            pixels = jpeg.read_jpeg_rgb(path, backend=backend)
+            if backend == "numpy":
+                twin_ms[name] = (time.perf_counter() - t1) * 1e3
+            if (list(pixels.shape) != entry["shape"]
+                    or sha256_hex(pixels.tobytes())
+                    != entry["pixels_sha256"]):
+                raise AssertionError(f"{name}: the {backend} decode is not "
+                                     "Pillow's pixels")
+    frame = read_png_rgb(os.path.join(REPO, record["frame"]))
+    y0, y1, x0, x1 = record["encode"]["crop"]
+    crop = np.ascontiguousarray(frame[y0:y1, x0:x1])
+    for backend in jpeg.BACKENDS:
+        if sha256_hex(jpeg.encode_jpeg_rgb(crop, backend=backend)) != \
+                record["encode"]["sha256"]:
+            raise AssertionError(f"the {backend} encoder does not write "
+                                 "Pillow's bytes")
+    with open(os.path.join(JPEG_FIXTURES, "baseline_420_375x1242.jpg"),
+              "rb") as f:
+        data = f.read()
+    image = np.ascontiguousarray(frame[:375, :1242])
+    decode_ms = host_ms(lambda: jpeg.read_jpeg_rgb(data))
+    encode_ms = host_ms(lambda: jpeg.encode_jpeg_rgb(image))
+    phase("JPEG: codec against the fixtures", t0)
+
+    src, root = os.path.join(tmp, "kitti2d"), os.path.join(tmp, "kitti2d_jpg")
+    for d in ("labels", "calib"):
+        shutil.copytree(os.path.join(src, d), os.path.join(root, d))
+    os.makedirs(os.path.join(root, "images"))
+    stems = sorted(os.path.splitext(f)[0]
+                   for f in os.listdir(os.path.join(src, "images")))
+    shapes = []
+    for stem in stems:
+        pixels = read_png_rgb(os.path.join(src, "images", stem + ".png"))
+        shapes.append(pixels.shape)
+        jpeg.write_jpeg_rgb(os.path.join(root, "images", stem + ".jpg"),
+                            pixels)
+    out = {d: os.path.join(tmp, f"kitti2d_jpg_{d}")
+           for d in ("card", "cpu", "api", "api_cpu")}
+    launches, cli = kitti2d_cli_on_both(torch, root, out, len(stems), "jpg")
+    totals, compared_api = n_checkpoint_on_both(torch, dev, root, out,
+                                                len(stems), "jpg")
+    for stem, shape in zip(stems, shapes):
+        path = os.path.join(out["card"], stem + ".jpg")
+        with open(path, "rb") as f:
+            if f.read(3) != jpeg.SIGNATURE:
+                raise AssertionError(f"{path} is not a JPEG")
+        if read_image_rgb(path).shape != shape:
+            raise AssertionError(f"{path}: not a {shape} image")
+    seconds = time.perf_counter() - t0
+    summary = {
+        "fixtures": {name: entry["shape"]
+                     for name, entry in sorted(record["fixtures"].items())},
+        "codec_build_s": build_s,
+        "decode_ms_375x1242": decode_ms, "encode_ms_375x1242": encode_ms,
+        "timing_reps": JPEG_TIMING_REPS, "twin_decode_ms": twin_ms,
+        "kitti2d_images": len(stems), **cli,
+        "api_n_checkpoint_totals": totals,
+        "api_result_lines_compared": compared_api, "phase_s": seconds,
+        "card": smi}
+    print(json.dumps({"jpeg": summary}), flush=True)
+    if seconds > JPEG_PHASE_LIMIT_S:
+        raise AssertionError(f"the JPEG phase took {seconds:.1f} s, over "
+                             f"{JPEG_PHASE_LIMIT_S} s")
+    phase("JPEG", t0)
     return launches
 
 
@@ -6136,6 +6299,7 @@ def main() -> int:
     del serving_det, pp_batch
     with tempfile.TemporaryDirectory() as tmp:
         k2d_launches = kitti2d_phase(torch, dev, smi, tmp)
+        jpeg_launches = jpeg_phase(torch, dev, smi, tmp)
     peak_launches, peak = decode_modes_phase(torch, dev, smi, rng)
     with tempfile.TemporaryDirectory() as tmp:
         tools_launches, rotated_m128, long_k1, _ = pillars_tools_phase(
@@ -6178,6 +6342,7 @@ def main() -> int:
         k["pointpillars_launches"] = {run: n[k["name"]]
                                       for run, n in pp_launches.items()}
         k["kitti2d_launches"] = k2d_launches[k["name"]]
+        k["kitti2d_jpeg_launches"] = jpeg_launches[k["name"]]
         k["relative_decode_launches"] = peak_launches[k["name"]]
         k["pointpillars_train_launches"] = {
             run: n[k["name"]] for run, n in train_launches.items()}

@@ -7,11 +7,9 @@ own copy.  Directory layout (KITTI_Selection): ``images/*.png``,
 ``calib/<name>.txt`` holding the intrinsic matrix (``np.loadtxt``
 parseable; only fx, fy, cx, cy are used).
 
-:meth:`Kitti2DDataset.read_image` decodes PNG images with the standard
-library (``utils/png.py``), where the JAX package uses PIL.  ``.jpg``
-images are listed, as the JAX package lists them, but the port has no JPEG
-decoder (the card's machine promises neither PIL nor torchvision), so
-reading one raises.
+:meth:`Kitti2DDataset.read_image` decodes ``.png`` and ``.jpg`` images
+with the port's own codecs (``utils/image.py``: PNG or JPEG by the file's
+signature), to the pixels the JAX package's PIL call gives.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
 
 
 @dataclasses.dataclass
@@ -81,10 +79,5 @@ class Kitti2DDataset:
 
     @staticmethod
     def read_image(sample: Kitti2DSample) -> np.ndarray:
-        """(H, W, 3) uint8 RGB of the sample's PNG image."""
-        if sample.image_path.endswith(".jpg"):
-            raise NotImplementedError(
-                f"{sample.image_path}: the port has no JPEG decoder (the "
-                "card's machine promises neither PIL nor torchvision); "
-                "convert the image to PNG")
-        return read_png_rgb(sample.image_path)
+        """(H, W, 3) uint8 RGB of the sample's image, PNG or JPEG."""
+        return read_image_rgb(sample.image_path)

@@ -10,8 +10,8 @@ V1:347-348); here every frame is padded to the static shapes of
 :class:`~lidar_object_detection_tpu_torch.config.ShapeConfig` with validity
 masks.
 
-Images decode through :mod:`..utils.png` (standard library), where the JAX
-package uses PIL.  The streaming path reads scans through the threaded
+Images decode through :mod:`..utils.image` (PNG or JPEG by the file's
+signature, with the port's own codecs), where the JAX package uses PIL.  The streaming path reads scans through the threaded
 native prefetcher of :mod:`..data.native` and only the boxes through
 :meth:`Kitti360Dataset.load_boxes`.
 """
@@ -29,7 +29,7 @@ import numpy as np
 
 from lidar_object_detection_tpu_torch.config import ShapeConfig
 from lidar_object_detection_tpu_torch.data import calib as calib_lib
-from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
+from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
 
 
 def sequence_name(seq: int) -> str:
@@ -246,7 +246,7 @@ class Kitti360Dataset:
         """One image as (h, w, 3) uint8, through the raw cache when set."""
         s = self.shapes
         if not self.image_cache_dir:
-            return read_png_rgb(path)
+            return read_image_rgb(path)
         # basenames repeat across sequences and cameras, and the blob is
         # shaped by ShapeConfig: the key holds the full path and the shape
         digest = hashlib.sha1(os.path.abspath(path).encode()).hexdigest()[:16]
@@ -257,7 +257,7 @@ class Kitti360Dataset:
         if os.path.exists(raw):
             return np.fromfile(raw, np.uint8).reshape(
                 s.image_height, s.image_width, 3)
-        img = read_png_rgb(path)
+        img = read_image_rgb(path)
         os.makedirs(self.image_cache_dir, exist_ok=True)
         full = np.zeros((s.image_height, s.image_width, 3), np.uint8)
         h = min(img.shape[0], s.image_height)

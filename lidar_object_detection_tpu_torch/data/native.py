@@ -9,9 +9,8 @@ and padded to a fixed shape, the same with the camera-frustum cull
 The library is built from the port's own copy of the source on first use,
 with ``g++ -O3 -std=c++17 -fPIC -shared -pthread``, into
 ``csrc/build/<hash>/liblidar_loader.so``, keyed by a hash of the source and
-the flags.  The compiler writes a temporary file that is then moved into
-place, so processes that build at once do not see each other's half-written
-library.  Nothing builds at import time.
+the flags (``utils/native_build.py``, which the JPEG codec shares).
+Nothing builds at import time.
 
 There is no quiet fallback: a failed build or load raises and carries the
 compiler's output.  The NumPy code is the plain twin of the native code and
@@ -22,22 +21,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
+from lidar_object_detection_tpu_torch.utils import native_build
+
+CSRC = native_build.CSRC
 SOURCE = CSRC / "lidar_loader.cpp"
-BUILD_ROOT = CSRC / "build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
-             "-pthread")
+BUILD_ROOT = native_build.BUILD_ROOT
+CXX_FLAGS = native_build.CXX_FLAGS
 BACKENDS = ("native", "numpy")
 
 
@@ -123,43 +119,16 @@ SIGNATURES = {
 }
 
 
-def _compiler() -> str:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native scan loader is built "
-                           f"from {SOURCE} with the host's C++ compiler")
-    return cxx
-
-
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:16]
+    return native_build.source_hash(SOURCE, CXX_FLAGS)
 
 
 def build() -> Path:
     """Compile the library unless its hash has a build; returns its path.
     Raises with the compiler's output when the build fails."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib_path = out_dir / "liblidar_loader.so"
-    if lib_path.exists():
-        return lib_path
-    cxx = _compiler()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", tmp],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building the native scan loader failed ({cxx} exited "
-                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
+    return native_build.build(SOURCE, "liblidar_loader.so",
+                              "the native scan loader", BUILD_ROOT,
+                              CXX_FLAGS)
 
 
 def library() -> ctypes.CDLL:
@@ -167,12 +136,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = list(argtypes)
-            _lib = lib
+            _lib = native_build.load(build(), SIGNATURES)
         return _lib
 
 

@@ -10,7 +10,8 @@ The default detector is YOLO11x with the detection-only head
 (``YoloConfig(segment=False)``) on ``device`` (``cuda`` unless the caller
 asks for the CPU): one detector per image shape, random weights from seed
 0, as the JAX package's.  Its decode is kernel K5 on the card, one launch
-per image.  Annotated images are written as PNG with the port's writer.
+per image.  Annotated images are written in their input's format (PNG or
+JPEG, by the extension, as PIL's ``save``) with the port's writers.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def run_kitti2d_eval(root: str,
       device: where the default detector runs (``cuda`` raises without a
         card).
     """
-    from lidar_object_detection_tpu_torch.utils.png import write_png_rgb
+    from lidar_object_detection_tpu_torch.utils.image import write_image_rgb
 
     ds = Kitti2DDataset(root)
     if detect_fn is None:
@@ -119,7 +120,7 @@ def run_kitti2d_eval(root: str,
                     annotate_kitti2d_image)
                 annotated = annotate_kitti2d_image(
                     image, ev.matches, ev.precision, ev.recall)
-                write_png_rgb(os.path.join(
+                write_image_rgb(os.path.join(
                     output_dir, os.path.basename(sample.image_path)),
                     annotated)
     return Kitti2DRunResult(evaluations=evaluations)

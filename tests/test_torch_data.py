@@ -1,6 +1,7 @@
 """The port's KITTI-360 loading against the JAX package's, on a synthetic
 KITTI-360 tree written into a temporary directory: calibration matrices,
-skip rules, ``FrameBatch`` arrays, decoded images and the stub detector.
+skip rules, ``FrameBatch`` arrays, decoded images (PNG, and JPEG under a
+``.png`` name, which PIL opens by content) and the stub detector.
 Also ``utils/png.py`` against PIL, on the committed camera frames and on
 small PNGs of every row filter, colour type, bit depth and Adam7.
 
@@ -154,6 +155,31 @@ def test_image_cache_serves_the_same_pixels(tree, tmp_path):
     np.testing.assert_array_equal(cached.load_images(batch), want)
     assert len(list((tmp_path / "cache").iterdir())) == len(KEPT)
     np.testing.assert_array_equal(cached.load_images(batch), want)
+
+
+def test_jpeg_frames_load_as_jax(tree, tmp_path):
+    """A frame whose ``.png`` holds a JPEG (PIL opens by content) decodes
+    to the JAX loader's pixels, directly and through the image cache."""
+    import shutil
+
+    root = str(tmp_path / "tree")
+    shutil.copytree(tree, root)
+    ds = Kitti360Dataset(root, shapes=ShapeConfig(**SHAPES))
+    jds = JDataset(root, shapes=JShapeConfig(**SHAPES))
+    for fid, options in ((3, {}), (5, {"progressive": True}),
+                         (8, {"subsampling": "4:4:4", "quality": 90})):
+        path = ds.image_path(fid)
+        Image.open(path).convert("RGB").save(path, format="JPEG", **options)
+    batch = ds.make_batch(ds.load_frames())
+    want = jds.load_images(jds.make_batch(jds.load_frames()))
+    png = Kitti360Dataset(tree, shapes=ShapeConfig(**SHAPES))
+    assert not np.array_equal(                                # lossy
+        want, png.load_images(png.make_batch(png.load_frames())))
+    np.testing.assert_array_equal(ds.load_images(batch), want)
+    cached = Kitti360Dataset(root, shapes=ShapeConfig(**SHAPES),
+                             image_cache_dir=str(tmp_path / "cache"))
+    for _ in range(2):
+        np.testing.assert_array_equal(cached.load_images(batch), want)
 
 
 def test_stub_detector_matches_jax(tree, tmp_path):

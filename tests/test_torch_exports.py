@@ -1,11 +1,11 @@
 """The port's export paths against the JAX package's, on the CPU: the
 per-point mask gather, the depth-map scatter and the runner's depth maps,
 the depth-map figure's panels, the V2 analysis cloud, the PLY writers,
-the colour tables and overlays, the segmentation-overlay directory, and
-the CLI (``run`` of every version with ``--export-ply`` and
-``--analysis-cloud``, and ``depth-maps``), on the synthetic KITTI-360
-tree of ``test_torch_matching.py`` (64 x 192 images, D = 8, G = 48, P =
-4096) written into a temporary directory.
+the colour tables and overlays, the segmentation-overlay directory (of
+PNG and of JPEG images), and the CLI (``run`` of every version with
+``--export-ply`` and ``--analysis-cloud``, and ``depth-maps``), on the
+synthetic KITTI-360 tree of ``test_torch_matching.py`` (64 x 192 images,
+D = 8, G = 48, P = 4096) written into a temporary directory.
 
 Tolerances: none for words, depth maps, analysis-cloud points and
 colours, PLY bytes and file names (bit-equal); 1e-5 m for the scene PLY's
@@ -46,6 +46,7 @@ from lidar_object_detection_tpu_torch.data import Kitti360Dataset
 from lidar_object_detection_tpu_torch.ops import masks
 from lidar_object_detection_tpu_torch.ops.scatter import scatter_depth_maps
 from lidar_object_detection_tpu_torch.pipelines import cli, overlay, runner
+from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
 from lidar_object_detection_tpu_torch.utils.png import (read_png_rgb,
                                                         write_png_rgb)
 from lidar_object_detection_tpu_torch.viz import export
@@ -305,25 +306,38 @@ class _FixedDetector:
         return self.out
 
 
-def test_segment_overlay_dir_matches_jax(tmp_path):
+@pytest.mark.parametrize("pattern", ("*.png", "*.jpg"))
+def test_segment_overlay_dir_matches_jax(tmp_path, pattern):
+    """Overlays of PNG sources equal the JAX package's pixels (PIL writes
+    other PNG bytes); of JPEG sources, the JAX package's JPEG bytes."""
     from PIL import Image
 
     rng = np.random.default_rng(7)
+    ext = pattern[1:]
     src = tmp_path / "images"
     src.mkdir()
-    for name in ("b.png", "a.png"):
-        write_png_rgb(str(src / name),
-                      rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    names = ("a" + ext, "b" + ext)
+    for name in names[::-1]:
+        pixels = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        if ext == ".png":
+            write_png_rgb(str(src / name), pixels)
+        else:
+            Image.fromarray(pixels).save(src / name)
+    (src / ("c" + (".jpg" if ext == ".png" else ".png"))).write_bytes(b"")
     n = overlay.segment_overlay_dir(str(src), str(tmp_path / "t"),
-                                    _FixedDetector(np.int32))
+                                    _FixedDetector(np.int32), pattern)
     jn = joverlay.segment_overlay_dir(str(src), str(tmp_path / "j"),
-                                      _FixedDetector(np.uint32))
+                                      _FixedDetector(np.uint32), pattern)
     assert n == jn == 2
-    for name in ("a.png", "b.png"):
-        got = read_png_rgb(str(tmp_path / "t" / name))
+    assert sorted(os.listdir(tmp_path / "t")) == list(names)
+    for name in names:
+        got = read_image_rgb(tmp_path / "t" / name)
         np.testing.assert_array_equal(
             got, np.asarray(Image.open(tmp_path / "j" / name).convert("RGB")))
-        assert not np.array_equal(got, read_png_rgb(str(src / name)))
+        assert not np.array_equal(got, read_image_rgb(src / name))
+        if ext == ".jpg":
+            assert _read(tmp_path / "t" / name) == \
+                _read(tmp_path / "j" / name)
 
 
 # ---------------------------------------------------------------------------

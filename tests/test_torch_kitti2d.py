@@ -10,13 +10,20 @@
 * ``evaluate_image`` with its first-match quirk (one GT counted by two
   detections; a detection over two GTs takes the first), and
   ``result_lines`` equal as strings.
-* ``run_kitti2d_eval`` with one stub ``detect_fn`` through both packages:
-  ``results_*.txt`` byte-equal, totals equal, annotated images equal
-  outside the union of the two packages' label rectangles (the JAX
+* ``run_kitti2d_eval`` with one stub ``detect_fn`` through both packages,
+  on a tree of PNG images and on the same tree as JPEG:
+  ``results_*.<ext>.txt`` byte-equal, totals equal, annotated images
+  equal outside the union of the two packages' label rectangles (the JAX
   package draws its text with PIL's font, the port with its own bitmap
-  font, so only the text and the rectangles' sizes differ).
-* The CLI's ``kitti2d --device cpu`` on a two-image tree, and the error a
-  ``.jpg`` image raises (the port has no JPEG decoder).
+  font, so only the text and the rectangles' sizes differ).  A JPEG's
+  difference reaches every pixel of the 16 x 16 MCUs the rectangles
+  touch and, through the chroma's triangle upsampling, one pixel past
+  them, so there the rectangles are widened that far; and each annotated
+  ``.jpg`` is byte-equal to Pillow's ``save`` of the port's annotated
+  pixels.
+* The CLI's ``kitti2d --device cpu`` on a two-image tree, and a tree that
+  mixes ``.png`` and ``.jpg`` images, listed and read as the JAX package
+  lists and reads them.
 """
 
 import os
@@ -37,6 +44,7 @@ from lidar_object_detection_tpu_torch.eval import kitti2d as teval
 from lidar_object_detection_tpu_torch.pipelines import cli
 from lidar_object_detection_tpu_torch.pipelines.kitti2d import (
     run_kitti2d_eval)
+from lidar_object_detection_tpu_torch.utils.image import read_image_rgb
 from lidar_object_detection_tpu_torch.utils.png import read_png_rgb
 from lidar_object_detection_tpu_torch.viz import overlay
 
@@ -57,9 +65,10 @@ def _labels(rng, h, w, n):
 
 
 @pytest.fixture(scope="module")
-def tree(tmp_path_factory):
+def trees(tmp_path_factory):
     """Three images of KITTI-like shapes (scaled down), cut from the
-    committed frame; labels; a 3 x 3, a 3 x 4 and no calib file."""
+    committed frame; labels; a 3 x 3, a 3 x 4 and no calib file: one tree
+    of PNG images and one of the same images as JPEG."""
     rng = np.random.default_rng(3)
     frame = read_png_rgb(chip_smoke.FRAMES[0])
     samples = []
@@ -68,9 +77,16 @@ def tree(tmp_path_factory):
                                            300 + 40 * i + w])
         samples.append((f"{i:06d}", image, _labels(rng, h, w, 3 + i),
                         calib))
-    root = str(tmp_path_factory.mktemp("kitti2d"))
-    chip_smoke.write_kitti2d_tree(root, samples)
-    return root
+    roots = {}
+    for ext in ("png", "jpg"):
+        roots[ext] = str(tmp_path_factory.mktemp(f"kitti2d_{ext}"))
+        chip_smoke.write_kitti2d_tree(roots[ext], samples, "." + ext)
+    return roots
+
+
+@pytest.fixture(scope="module")
+def tree(trees):
+    return trees["png"]
 
 
 def _stub_detect(tree):
@@ -195,7 +211,20 @@ def _jax_label_rects(matches, precision, recall, shape):
     return rects
 
 
-def test_run_matches_jax_with_one_detector(tree, tmp_path):
+def _mcu_widened(rect, shape, mcu=16):
+    """A rectangle grown out to the MCU edges it touches, and one pixel
+    past them (the chroma upsampling's reach)."""
+    y0, y1, x0, x1 = rect
+    h, w = shape[:2]
+    return (max(y0 // mcu * mcu - 1, 0), min(-(-y1 // mcu) * mcu + 1, h),
+            max(x0 // mcu * mcu - 1, 0), min(-(-x1 // mcu) * mcu + 1, w))
+
+
+@pytest.mark.parametrize("ext", ("png", "jpg"))
+def test_run_matches_jax_with_one_detector(trees, tmp_path, ext):
+    from PIL import Image
+
+    tree = trees[ext]
     jout, tout = str(tmp_path / "j"), str(tmp_path / "t")
     ref = jrun(tree, detect_fn=_stub_detect(tree), output_dir=jout)
     got = run_kitti2d_eval(tree, detect_fn=_stub_detect(tree),
@@ -205,7 +234,7 @@ def test_run_matches_jax_with_one_detector(tree, tmp_path):
     names = sorted(os.listdir(jout))
     assert names == sorted(os.listdir(tout))
     assert [n for n in names if n.endswith(".txt")] == [
-        f"results_{i:06d}.png.txt" for i in range(3)]
+        f"results_{i:06d}.{ext}.txt" for i in range(3)]
     for name in names:
         if name.endswith(".txt"):
             with open(os.path.join(jout, name), "rb") as f:
@@ -213,20 +242,28 @@ def test_run_matches_jax_with_one_detector(tree, tmp_path):
             with open(os.path.join(tout, name), "rb") as f:
                 assert f.read() == jtext
             continue
-        a = read_png_rgb(os.path.join(tout, name))
-        b = read_png_rgb(os.path.join(jout, name))
+        assert name.endswith("." + ext)
+        a = read_image_rgb(os.path.join(tout, name))
+        b = read_image_rgb(os.path.join(jout, name))
         ev = got.evaluations[os.path.splitext(name)[0]]
+        source = read_image_rgb(os.path.join(tree, "images", name))
+        rects = [overlay.label_rect(text, pos, a.shape) for text, pos, *_
+                 in overlay.kitti2d_labels(ev.matches, ev.precision,
+                                           ev.recall, a.shape)]
+        rects += _jax_label_rects(ev.matches, ev.precision, ev.recall,
+                                  a.shape)
+        if ext == "jpg":
+            rects = [_mcu_widened(r, a.shape) for r in rects]
+            annotated = overlay.annotate_kitti2d_image(
+                source, ev.matches, ev.precision, ev.recall)
+            pil_path = tmp_path / ("pil_" + name)
+            Image.fromarray(annotated).save(pil_path)
+            with open(os.path.join(tout, name), "rb") as f:
+                assert f.read() == pil_path.read_bytes()
         outside = np.ones(a.shape[:2], bool)
-        labels = overlay.kitti2d_labels(ev.matches, ev.precision, ev.recall,
-                                        a.shape)
-        for text, pos, *_ in labels:
-            y0, y1, x0, x1 = overlay.label_rect(text, pos, a.shape)
-            outside[y0:y1, x0:x1] = False
-        for y0, y1, x0, x1 in _jax_label_rects(ev.matches, ev.precision,
-                                               ev.recall, a.shape):
+        for y0, y1, x0, x1 in rects:
             outside[y0:y1, x0:x1] = False
         np.testing.assert_array_equal(a[outside], b[outside])
-        source = read_png_rgb(os.path.join(tree, "images", name))
         assert (a != source).any()
         assert outside.mean() > 0.3
 
@@ -276,15 +313,36 @@ def test_cli_kitti2d_on_cpu(tmp_path, capsys):
             cli.main(["kitti2d", "--dataset", root, "--output", out])
 
 
-def test_jpg_is_listed_and_refused(tmp_path):
-    root = str(tmp_path)
-    image = np.zeros((8, 8, 3), np.uint8)
-    chip_smoke.write_kitti2d_tree(root, [("000000", image, None, None)])
-    with open(os.path.join(root, "images", "000001.jpg"), "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0")
+def test_jpg_is_listed_and_read(tmp_path):
+    """A tree mixing ``.png`` and ``.jpg`` images: listed as the JAX
+    package lists them, the JPEG read to PIL's pixels, and both packages'
+    runs writing the same result files under the same names."""
+    from PIL import Image
+
+    root = str(tmp_path / "tree")
+    frame = read_png_rgb(chip_smoke.FRAMES[0])
+    chip_smoke.write_kitti2d_tree(root, [
+        ("000000", np.ascontiguousarray(frame[100:140, 200:260]), None,
+         None)])
+    jpg = os.path.join(root, "images", "000001.jpg")
+    Image.fromarray(np.ascontiguousarray(frame[60:117, 500:571])).save(
+        jpg, quality=90)
     ds = Kitti2DDataset(root)
     assert ds.sample_names() == JDataset(root).sample_names() == [
         "000000", "000001"]
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
-        run_kitti2d_eval(root, detect_fn=lambda im: np.zeros((0, 4)),
-                         device="cpu")
+    np.testing.assert_array_equal(
+        ds.read_image(ds.load("000001")),
+        np.asarray(Image.open(jpg).convert("RGB")))
+    outs = {}
+    for key, run, kw in (("t", run_kitti2d_eval, {"device": "cpu"}),
+                         ("j", jrun, {})):
+        outs[key] = str(tmp_path / key)
+        run(root, detect_fn=lambda im: np.array([[1, 1, 20, 12]]),
+            output_dir=outs[key], write_images=False, **kw)
+    names = sorted(os.listdir(outs["t"]))
+    assert names == sorted(os.listdir(outs["j"])) == [
+        "results_000000.png.txt", "results_000001.jpg.txt"]
+    for name in names:
+        with open(os.path.join(outs["t"], name), "rb") as f, \
+                open(os.path.join(outs["j"], name), "rb") as g:
+            assert f.read() == g.read()
