@@ -44,6 +44,7 @@ from lidar_object_detection_tpu_torch.ops.hungarian import hungarian
 from lidar_object_detection_tpu_torch.ops.inside_counts import (
     inside_counts, inside_counts_plain)
 from lidar_object_detection_tpu_torch.ops.lap import lap
+from lidar_object_detection_tpu_torch.utils import profiling
 
 
 def fuse_frame(points, point_valid, mask_bits, det_valid, corners_cam0,
@@ -80,58 +81,59 @@ def fuse_batch(batch_points, batch_point_valid, batch_mask_bits,
     p = params
     points = batch_points
     dtype = points.dtype
-    intrinsics = intrinsics.to(dtype)
-
-    u, v, depth = proj_lib.project_velo_points(
-        points, velo_to_rect.to(dtype), intrinsics)
-    valid = proj_lib.point_validity(
-        u, v, depth, p.width, p.height, p.depth_min, p.depth_max,
-        batch_point_valid)
-
-    corners_cam0, box_valid = batch_corners, batch_box_valid
-    if not p.bbox_filter:
-        vis = box_valid
-    elif p.bbox_filter_mode == "rich":
-        vis, _ = boxes_lib.corners_visibility_rich(
-            corners_cam0, intrinsics, p.width, p.height,
-            min_corners_in_view=p.bbox_rich_min_corners_in_view,
-            depth_range=(p.bbox_corner_depth_min, p.bbox_rich_depth_max),
-            min_projected_area=p.bbox_rich_min_area, box_mask=box_valid)
-    else:
-        vis = boxes_lib.corners_visibility(
-            corners_cam0, intrinsics, p.width, p.height,
-            min_corners=p.bbox_min_visible_corners,
-            depth_min=p.bbox_corner_depth_min, box_mask=box_valid)
-    corners_velo = boxes_lib.transform_corners(
-        corners_cam0, cam_to_velo.to(dtype))
-
-    mask_bits = batch_mask_bits
-    if p.erosion_enabled:
-        mask_bits = erosion_lib.erode_packed(
-            mask_bits, p.erosion_kernel_size, p.erosion_iterations)
-
-    det_valid = batch_det_valid
-    det_word = masks_lib.detection_word(det_valid)                 # (B,)
-    point_bits = masks_lib.gather_point_bits(mask_bits, u, v, valid)
-    point_bits = point_bits & det_word[:, None]
-
-    if p.count_impl == "auto":
-        counts, total = inside_counts(points[..., :3], point_bits,
-                                      corners_velo, vis, p.num_detections,
-                                      p.count_chunk)
-    elif p.count_impl == "plain":
-        counts, total = inside_counts_plain(
-            points[..., :3], point_bits, corners_velo, vis,
-            p.num_detections, p.count_chunk)
-    else:
+    device = points.device
+    if p.count_impl not in ("auto", "plain"):
         raise ValueError(f"count_impl must be 'auto' or 'plain', got "
                          f"{p.count_impl!r}")
 
-    best_count = counts.amax(dim=-1)
-    best_idx = counts.argmax(dim=-1).to(torch.int32)
-    matched = (best_count >= p.min_points) & (best_count > 0) & det_valid
-    best_box = torch.where(matched, best_idx, -1)
-    inside_ct = torch.where(matched, best_count, 0)
+    with profiling.span("fuse.project", device):
+        intrinsics = intrinsics.to(dtype)
+        u, v, depth = proj_lib.project_velo_points(
+            points, velo_to_rect.to(dtype), intrinsics)
+        valid = proj_lib.point_validity(
+            u, v, depth, p.width, p.height, p.depth_min, p.depth_max,
+            batch_point_valid)
+
+        corners_cam0, box_valid = batch_corners, batch_box_valid
+        if not p.bbox_filter:
+            vis = box_valid
+        elif p.bbox_filter_mode == "rich":
+            vis, _ = boxes_lib.corners_visibility_rich(
+                corners_cam0, intrinsics, p.width, p.height,
+                min_corners_in_view=p.bbox_rich_min_corners_in_view,
+                depth_range=(p.bbox_corner_depth_min, p.bbox_rich_depth_max),
+                min_projected_area=p.bbox_rich_min_area, box_mask=box_valid)
+        else:
+            vis = boxes_lib.corners_visibility(
+                corners_cam0, intrinsics, p.width, p.height,
+                min_corners=p.bbox_min_visible_corners,
+                depth_min=p.bbox_corner_depth_min, box_mask=box_valid)
+        corners_velo = boxes_lib.transform_corners(
+            corners_cam0, cam_to_velo.to(dtype))
+
+    mask_bits = batch_mask_bits
+    if p.erosion_enabled:
+        with profiling.span("fuse.erode", device):
+            mask_bits = erosion_lib.erode_packed(
+                mask_bits, p.erosion_kernel_size, p.erosion_iterations)
+
+    det_valid = batch_det_valid
+    with profiling.span("fuse.gather", device):
+        det_word = masks_lib.detection_word(det_valid)             # (B,)
+        point_bits = masks_lib.gather_point_bits(mask_bits, u, v, valid)
+        point_bits = point_bits & det_word[:, None]
+
+    with profiling.span("fuse.count", device):
+        count = inside_counts if p.count_impl == "auto" else \
+            inside_counts_plain
+        counts, total = count(points[..., :3], point_bits, corners_velo,
+                              vis, p.num_detections, p.count_chunk)
+        best_count = counts.amax(dim=-1)
+        best_idx = counts.argmax(dim=-1).to(torch.int32)
+        matched = (best_count >= p.min_points) & (best_count > 0) & \
+            det_valid
+        best_box = torch.where(matched, best_idx, -1)
+        inside_ct = torch.where(matched, best_count, 0)
 
     return {
         "u": u, "v": v, "depth": depth, "point_valid": valid,

@@ -30,6 +30,7 @@ from lidar_object_detection_tpu_torch.models.yolo.tta import (
     postprocess_tta, validate_tta_params)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
     fold_serving_variables, from_flax_variables)
+from lidar_object_detection_tpu_torch.utils import profiling
 
 
 class YoloDetector:
@@ -109,21 +110,27 @@ class YoloDetector:
         (:func:`full_float32`)."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
-        imgs = images.to(self.device).to(torch.float32) / 255.0
-        if self.tta == "hflip":
-            imgs = torch.cat([imgs, imgs.flip(2)], dim=0)
+        with profiling.span("detect.upload", self.device,
+                            nbytes=images.nbytes):
+            imgs = images.to(self.device)
         scope = (full_float32() if self.dtype == torch.float32
                  else contextlib.nullcontext())
         with scope:
-            return self.model(letterbox_image(imgs, self.spec).to(
-                self.dtype))
+            with profiling.span("detect.preprocess", self.device):
+                imgs = imgs.to(torch.float32) / 255.0
+                if self.tta == "hflip":
+                    imgs = torch.cat([imgs, imgs.flip(2)], dim=0)
+                x = letterbox_image(imgs, self.spec).to(self.dtype)
+            with profiling.span("detect.network", self.device):
+                return self.model(x)
 
     def decode(self, outputs) -> Dict[str, torch.Tensor]:
         """Raw outputs of :meth:`forward` -> detections, on the outputs'
         device: the kernels decode CUDA tensors, the twins CPU tensors."""
-        if self.tta != "hflip":
-            return postprocess_batch(outputs, self.params)
-        return postprocess_tta(outputs, self.params, self.tta_match_iou)
+        with profiling.span("detect.decode", self.device):
+            if self.tta != "hflip":
+                return postprocess_batch(outputs, self.params)
+            return postprocess_tta(outputs, self.params, self.tta_match_iou)
 
     @torch.no_grad()
     def detect(self, images) -> Dict[str, torch.Tensor]:

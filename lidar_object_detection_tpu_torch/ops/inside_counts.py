@@ -37,6 +37,7 @@ from lidar_object_detection_tpu_torch.geom.boxes import (
     inside_from_frame, masked_box_frame)
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.masks import unpack_point_bits
+from lidar_object_detection_tpu_torch.utils import profiling
 
 
 def _plain_frame(points, point_bits, corners, box_mask, num_det: int,
@@ -110,14 +111,15 @@ def inside_counts_cuda(points, point_bits, corners, box_mask, num_det: int):
     frame = frame.contiguous()
     counts = torch.zeros((b, num_det, g), dtype=torch.int32, device=device)
     totals = torch.zeros((b, num_det), dtype=torch.int32, device=device)
-    lib = kernel_lib.library()
-    code = lib.inside_counts_launch(
-        points.data_ptr(), point_bits.data_ptr(), frame.data_ptr(),
-        corners.data_ptr(), box_mask.data_ptr(), b, p, g, num_det,
-        counts.data_ptr(), totals.data_ptr(), kernel_lib.sm_count(device),
-        kernel_lib.stream_handle(device))
-    kernel_lib.check(code, "inside_counts_launch")
-    kernel_lib.LAUNCHES["inside_counts"] += 1
+    with profiling.span("kernel.inside_counts"):
+        lib = kernel_lib.library()
+        code = lib.inside_counts_launch(
+            points.data_ptr(), point_bits.data_ptr(), frame.data_ptr(),
+            corners.data_ptr(), box_mask.data_ptr(), b, p, g, num_det,
+            counts.data_ptr(), totals.data_ptr(),
+            kernel_lib.sm_count(device), kernel_lib.stream_handle(device))
+        kernel_lib.check(code, "inside_counts_launch")
+        kernel_lib.LAUNCHES["inside_counts"] += 1
     return counts, totals
 
 

@@ -35,6 +35,7 @@ import torch
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.hungarian import (PAD_COST,
                                                             masked_cost)
+from lidar_object_detection_tpu_torch.utils import profiling
 
 __all__ = ["PAD_COST", "lap", "lap_cuda", "lap_plain"]
 
@@ -154,12 +155,13 @@ def lap_cuda(cost, row_mask, col_mask):
     check(row_mask, "row_mask", torch.bool, (b, r), device)
     check(col_mask, "col_mask", torch.bool, (b, c), device)
     out = torch.empty((b, r), dtype=torch.int32, device=device)
-    lib = kernel_lib.library()
-    code = lib.lap_launch(cost.data_ptr(), row_mask.data_ptr(),
-                          col_mask.data_ptr(), b, r, c, out.data_ptr(),
-                          kernel_lib.stream_handle(device))
-    kernel_lib.check(code, "lap_launch")
-    kernel_lib.LAUNCHES["lap"] += 1
+    with profiling.span("kernel.lap"):
+        lib = kernel_lib.library()
+        code = lib.lap_launch(cost.data_ptr(), row_mask.data_ptr(),
+                              col_mask.data_ptr(), b, r, c, out.data_ptr(),
+                              kernel_lib.stream_handle(device))
+        kernel_lib.check(code, "lap_launch")
+        kernel_lib.LAUNCHES["lap"] += 1
     return out
 
 

@@ -54,6 +54,7 @@ import torch
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.masks import pack_masks
 from lidar_object_detection_tpu_torch.ops.resize import resize_taps
+from lidar_object_detection_tpu_torch.utils import profiling
 
 MAX_DET = 32
 # a block of K2/K3 covers this many columns (128 threads, 4 pixels each)
@@ -264,8 +265,9 @@ def assemble_masks_cuda(ops: MaskOperands,
     b = ops.table.shape[0]
     out = torch.empty((b, *ops.shape), dtype=torch.int32,
                       device=ops.table.device)
-    launch("mask_assemble_launch", ops, out, guard)
-    kernel_lib.LAUNCHES["mask_assemble"] += 1
+    with profiling.span("kernel.mask_assemble"):
+        launch("mask_assemble_launch", ops, out, guard)
+        kernel_lib.LAUNCHES["mask_assemble"] += 1
     return out
 
 
@@ -273,8 +275,9 @@ def count_above_cuda(ops: MaskOperands) -> torch.Tensor:
     """Launch K3: (B, D) int32 pixel counts."""
     out = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
                       device=ops.table.device)
-    launch("mask_count_launch", ops, out)
-    kernel_lib.LAUNCHES["mask_count"] += 1
+    with profiling.span("kernel.mask_count"):
+        launch("mask_count_launch", ops, out)
+        kernel_lib.LAUNCHES["mask_count"] += 1
     return out
 
 
@@ -282,8 +285,9 @@ def peak_cuda(ops: MaskOperands) -> torch.Tensor:
     """Launch the peak pass: (B, D) float32 in-box peaks."""
     out = torch.zeros(ops.table.shape[:2], dtype=torch.int32,
                       device=ops.table.device)
-    launch("mask_peak_launch", ops, out)
-    kernel_lib.LAUNCHES["mask_peak"] += 1
+    with profiling.span("kernel.mask_peak"):
+        launch("mask_peak_launch", ops, out)
+        kernel_lib.LAUNCHES["mask_peak"] += 1
     return out.view(torch.float32)
 
 

@@ -29,6 +29,7 @@ import torch
 
 from lidar_object_detection_tpu_torch.geom.boxes import iou_2d_matrix
 from lidar_object_detection_tpu_torch.ops import kernel_lib
+from lidar_object_detection_tpu_torch.utils import profiling
 
 # the kernel's limit: 32 candidates on each lane of one warp
 MAX_CANDIDATES = 1024
@@ -100,14 +101,15 @@ def nms_cuda(boxes, scores, valid, iou_threshold: float, max_outputs: int):
         boxes = boxes.clone()            # the kernel reads float4 boxes
     out_idx = torch.empty((b, max_outputs), dtype=torch.int64, device=device)
     out_keep = torch.empty((b, max_outputs), dtype=torch.bool, device=device)
-    lib = kernel_lib.library()
-    code = lib.nms_launch(boxes.data_ptr(), scores.data_ptr(),
-                          valid.data_ptr(), b, n, max_outputs,
-                          float(iou_threshold), out_idx.data_ptr(),
-                          out_keep.data_ptr(),
-                          kernel_lib.stream_handle(device))
-    kernel_lib.check(code, "nms_launch")
-    kernel_lib.LAUNCHES["nms"] += 1
+    with profiling.span("kernel.nms"):
+        lib = kernel_lib.library()
+        code = lib.nms_launch(boxes.data_ptr(), scores.data_ptr(),
+                              valid.data_ptr(), b, n, max_outputs,
+                              float(iou_threshold), out_idx.data_ptr(),
+                              out_keep.data_ptr(),
+                              kernel_lib.stream_handle(device))
+        kernel_lib.check(code, "nms_launch")
+        kernel_lib.LAUNCHES["nms"] += 1
     return out_idx, out_keep
 
 

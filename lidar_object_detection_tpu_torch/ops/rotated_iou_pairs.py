@@ -32,6 +32,7 @@ import torch
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_pairs)
+from lidar_object_detection_tpu_torch.utils import profiling
 
 
 def rotated_iou_pairs_plain(anchors, idx, gt_boxes7):
@@ -68,13 +69,14 @@ def rotated_iou_pairs_cuda(anchors, idx, gt_boxes7, gt_valid,
     out = torch.empty((b, g, k), dtype=torch.float32, device=device)
     slow = (torch.zeros(1, dtype=torch.int32, device=device)
             if count_slow else None)
-    code = kernel_lib.library().rotated_iou_pairs_launch(
-        anchors.data_ptr(), n, idx.data_ptr(), gt_boxes7.data_ptr(),
-        gt_valid.data_ptr(), b, g, k, out.data_ptr(),
-        None if slow is None else slow.data_ptr(),
-        kernel_lib.stream_handle(device))
-    kernel_lib.check(code, "rotated_iou_pairs_launch")
-    kernel_lib.LAUNCHES["rotated_iou_pairs"] += 1
+    with profiling.span("kernel.rotated_iou_pairs"):
+        code = kernel_lib.library().rotated_iou_pairs_launch(
+            anchors.data_ptr(), n, idx.data_ptr(), gt_boxes7.data_ptr(),
+            gt_valid.data_ptr(), b, g, k, out.data_ptr(),
+            None if slow is None else slow.data_ptr(),
+            kernel_lib.stream_handle(device))
+        kernel_lib.check(code, "rotated_iou_pairs_launch")
+        kernel_lib.LAUNCHES["rotated_iou_pairs"] += 1
     return (out, slow) if count_slow else out
 
 

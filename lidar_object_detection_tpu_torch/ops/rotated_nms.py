@@ -33,6 +33,7 @@ import torch
 from lidar_object_detection_tpu_torch.ops import kernel_lib
 from lidar_object_detection_tpu_torch.ops.rotated_iou import (
     rotated_iou_matrix)
+from lidar_object_detection_tpu_torch.utils import profiling
 
 # the kernel's limit: every candidate in one block's shared memory
 MAX_CANDIDATES = 1024
@@ -115,14 +116,15 @@ def rotated_nms_cuda(boxes7, scores, valid, iou_threshold: float,
                            device=device)
         slow = torch.zeros(b, dtype=torch.int32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    lib = kernel_lib.library()
-    code = lib.rotated_nms_launch(
-        boxes7.data_ptr(), scores.data_ptr(), valid.data_ptr(), b, n,
-        max_outputs, float(iou_threshold), out_idx.data_ptr(),
-        out_keep.data_ptr(), ptr(rows), ptr(slow),
-        kernel_lib.stream_handle(device))
-    kernel_lib.check(code, "rotated_nms_launch")
-    kernel_lib.LAUNCHES["rotated_nms"] += 1
+    with profiling.span("kernel.rotated_nms"):
+        lib = kernel_lib.library()
+        code = lib.rotated_nms_launch(
+            boxes7.data_ptr(), scores.data_ptr(), valid.data_ptr(), b, n,
+            max_outputs, float(iou_threshold), out_idx.data_ptr(),
+            out_keep.data_ptr(), ptr(rows), ptr(slow),
+            kernel_lib.stream_handle(device))
+        kernel_lib.check(code, "rotated_nms_launch")
+        kernel_lib.LAUNCHES["rotated_nms"] += 1
     if iou_rows:
         return out_idx, out_keep, rows, slow
     return out_idx, out_keep

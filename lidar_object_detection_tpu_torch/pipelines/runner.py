@@ -42,6 +42,7 @@ from lidar_object_detection_tpu_torch.geom.boxes import transform_corners
 from lidar_object_detection_tpu_torch.models.stub import StubDetector
 from lidar_object_detection_tpu_torch.ops import masks as masks_lib
 from lidar_object_detection_tpu_torch.ops.scatter import scatter_depth_maps
+from lidar_object_detection_tpu_torch.utils import profiling
 from lidar_object_detection_tpu_torch.viz.overlay import (
     analysis_cloud_colors, overlay_masks)
 
@@ -129,25 +130,38 @@ class FusionPipeline:
         """Run the detector: the stub reads the frame records, a
         ``YoloDetector`` the batch's images, decoded here unless the caller
         (the streaming path) passes them decoded.  Returns tensors on the
-        pipeline's device."""
-        if isinstance(self.detector, StubDetector):
-            out = self.detector.detect_records(records)
-        else:
-            if images is None:
-                images = self.dataset.load_images(batch)
-            out = self.detector.detect(images)
-        return {k: torch.as_tensor(v).to(self.device) for k, v in out.items()}
+        pipeline's device.  Each call begins a chunk of the spans
+        (``utils.profiling``)."""
+        profiling.new_chunk()
+        with profiling.span("detect", self.device):
+            if isinstance(self.detector, StubDetector):
+                out = self.detector.detect_records(records)
+            else:
+                if images is None:
+                    images = self.dataset.load_images(batch)
+                out = self.detector.detect(images)
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in out.items()}
 
     def fuse(self, batch: FrameBatch, detections: Dict[str, torch.Tensor]):
+        """Fuse the batch's scans and boxes with its detections on the
+        device (``fusion.associate.fuse_batch``); the spans share the
+        chunk of the last :meth:`detect`."""
         d = self.device
-        return fuse_batch(
-            torch.from_numpy(batch.points).to(d),
-            torch.from_numpy(batch.point_valid).to(d),
-            torch.as_tensor(detections["mask_bits"]).to(d),
-            torch.as_tensor(detections["det_valid"]).to(d),
-            self._gt_corners(batch), torch.from_numpy(batch.box_valid).to(d),
-            self._velo_to_rect, self._corners_to_velo, self._intrinsics,
-            self.params)
+        with profiling.span("fuse", d):
+            with profiling.span("fuse.upload", d, nbytes=(
+                    batch.points.nbytes + batch.point_valid.nbytes
+                    + batch.corners_cam0.nbytes + batch.box_valid.nbytes)):
+                points = torch.from_numpy(batch.points).to(d)
+                point_valid = torch.from_numpy(batch.point_valid).to(d)
+                corners = self._gt_corners(batch)
+                box_valid = torch.from_numpy(batch.box_valid).to(d)
+            return fuse_batch(
+                points, point_valid,
+                torch.as_tensor(detections["mask_bits"]).to(d),
+                torch.as_tensor(detections["det_valid"]).to(d),
+                corners, box_valid, self._velo_to_rect,
+                self._corners_to_velo, self._intrinsics, self.params)
 
     # ------------------------------------------------------------------
     def run(self, frame_ids: Optional[Sequence[int]] = None,
