@@ -18,7 +18,6 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from lidar_object_detection_tpu_torch.models.common import full_float32
@@ -30,7 +29,7 @@ from lidar_object_detection_tpu_torch.models.yolo.tta import (
     postprocess_tta, validate_tta_params)
 from lidar_object_detection_tpu_torch.models.yolo.weights import (
     fold_serving_variables, from_flax_variables)
-from lidar_object_detection_tpu_torch.utils import profiling
+from lidar_object_detection_tpu_torch.utils import h2d, profiling
 
 
 class YoloDetector:
@@ -107,12 +106,11 @@ class YoloDetector:
         """(B, H0, W0, 3) uint8 RGB (numpy or tensor) -> the network's raw
         outputs; with hflip TTA, one forward over both views (2B frames,
         the mirrored views last).  A float32 network runs in full float32
-        (:func:`full_float32`)."""
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
+        (:func:`full_float32`).  On the card the frames go through the
+        pinned ring of ``utils.h2d``."""
         with profiling.span("detect.upload", self.device,
                             nbytes=images.nbytes):
-            imgs = images.to(self.device)
+            imgs, = h2d.upload([images], self.device)
         scope = (full_float32() if self.dtype == torch.float32
                  else contextlib.nullcontext())
         with scope:

@@ -42,7 +42,7 @@ from lidar_object_detection_tpu_torch.geom.boxes import transform_corners
 from lidar_object_detection_tpu_torch.models.stub import StubDetector
 from lidar_object_detection_tpu_torch.ops import masks as masks_lib
 from lidar_object_detection_tpu_torch.ops.scatter import scatter_depth_maps
-from lidar_object_detection_tpu_torch.utils import profiling
+from lidar_object_detection_tpu_torch.utils import h2d, profiling
 from lidar_object_detection_tpu_torch.viz.overlay import (
     analysis_cloud_colors, overlay_masks)
 
@@ -84,6 +84,12 @@ class FusionPipeline:
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the plain twins on the CPU.  A ``YoloDetector``
     passed in must live on the same device.
+
+    On the card the copies to it go through the pinned ring of
+    ``utils.h2d``, and :meth:`detect` sends its batch's scans, validity
+    and boxes ahead while the detector runs; the :meth:`fuse` of that very
+    batch object takes them, once.  From ``detect`` until then the batch's
+    arrays are read in the background: leave them as they are.
     """
 
     def __init__(self, dataset: Kitti360Dataset, config: FusionConfig,
@@ -111,10 +117,16 @@ class FusionPipeline:
                                 else as_dev(t.corners_cam0_to_cam))
         self._corners_to_velo = as_dev(t.corners_to_velo)
         self._intrinsics = as_dev(dataset.camera.intrinsics)
+        # (batch, h2d.Handle) of the scans that the last detect sent ahead
+        self._ahead = None
 
-    def _gt_corners(self, batch: FrameBatch) -> torch.Tensor:
-        """Batch GT corners in the configured camera's projection frame."""
-        corners = torch.from_numpy(batch.corners_cam0).to(self.device)
+    def _gt_corners(self, batch: FrameBatch,
+                    corners: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Batch GT corners in the configured camera's projection frame,
+        from ``corners``, the batch's cam0 corners on the device, when
+        given."""
+        if corners is None:
+            corners, = h2d.upload([batch.corners_cam0], self.device)
         if self._corners_to_cam is not None:
             corners = transform_corners(corners, self._corners_to_cam)
         return corners
@@ -130,32 +142,57 @@ class FusionPipeline:
         """Run the detector: the stub reads the frame records, a
         ``YoloDetector`` the batch's images, decoded here unless the caller
         (the streaming path) passes them decoded.  Returns tensors on the
-        pipeline's device.  Each call begins a chunk of the spans
+        pipeline's device.  On the card the batch's scans are sent ahead
+        (see the class).  Each call begins a chunk of the spans
         (``utils.profiling``)."""
         profiling.new_chunk()
         with profiling.span("detect", self.device):
-            if isinstance(self.detector, StubDetector):
-                out = self.detector.detect_records(records)
-            else:
-                if images is None:
-                    images = self.dataset.load_images(batch)
-                out = self.detector.detect(images)
-            return {k: torch.as_tensor(v).to(self.device)
-                    for k, v in out.items()}
+            ahead = self._send_ahead(batch)
+            self._ahead = None if ahead is None else (batch, ahead)
+            try:
+                if isinstance(self.detector, StubDetector):
+                    out = self.detector.detect_records(records)
+                else:
+                    if images is None:
+                        images = self.dataset.load_images(batch)
+                    out = self.detector.detect(images)
+                return dict(zip(out, h2d.upload(list(out.values()),
+                                                self.device)))
+            finally:
+                if ahead is not None:
+                    ahead.release()
+
+    @staticmethod
+    def _scan_arrays(batch: FrameBatch) -> list:
+        return [batch.points, batch.point_valid, batch.corners_cam0,
+                batch.box_valid]
+
+    def _send_ahead(self, batch: FrameBatch) -> Optional[h2d.Handle]:
+        """On the card: hand the batch's scan arrays to the uploader, to
+        be copied behind the frames while the detector runs."""
+        if self.device.type != "cuda":
+            return None
+        arrays = self._scan_arrays(batch)
+        with profiling.span("detect.prefetch", self.device,
+                            nbytes=sum(a.nbytes for a in arrays)):
+            return h2d.uploader(self.device).submit(arrays, after_next=True)
 
     def fuse(self, batch: FrameBatch, detections: Dict[str, torch.Tensor]):
         """Fuse the batch's scans and boxes with its detections on the
         device (``fusion.associate.fuse_batch``); the spans share the
-        chunk of the last :meth:`detect`."""
+        chunk of the last :meth:`detect`.  The scans that ``detect`` sent
+        ahead for this very ``batch`` are taken, once; any other call
+        copies them itself (``fuse.upload`` counts the bytes it copied)."""
         d = self.device
+        ahead, self._ahead = self._ahead, None
+        hit = ahead is not None and ahead[0] is batch
+        arrays = self._scan_arrays(batch)
         with profiling.span("fuse", d):
-            with profiling.span("fuse.upload", d, nbytes=(
-                    batch.points.nbytes + batch.point_valid.nbytes
-                    + batch.corners_cam0.nbytes + batch.box_valid.nbytes)):
-                points = torch.from_numpy(batch.points).to(d)
-                point_valid = torch.from_numpy(batch.point_valid).to(d)
-                corners = self._gt_corners(batch)
-                box_valid = torch.from_numpy(batch.box_valid).to(d)
+            with profiling.span("fuse.upload", d, nbytes=0 if hit else sum(
+                    a.nbytes for a in arrays)):
+                points, point_valid, corners, box_valid = (
+                    ahead[1].result() if hit else h2d.upload(arrays, d))
+                corners = self._gt_corners(batch, corners)
             return fuse_batch(
                 points, point_valid,
                 torch.as_tensor(detections["mask_bits"]).to(d),
@@ -241,7 +278,7 @@ class FusionPipeline:
             return idx, {"iou": iou}
         idx, score, iou = hungarian_match(
             boxes, detections["det_valid"], corners,
-            torch.from_numpy(batch.box_valid).to(self.device),
+            h2d.upload([batch.box_valid], self.device)[0],
             self._intrinsics, c.hungarian_min_score, c.hungarian_min_iou,
             c.score_weight_iou, c.score_weight_center, c.score_weight_size,
             c.center_norm)
@@ -464,7 +501,7 @@ class FusionPipeline:
         fused = self.fuse(batch, dets)
         d = self.config.shapes.max_detections
         inside = point_inside_labels(
-            torch.from_numpy(batch.points).to(self.device),
+            h2d.upload([batch.points], self.device)[0],
             fused["point_bits"], fused["corners_velo"], fused["best_box"],
             fused["matched"], d)
         bits = fused["point_bits"].cpu().numpy()
