@@ -1,17 +1,19 @@
 """One run of a cell: set-up, the measured window, the trace's reduction
-and the comparison with the reference.
+and the comparison with the reference.  What is particular to a model
+family (its system, its inputs, its kernels, its operands and its
+comparison) comes from the cell's family module (``spec.py``).
 
 Set-up (``setup_s``, from the start of the process to the window): the
-program loads the configuration's checkpoint, the traffic generator makes
+family's system loads the configuration's checkpoint, the family makes
 the chunk from the seed, and the chunk goes through the timed path twice,
 which builds the kernels (``csrc/build`` inside the checkout caches them)
 and warms every shape the window uses.
 
-The window is a closed loop: one caller hands in the chunk's arrays again
-when the previous run's rows are back, until ``seconds`` have passed.
+The window is a closed loop: one caller hands in the chunk again when the
+previous run's outputs are back, until ``seconds`` have passed.
 ``frames_per_s`` is every frame of the window over its whole length;
 ``batch_ms_p95`` the 95th percentile of all its chunks' times from
-hand-in to rows.  A traced run (``trace``) times every chunk's layers
+hand-in to outputs.  A traced run (``trace``) times every chunk's layers
 (``system.Spans``) and runs the profiler over ``PROFILED`` chunks after
 ``PROFILE_AFTER`` (``trace.Profiler``); its metrics are the cell's
 per-layer ones, each read by its own reader in ``benchmark/metrics``.
@@ -20,8 +22,8 @@ is over, by running the chunk again (the program's outputs do not depend
 on what ran before).
 
 Once the window has closed, the peak of device memory has been read and
-the program is freed, the reference judges a sample of the window's
-chunks drawn from the seed (``judge.py``).
+the program is freed, the family's reference judges a sample of the
+window's chunks drawn from the seed.
 """
 
 from __future__ import annotations
@@ -38,14 +40,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark.harness import judge as judge_lib
-from benchmark.harness import spec, traffic
+from benchmark.harness import spec
 from benchmark.harness.roofline import PEAK_FLOPS_PER_S
-from benchmark.harness.system import (
-    OFF_PATH_KERNELS, PATH_KERNELS, PortSystem, Spans)
+from benchmark.harness.system import Spans
 from benchmark.harness.trace import Profiler, warm_up
-from benchmark.reference import decode as ref_decode
-from benchmark.reference.system import Reference
 
 # the profiler starts once the sample of chunks for the comparison has
 # filled, so that no chunk it traces allocates device memory anew
@@ -89,35 +87,33 @@ def launch_diff(before: Dict[str, int], after: Dict[str, int]):
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
-def launches_ok(diff: Dict[str, int]) -> bool:
-    return all(diff.get(k, 0) == 1 for k in PATH_KERNELS) and not any(
-        diff.get(k, 0) for k in OFF_PATH_KERNELS)
+def launches_ok(family, diff: Dict[str, int]) -> bool:
+    return all(diff.get(k, 0) == 1 for k in family.PATH_KERNELS) and not any(
+        diff.get(k, 0) for k in family.OFF_PATH_KERNELS)
 
 
-def mask_operands(config: dict, det: Dict[str, torch.Tensor]):
-    """K2's operands of a chunk, as ``roofline.mask_bound`` takes them."""
-    s = config["serving"]
-    spec_ = ref_decode.LetterboxSpec.build(traffic.H0, traffic.W0,
-                                           s["imgsz"])
-    top, bottom, left, right = spec_.proto_crop(spec_.dst_h // 4,
-                                                spec_.dst_w // 4)
-    mh, mw = bottom - top, right - left
-    taps = lambda n, m: np.argmax(ref_decode.resize_weight_matrix(n, m) > 0,
-                                  axis=0)
-    boxes = det["boxes"].float().cpu().numpy()
-    return ((boxes.shape[0], s["max_detections"], mh, mw),
-            (traffic.H0, traffic.W0), taps(mh, traffic.H0),
-            taps(mw, traffic.W0), boxes, det["det_valid"].cpu().numpy())
+def to_host(tree):
+    """``tree`` with every tensor in it as a numpy array, floating point
+    ones narrower than float32 in float32."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point() and tree.element_size() < 4:
+            tree = tree.float()
+        return tree.cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(to_host(v) for v in tree)
+    return tree
 
 
-def run_window(system, chunk, seconds: float, seed: int, samples: int,
-               spans: Optional[Spans] = None,
+def run_window(system, family, chunk, seconds: float, seed: int,
+               samples: int, spans: Optional[Spans] = None,
                profiler: Optional[Profiler] = None):
     """The closed loop.  Returns the window's record."""
     reservoir = Reservoir(samples, seed)
     latencies, launch_bad, profiled_chunks = [], 0, 0
     frames, k = 0, 0
-    if torch.device(system.device).type == "cuda":
+    if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     start = time.perf_counter()
     while True:
@@ -128,11 +124,11 @@ def run_window(system, chunk, seconds: float, seed: int, samples: int,
             profiler.start()
         before = system.launches()
         t0 = time.perf_counter()
-        det, fused, fused_np, det_valid, rows = system.step(chunk)
+        out = system.step(chunk)
         t1 = time.perf_counter()
         latencies.append(t1 - t0)
         frames += chunk.frames
-        if not launches_ok(launch_diff(before, system.launches())):
+        if not launches_ok(family, launch_diff(before, system.launches())):
             launch_bad += 1
         if profiled:
             profiler.frames += chunk.frames
@@ -141,8 +137,7 @@ def run_window(system, chunk, seconds: float, seed: int, samples: int,
                 profiler.stop()
                 spans.active = True
         if not profiled:
-            reservoir.offer(lambda: {"det": det, "fused": fused_np,
-                                     "rows": rows, "index": k})
+            reservoir.offer(lambda: dict(family.sample(out), index=k))
         k += 1
         # a traced window runs on until its profiled chunks are done
         if t1 - start >= seconds and (profiler is None or profiler.done):
@@ -157,21 +152,14 @@ def run_window(system, chunk, seconds: float, seed: int, samples: int,
 def read_per_layer(cell, record, spans, summary) -> Dict:
     """Each per-layer metric of the cell by its reader; a reader that
     finds nothing to read gives None and its metric is left out."""
-    cfg = cell.config
-    lb = ref_decode.LetterboxSpec.build(traffic.H0, traffic.W0,
-                                        cfg["serving"]["imgsz"])
     ctx = types.SimpleNamespace(
-        config=cfg, mix=cell.mix, spans=spans.milliseconds(), trace=summary,
+        config=cell.config, mix=cell.mix, spans=spans.milliseconds(),
+        trace=summary,
         # the window outside the profiled chunks, which the profiler slows
         frames=record.frames - (summary or {}).get("frames", 0),
         window_s=record.window_s - (summary or {}).get("window_s", 0.0),
-        views_per_frame=2 if cfg["serving"]["tta"] == "hflip" else 1,
-        input_hw=(lb.dst_h, lb.dst_w),
-        peak_flops_per_s=PEAK_FLOPS_PER_S[cfg["dtype"]],
-        # K1's operands (words, box mask) and K2's of each profiled chunk
-        k1_operands=[(f["point_bits"], f["box_visible"])
-                     for _, f in record.operands],
-        mask_operands=[mask_operands(cfg, d) for d, _ in record.operands])
+        peak_flops_per_s=PEAK_FLOPS_PER_S[cell.config["dtype"]],
+        **cell.family.layer_context(cell, record))
     out = {}
     for m in cell.per_layer:
         value = spec.load_reader(m["name"])(ctx)
@@ -202,19 +190,16 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
     """One run.  Returns the result line's object (``correct``,
     ``attempted``, ``failed``, ``metrics``, ``device``, with ``trace``
     ``breakdown``, and ``checks`` last)."""
-    root = spec.ROOT
+    root, family = spec.ROOT, cell.family
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     spans = Spans(dev) if trace else None
     with tempfile.TemporaryDirectory(prefix="bench-calib-") as workdir:
         marks = [("imports", time.perf_counter())]
-        if make_system is None:
-            system = PortSystem(root, cell.config, cell.mix, dev, workdir,
-                                spans)
-        else:
-            system = make_system(root, cell, dev, workdir, spans)
+        system = (make_system or family.make_system)(root, cell, dev,
+                                                      workdir, spans)
         marks.append(("load", time.perf_counter()))
-        data = traffic.make_chunk(root, cell.mix, cell.config, seed, chunk)
+        data = family.make_chunk(root, cell, seed, chunk)
         marks.append(("traffic", time.perf_counter()))
         for _ in range(2):
             system.step(data)
@@ -233,7 +218,7 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
             f"{name} {b - a:.3f}" for (name, _), a, b in
             zip(marks, stamps, stamps[1:])) + f"; total {setup_s:.3f}")
         profiler = Profiler() if (trace and cuda) else None
-        record = run_window(system, data, seconds, seed,
+        record = run_window(system, family, data, seconds, seed,
                             int(cell.mix["judge_chunks"]), spans, profiler)
         if cuda:
             torch.cuda.synchronize()
@@ -247,7 +232,7 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
             # again once the window is over, so that the window keeps no
             # chunk's device tensors alive
             spans.active = False
-            record.operands = [system.step(data)[:2]] * \
+            record.operands = [family.operands(system, data)] * \
                 record.profiled_chunks
             metrics = read_per_layer(cell, record, spans, summary)
             log(f"trace read in {time.perf_counter() - t_trace} s")
@@ -277,10 +262,7 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
         log(f"kernel launches over the set-up and window: "
             f"{record.launches}; chunks off the path's launches: "
             f"{record.launch_bad} of {record.chunks}")
-        samples = [{"index": s["index"],
-                    "det": judge_lib.host_detections(s["det"]),
-                    "fused": s["fused"], "rows": s["rows"]}
-                   for s in record.samples]
+        samples = to_host(record.samples)
         launch_bad = record.launch_bad if cuda else 0
         if spans is not None:
             spans.events.clear()
@@ -289,10 +271,11 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.empty_cache()
     t_judge = time.perf_counter()
-    reference = Reference(root, cell.config, dev)
-    numbers, correct = judge_lib.judge(reference, data, samples, launch_bad,
-                                       cell.config["limits"],
-                                       cell.config["serving"]["conf"])
+    limits = cell.config["limits"]
+    numbers, correct = family.judge(root, cell, dev, data, samples,
+                                    launch_bad)
+    correct = bool(correct) and all(numbers[k] <= v
+                                    for k, v in limits.items())
     t_judge = time.perf_counter() - t_judge
     result["correct"] = correct
     result["metrics"] = metrics
@@ -302,11 +285,10 @@ def run_cell(cell: "spec.Cell", seed: int, seconds: float, trace: bool,
     if trace and "breakdown" in result:
         result["device"].update(busy_s=summary["busy_s"],
                                 window_s=summary["window_s"])
-    result["checks"] = {k: {"value": numbers[k],
-                            "limit": cell.config["limits"][k]}
-                        for k in judge_lib.NUMBERS}
+    result["checks"] = {k: {"value": numbers[k], "limit": v}
+                        for k, v in limits.items()}
     log(f"judged chunks {[s['index'] for s in samples]} of the window "
         f"against the reference in {t_judge} s")
-    for k in judge_lib.NUMBERS:
-        log(f"check {k}: {numbers[k]} (limit {cell.config['limits'][k]})")
+    for k, v in limits.items():
+        log(f"check {k}: {numbers[k]} (limit {v})")
     return result

@@ -10,7 +10,6 @@ import pytest
 
 from benchmark.harness import cell as cell_lib
 from benchmark.harness import spec
-from benchmark.harness.control import ControlSystem
 
 
 @pytest.mark.parametrize("workload, chunk", [("n_csv_tta_b64", 2),
@@ -19,7 +18,7 @@ def test_control_is_not_correct(workload, chunk):
     cell = spec.load_cell(workload)
     result = cell_lib.run_cell(cell, 2024, 0.1, False, time.perf_counter(),
                                device="cpu", chunk=chunk,
-                               make_system=ControlSystem)
+                               make_system=cell.family.control_system)
     assert not result["correct"]
     failed = [k for k, v in result["checks"].items()
               if v["value"] > v["limit"]]

@@ -1,6 +1,6 @@
 """The benchmark's files: ``BENCHMARK.json`` keeps to its format, and
-every configuration, traffic mix and per-layer metric it names is found
-by its name in a file of its own."""
+every configuration, traffic mix, model family and per-layer metric it
+names is found by its name in a file of its own."""
 
 import json
 import os
@@ -8,7 +8,7 @@ import re
 
 import pytest
 
-from benchmark.harness import judge, spec, traffic
+from benchmark.harness import spec
 
 with open(os.path.join(spec.ROOT, "BENCHMARK.json")) as f:
     BENCH = json.load(f)
@@ -49,13 +49,11 @@ def test_names_units_and_bounds():
 def test_cell_files_load(workload):
     cell = spec.load_cell(workload, BENCH)
     assert cell.chips == 1
-    assert set(cell.config["limits"]) == set(judge.NUMBERS)
+    assert set(cell.config["limits"]) == set(cell.family.NUMBERS)
     assert cell.config["reduced"] == []
     assert os.path.isfile(os.path.join(spec.ROOT, cell.config["checkpoint"]))
-    cars = traffic.load_cars(spec.ROOT, cell.config["name"],
-                             cell.mix["frames"]["sources"])
-    assert len(cars) == len(cell.mix["frames"]["sources"])
-    assert all(len(boxes) for boxes in cars)
+    assert cell.family.make_chunk(spec.ROOT, cell, 2 ** 31 + 1, 1).frames \
+        == 1
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import scene
+from benchmark.harness import scene, traffic
 from benchmark.harness.png import read_png_rgb
 from benchmark.harness.spec import ROOT, load_cell, load_json
 from benchmark.reference import decode as rd
@@ -96,6 +96,15 @@ def test_detections_agree_on_a_committed_frame(both):
     assert float((got["scores"] - want["scores"]).abs().max()) <= score_tol
     assert float((got["mask_bits"] != want["mask_bits"]).float().mean()) \
         <= word_tol
+
+
+@pytest.mark.parametrize("workload", ["n_csv_tta_b64", "x_headline_b64"])
+def test_the_reference_finds_cars_in_every_committed_frame(workload):
+    cell = load_cell(workload)
+    sources = cell.mix["frames"]["sources"]
+    cars = traffic.load_cars(ROOT, cell.config["name"], sources)
+    assert len(cars) == len(sources)
+    assert all(len(boxes) for boxes in cars)
 
 
 def test_fusion_and_rows_equal_the_ports():
